@@ -1,0 +1,86 @@
+"""Carry retriever weights from a Flax parameter tree into the port.
+
+``retriever_state_dict_from_jax`` takes the JAX package's MhopRetriever
+parameter tree with numpy leaves (``jax.device_get(params)``, with or
+without the outer ``{"params": ...}``) and returns a state dict under the
+reference's names: ``encoder.*`` (HF layout), ``project.0``, ``project.1``.
+It is the port's own copy of the mapping in the JAX package's
+``models/export.py``; no pooler is synthesized because the port's module
+has none.  Load the result with ``MhopRetriever.load_state_dict``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+StateDict = Dict[str, np.ndarray]
+
+
+def _np(x) -> np.ndarray:
+    return np.asarray(x, dtype=np.float32)
+
+
+def _dense(out: StateDict, name: str, p: Dict) -> None:
+    # Flax Dense kernel is (in, out); torch Linear weight is (out, in)
+    out[f"{name}.weight"] = np.ascontiguousarray(_np(p["kernel"]).T)
+    out[f"{name}.bias"] = _np(p["bias"])
+
+
+def _layer_norm(out: StateDict, name: str, p: Dict) -> None:
+    out[f"{name}.weight"] = _np(p["scale"])
+    out[f"{name}.bias"] = _np(p["bias"])
+
+
+def _qkv(out: StateDict, name: str, p: Dict) -> None:
+    k = _np(p["kernel"])                      # (in, heads, head_dim)
+    out[f"{name}.weight"] = np.ascontiguousarray(k.reshape(k.shape[0], -1).T)
+    out[f"{name}.bias"] = _np(p["bias"]).reshape(-1)
+
+
+def _attn_out(out: StateDict, name: str, p: Dict) -> None:
+    k = _np(p["kernel"])                      # (heads, head_dim, out)
+    out[f"{name}.weight"] = np.ascontiguousarray(k.reshape(-1, k.shape[-1]).T)
+    out[f"{name}.bias"] = _np(p["bias"])
+
+
+def encoder_state_dict_from_jax(enc: Dict, prefix: str = "") -> StateDict:
+    """Flax TransformerEncoder params → HF BERT/RoBERTa model names."""
+    p = prefix
+    out: StateDict = {}
+    emb = enc["embeddings"]
+    for name in ("word_embeddings", "position_embeddings",
+                 "token_type_embeddings"):
+        out[f"{p}embeddings.{name}.weight"] = _np(emb[name]["embedding"])
+    _layer_norm(out, f"{p}embeddings.LayerNorm", emb["layer_norm"])
+    if "embeddings_project" in emb:
+        raise NotImplementedError("embedding_size != hidden_size")
+    i = 0
+    while f"layer_{i}" in enc:
+        lp = f"{p}encoder.layer.{i}."
+        layer = enc[f"layer_{i}"]
+        attn = layer["attention"]
+        _qkv(out, f"{lp}attention.self.query", attn["query"])
+        _qkv(out, f"{lp}attention.self.key", attn["key"])
+        _qkv(out, f"{lp}attention.self.value", attn["value"])
+        _attn_out(out, f"{lp}attention.output.dense", attn["out"])
+        _layer_norm(out, f"{lp}attention.output.LayerNorm",
+                    layer["attention_layer_norm"])
+        _dense(out, f"{lp}intermediate.dense", layer["intermediate"])
+        _dense(out, f"{lp}output.dense", layer["output"])
+        _layer_norm(out, f"{lp}output.LayerNorm", layer["output_layer_norm"])
+        i += 1
+    return out
+
+
+def retriever_state_dict_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
+    """MhopRetriever Flax params (numpy leaves) → the port's state dict."""
+    if "params" in params and "encoder" not in params:
+        params = params["params"]
+    out = encoder_state_dict_from_jax(params["encoder"], prefix="encoder.")
+    _dense(out, "project.0", params["project"]["dense"])
+    _layer_norm(out, "project.1", params["project"]["layer_norm"])
+    return {k: torch.from_numpy(np.array(v, np.float32))
+            for k, v in out.items()}

@@ -1,0 +1,274 @@
+"""2-hop beam search over a device-resident index (PyTorch).
+
+The counterpart of the JAX package's ``search/beam.py``: encode the
+question → MIPS top-beam1 → empty-doc patch → on-device hop-2 query
+assembly (gather pre-tokenized doc ids + id-level pair concat, exactly HF
+pair encoding with longest-first truncation) → length-bucketed q⊕p encode
+→ MIPS top-beam2 (PCA-prefiltered under ``pca_hops``) → chain scores
+d1 + d2 → top-k chains.
+
+Eager PyTorch replaces the JAX engine's single jit: the bucketed hop-2
+encode reads every tile's longest row in one device→host transfer and
+then encodes each tile at its width (the JAX engine's ``lax.cond``).
+The search steps carry ``torch.profiler`` ranges (hop1_encode, hop1_mips,
+hop2_assemble, hop2_encode, hop2_mips, chain_topk); they cost nothing
+unless a profiler is recording.
+Not ported yet (each raises NotImplementedError): candidate pruning
+(``hop2_prune_margin``), the stop-skip cascade (``stop_skip_threshold``,
+``encode_qsp_fn``), sharding (``mesh``) and online updates.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from ..core.config import SearchConfig
+from ..core.device import resolve_device
+from ..data.tokenization import TokenizerSpec
+from ..index.store import DenseIndex
+from ..ops.mips import (NEG_INF, merge_multivector, mips_topk, mips_topk_pca,
+                        topk_lower_index)
+
+
+def truncate_longest_first(len_a, len_b, budget: int):
+    """Final (len_a', len_b') after HF longest-first pair truncation:
+    a keeps min(len_a, max(ceil(budget/2), budget - len_b))."""
+    half = -(-budget // 2)
+    a = torch.minimum(len_a, torch.clamp(budget - len_b, min=half))
+    b = torch.minimum(len_b, budget - a)
+    return a, b
+
+
+def assemble_pair_inputs(a_ids, a_lens, b_ids, b_lens, max_len: int,
+                         spec: TokenizerSpec):
+    """Rows of raw ids (no specials) → (input_ids, attention_mask[,
+    token_type_ids]) exactly as the host tokenizer's encode_pair gives."""
+    n_special = 4 if spec.roberta_style else 3
+    budget = max_len - n_special
+    ka, kb = truncate_longest_first(a_lens.to(torch.int32),
+                                    b_lens.to(torch.int32), budget)
+    ka, kb = ka[:, None], kb[:, None]
+    j = torch.arange(max_len, dtype=torch.int32, device=a_ids.device)[None, :]
+    n_mid = 2 if spec.roberta_style else 1
+    sep1_pos = 1 + ka
+    b_start = sep1_pos + n_mid
+    sep_end = b_start + kb
+    total = sep_end + 1
+    bsz = a_ids.shape[0]
+    a_gather = torch.clamp(j - 1, 0, a_ids.shape[1] - 1).expand(bsz, -1)
+    b_gather = torch.clamp(j - b_start, 0, b_ids.shape[1] - 1)
+    a_tok = torch.gather(a_ids.to(torch.int32), 1, a_gather.long())
+    b_tok = torch.gather(b_ids.to(torch.int32), 1, b_gather.long())
+    ids = torch.where(
+        j == 0, spec.cls_id,
+        torch.where(j < sep1_pos, a_tok,
+        torch.where(j < b_start, spec.sep_id,
+        torch.where(j < sep_end, b_tok,
+        torch.where(j == sep_end, spec.sep_id, spec.pad_id)))))
+    out = {"input_ids": ids.to(torch.int32),
+           "attention_mask": (j < total).to(torch.int32)}
+    if not spec.roberta_style:
+        out["token_type_ids"] = ((j >= b_start) & (j < total)).to(torch.int32)
+    return out
+
+
+def _to_tensor(x, device, dtype=None) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        t = x
+    else:
+        a = np.asarray(x)
+        if a.dtype == np.uint16:       # 16-bit token store: keep 16 bits
+            a = a.view(np.int16)
+        t = torch.from_numpy(np.ascontiguousarray(a))
+    t = t.to(device)
+    return t if dtype is None else t.to(dtype)
+
+
+@dataclasses.dataclass
+class BeamSearcher:
+    """2-hop retrieval engine over a device-resident index.
+
+    ``encode_fn(input_ids, mask, token_type_ids=None) -> (B, D) fp32``,
+    typically ``MhopRetriever.encode_seq``.  ``text_ids`` is the (N_pad, Lt)
+    token store: int32, or 16-bit (uint16 numpy / int16 tensor), widened
+    with ``& 0xFFFF`` after the gather.  ``device`` defaults to ``cuda``."""
+
+    encode_fn: Callable
+    index: DenseIndex
+    text_ids: torch.Tensor
+    text_lens: torch.Tensor
+    empty: torch.Tensor
+    spec: TokenizerSpec
+    config: SearchConfig
+    mesh: Optional[object] = None
+    encode_qsp_fn: Optional[Callable] = None
+    device: Optional[object] = None
+
+    def __post_init__(self):
+        cfg = self.config
+        if self.mesh is not None:
+            raise NotImplementedError("sharded search is not ported yet")
+        if self.encode_qsp_fn is not None or cfg.stop_skip_threshold > 0:
+            raise NotImplementedError(
+                "the unified stop head / stop-skip cascade is not ported yet")
+        if cfg.hop2_prune_margin != 0:
+            raise NotImplementedError(
+                "hop-2 candidate pruning is not ported yet")
+        if cfg.use_pca and self.index.pca_proj is None:
+            raise ValueError("use_pca requires an index built with pca_dims")
+        self.device = resolve_device(self.device)
+        if self.index.vectors.device.type != self.device.type:
+            raise ValueError(f"index lives on {self.index.vectors.device}, "
+                             f"engine on {self.device}")
+        self.text_ids = _to_tensor(self.text_ids, self.device)
+        if self.text_ids.dtype not in (torch.int32, torch.int16, torch.int64):
+            raise ValueError(f"token store dtype {self.text_ids.dtype}")
+        self.text_lens = _to_tensor(self.text_lens, self.device)
+        self.empty = _to_tensor(self.empty, self.device, torch.bool)
+
+    def _pca_on_hop(self, hop: int) -> bool:
+        mode = self.config.pca_hops
+        if mode == "auto":
+            return hop == 2 or not self.config.hop2_buckets
+        return str(hop) in mode
+
+    def _mips(self, queries, k: int, pca: bool = True):
+        """(vals, doc_ids, cert): cert is the per-query certificate mask
+        when the PCA prefilter ran on this hop, else None."""
+        idx, cfg = self.index, self.config
+        vectors = idx.vectors
+        n_pad = vectors.shape[0]
+        n_valid = idx.n_docs if idx.n_docs < n_pad else None
+        m = idx.multi_vector
+        k_rows = k * m
+        cert = None
+        use_pca = pca and cfg.use_pca
+        if use_pca and n_pad // idx.pca_cand_rows < 2:
+            # one candidate chunk leaves nothing unselected to certify
+            # against: route the hop to the plain scan
+            use_pca = False
+        if use_pca:
+            cand = idx.pca_cand_rows
+            kc = max(1, min(cfg.pca_k_chunks, n_pad // cand - 1))
+            vals, rows, cert = mips_topk_pca(
+                vectors, idx.pca_proj, idx.pca_rot, idx.pca_bounds, queries,
+                k_rows, k_chunks=kc, cand_rows=cand, n_valid=n_valid,
+                doc_scales=idx.scales)
+        else:
+            vals, rows = mips_topk(vectors, queries, k_rows, n_valid=n_valid,
+                                   doc_scales=idx.scales)
+        vals, docs = merge_multivector(vals, rows, k, m)
+        return vals, docs.long(), cert
+
+    def _encode_hop2(self, qsp):
+        """Encode hop-2 rows, length-adaptive when cfg.hop2_buckets is set:
+        rows sorted by length (stable) split into tiles, each encoded at
+        its bucket width when every row fits, else at full width."""
+        fn = self.encode_fn
+        ids, mask = qsp["input_ids"], qsp["attention_mask"]
+        tt = qsp.get("token_type_ids")
+        buckets = tuple(self.config.hop2_buckets or ())
+        fracs = tuple(self.config.hop2_tile_fracs or ())
+        n_rows, L = ids.shape
+        if not buckets:
+            return fn(ids, mask, tt)
+        n_tiles = len(buckets)
+        if fracs and len(fracs) == n_tiles:
+            sizes = [int(round(f * n_rows)) for f in fracs]
+            sizes[-1] = n_rows - sum(sizes[:-1])
+        elif n_rows % n_tiles == 0:
+            sizes = [n_rows // n_tiles] * n_tiles
+        else:
+            return fn(ids, mask, tt)
+        if min(sizes) <= 0:
+            return fn(ids, mask, tt)
+        ends = np.cumsum(sizes).tolist()
+        starts = [0] + ends[:-1]
+
+        lens = mask.sum(dim=1).to(torch.int32)
+        keys_s, order = torch.sort(lens, stable=True)
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(n_rows, device=order.device)
+        ids_s, mask_s = ids[order], mask[order]
+        tt_s = None if tt is None else tt[order]
+        # every tile's longest row in one device→host transfer
+        tile_max = keys_s[torch.tensor([e - 1 for e in ends],
+                                       device=keys_s.device)].tolist()
+        tiles = []
+        for t in range(n_tiles):
+            sl = slice(starts[t], ends[t])
+            w = min(int(buckets[t]), L)
+            if w >= L or tile_max[t] > w:
+                w = L
+            tiles.append(fn(ids_s[sl, :w], mask_s[sl, :w],
+                            None if tt_s is None else tt_s[sl, :w]))
+        return torch.cat(tiles, dim=0)[inv]
+
+    def _search_impl(self, q_inputs, q_raw_ids, q_raw_lens, *, beam1: int,
+                     beam2: int, topk: int):
+        cfg = self.config
+        bsz = q_raw_ids.shape[0]
+        with record_function("hop1_encode"):
+            q_vec = self.encode_fn(q_inputs["input_ids"],
+                                   q_inputs["attention_mask"],
+                                   q_inputs.get("token_type_ids"))
+        with record_function("hop1_mips"):
+            d1, i1, cert1 = self._mips(q_vec.float(), beam1,
+                                       pca=self._pca_on_hop(1))
+            d1 = torch.where(self.empty[i1], NEG_INF, d1)
+
+        with record_function("hop2_assemble"):
+            flat1 = i1.reshape(-1)
+            doc_ids = self.text_ids[flat1].to(torch.int32)
+            if self.text_ids.dtype == torch.int16:
+                doc_ids = doc_ids & 0xFFFF
+            doc_lens = self.text_lens[flat1].to(torch.int32)
+            a_ids = torch.repeat_interleave(q_raw_ids, beam1, dim=0)
+            a_lens = torch.repeat_interleave(q_raw_lens, beam1, dim=0)
+            qsp = assemble_pair_inputs(a_ids, a_lens, doc_ids, doc_lens,
+                                       cfg.max_q_sp_len, self.spec)
+        with record_function("hop2_encode"):
+            qsp_vec = self._encode_hop2(qsp)
+        with record_function("hop2_mips"):
+            d2, i2, cert2 = self._mips(qsp_vec.float(), beam2,
+                                       pca=self._pca_on_hop(2))
+        d2 = d2.reshape(bsz, beam1, beam2)
+        i2 = i2.reshape(bsz, beam1, beam2)
+
+        with record_function("chain_topk"):
+            path_scores = (d1[:, :, None] + d2).reshape(bsz, beam1 * beam2)
+            top_scores, flat = topk_lower_index(path_scores, topk)
+            hop1_ids = torch.gather(i1, 1, flat // beam2)
+            hop2_ids = torch.gather(i2.reshape(bsz, -1), 1, flat)
+        out = {"path_scores": top_scores, "hop1_ids": hop1_ids,
+               "hop2_ids": hop2_ids, "hop1_cand_ids": i1,
+               "hop1_cand_scores": d1}
+        if cert1 is not None:
+            out["pca_cert1"] = cert1
+        if cert2 is not None:
+            out["pca_cert2"] = cert2.reshape(bsz, beam1)
+        return out
+
+    @torch.inference_mode()
+    def search(self, q_inputs: Dict[str, np.ndarray], q_raw_ids: np.ndarray,
+               q_raw_lens: np.ndarray) -> Dict[str, np.ndarray]:
+        """Host entry: fixed-shape tokenized questions → ranked chains."""
+        mult = self.config.q_width_multiple
+        if mult > 0:
+            max_len = int(np.asarray(q_inputs["attention_mask"]).sum(1).max())
+            w = max(mult, -(-max_len // mult) * mult)
+            if w < q_inputs["input_ids"].shape[1]:
+                q_inputs = {k: v[:, :w] for k, v in q_inputs.items()}
+        dev = self.device
+        out = self._search_impl(
+            {k: _to_tensor(v, dev) for k, v in q_inputs.items()},
+            _to_tensor(q_raw_ids, dev, torch.int32),
+            _to_tensor(q_raw_lens, dev, torch.int32),
+            beam1=self.config.beam_size_1, beam2=self.config.beam_size_2,
+            topk=self.config.topk)
+        return {k: v.cpu().numpy() for k, v in out.items()}

@@ -1,0 +1,115 @@
+"""The port stands alone: it imports no JAX, no Flax and nothing of the JAX
+package (top-level module names compared exactly — the port's own name
+starts with the JAX package's), and its entry points never fall back to
+the CPU on their own."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = "multihop_dense_retrieval_tpu_torch"
+JAX_PKG = "multihop_dense_retrieval_tpu"
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", JAX_PKG}
+
+
+def _port_modules():
+    out = []
+    for path in sorted((ROOT / PORT).rglob("*.py")):
+        rel = path.relative_to(ROOT).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        out.append(".".join(parts))
+    return out
+
+
+def _imported_top_levels(path: Path):
+    tree = ast.parse(path.read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module.split(".")[0])
+    return names
+
+
+@pytest.mark.parametrize("path", sorted(
+    [str(p.relative_to(ROOT)) for p in (ROOT / PORT).rglob("*.py")]
+    + ["chip_smoke.py"]))
+def test_source_imports_nothing_of_jax(path):
+    assert not _imported_top_levels(ROOT / path) & FORBIDDEN
+
+
+def test_every_module_imports_with_jax_blocked():
+    code = f"""
+import importlib, json, sys
+for name in {sorted(FORBIDDEN)!r}:
+    sys.modules[name] = None
+for mod in {_port_modules()!r}:
+    importlib.import_module(mod)
+loaded = sorted(m for m in sys.modules if sys.modules[m] is not None and
+                m.split(".")[0] in {sorted(FORBIDDEN)!r})
+print(json.dumps(loaded))
+"""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
+def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch,
+                                                               tmp_path):
+    from multihop_dense_retrieval_tpu_torch.core.config import SearchConfig
+    from multihop_dense_retrieval_tpu_torch.core.device import resolve_device
+    from multihop_dense_retrieval_tpu_torch.data import HashTokenizer
+    from multihop_dense_retrieval_tpu_torch.index import DenseIndex
+    from multihop_dense_retrieval_tpu_torch.search import BeamSearcher
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    emb = np.random.RandomState(0).randn(64, 16).astype(np.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DenseIndex.build(emb, chunk_rows=64)
+    index = DenseIndex.build(emb, chunk_rows=64, device="cpu")
+    index.save(str(tmp_path / "i.npz"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DenseIndex.load(str(tmp_path / "i.npz"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        BeamSearcher(encode_fn=None, index=index,
+                     text_ids=np.zeros((64, 4), np.int32),
+                     text_lens=np.zeros(64, np.int32),
+                     empty=np.zeros(64, bool),
+                     spec=HashTokenizer(vocab_size=64).spec,
+                     config=SearchConfig())
+
+
+def test_numerics_policy_disables_tf32():
+    import multihop_dense_retrieval_tpu_torch  # noqa: F401
+
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_chip_smoke_refuses_without_cuda(tmp_path):
+    """Without CUDA the smoke prints no result and exits non-zero, also
+    from a directory that holds chip_smoke.py alone."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((ROOT / "chip_smoke.py").read_text())
+    for cwd, script in ((ROOT, ROOT / "chip_smoke.py"), (tmp_path, lone)):
+        res = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                             capture_output=True, text=True, timeout=120)
+        assert res.returncode != 0
+        assert '"ok"' not in res.stdout
