@@ -8,17 +8,24 @@ Phases (each prints a line and flushes; any failure exits non-zero):
                kc=8): int8 results bit-equal, bf16/fp32 within tolerance;
                times by CUDA events beside the plain version, a library
                yardstick where one exists, and the card's bound.
-  3. main path — roberta-base shape (12 layers, 768 wide) with seeded
-               random weights, a 1,048,576-row int8 DenseIndex with a
-               PCA prefilter (R=128, 512-row chunks) and a 300-wide token
-               store; BeamSearcher at beam 1 / batch 192 / bf16 scores /
-               5-tile buckets serves a few batches, then a bf16 index
-               engine serves one.  The smoke questions' own vectors are
+  3. main paths — roberta-base shape (12 layers, 768 wide) with seeded
+               random weights; the smoke questions' own vectors are
                planted as index rows, and hop 1 must return them.
-               Launch counts are zeroed just before and read just after.
-               One more batch runs under torch.profiler: device time per
-               search step and per kernel, the idle share, peak memory
-               (the full table goes to --profile-out PATH when given).
+               Each path's launch counts are zeroed just before it and
+               read just after it, and each must launch its kernels.
+               a. int8: a 1,048,576-row int8 DenseIndex with a PCA
+                  prefilter (R=128, 512-row chunks) and a 300-wide token
+                  store; BeamSearcher at beam 1 / batch 192 / bf16 scores
+                  / 5-tile buckets serves 50 timed batches (kernels 1, 3,
+                  4).  One more batch is held against exact plain scans
+                  on its own query vectors: hop 1 bit-equal, certified
+                  hop-2 queries equal to the exact top-1.  One more runs
+                  under torch.profiler: device time per search step and
+                  per kernel, the idle share, peak memory (the full table
+                  goes to --profile-out PATH when given).
+               b. bf16: an engine over a 65,536-row bf16 index without
+                  prefilter serves 5 batches (kernel 2), whose hop-1 and
+                  hop-2 queries are then held against the plain scan.
   4. result  — one JSON line of kernel records, the card's name and power
                limit, and the final {"ok": true, ...} line.
 Exits with code 2 and no result when CUDA is not available.
@@ -218,7 +225,105 @@ def make_token_store(n, gen, dev):
     return ids, lens.to(dev), torch.zeros(n, dtype=torch.bool, device=dev)
 
 
-def run_main_path(port, mips, dev, gen, smi, table_path=None):
+def record_queries(engine):
+    """Keep the query vectors each MIPS call of `engine` is given (the
+    hop-1 and hop-2 vectors of the last batch), so the hops can be held
+    against the plain scans on exactly those vectors."""
+    seen = []
+    hop_mips = engine._mips
+
+    def _mips(queries, k, pca=True):
+        seen.append(queries)
+        return hop_mips(queries, k, pca)
+
+    engine._mips = _mips
+    return seen
+
+
+def scan_order_scores(q32, index, rows, mips, rescan_order):
+    """fp32 score of row rows[i] for query i, on the host, in one of the
+    two int8 epilogues: the scan's (raw * q_scale) * d_scale or the
+    rescan's (raw * d_scale) * q_scale."""
+    qi, qs = mips.quantize_rows(q32)
+    qi, qs = qi.cpu().numpy().astype(np.int64), qs.cpu().numpy()
+    x = index.vectors[torch.from_numpy(rows).to(index.vectors.device).long()]
+    raw = (qi * x.cpu().numpy().astype(np.int64)).sum(1).astype(np.float32)
+    dsc = index.scales.cpu().numpy()[rows]
+    if rescan_order:
+        return (raw * dsc) * qs
+    return (raw * qs) * dsc
+
+
+def check_int8_path(out, seen, index, mips, n_valid):
+    """Hold one int8-engine batch against exact plain scans on the same
+    query vectors.  Hop 1 (kernel 1): ids and scores bit-equal.  Hop 2
+    (kernels 3 + 4 in mips_topk_pca): every returned score is bit-equal to
+    its row's rescan-order product (the chunk-to-row gather and the
+    q_scale order), it is never above the exact top-1 in the scan's order,
+    and a certified query returns the exact top-1 row.  Chain scores are
+    the fp32 sum of the two hops.  Returns the certified fraction."""
+    q1, q2 = seen[-2], seen[-1]
+    for q, hop in ((q1, 1), (q2, 2)):
+        assert q.shape == (B, D) and bool(torch.isfinite(q).all()), hop
+    vecs, dsc = index.vectors, index.scales
+    qi, qs = mips.quantize_rows(q1)
+    v1, i1 = mips.mips_scan_int8_plain(qi, qs, vecs, dsc, 1, n_valid)
+    assert np.array_equal(out["hop1_ids"][:, 0], i1[:, 0].cpu().numpy()), \
+        "hop-1 ids differ from the exact plain scan"
+    assert np.array_equal(out["hop1_cand_scores"][:, 0],
+                          v1[:, 0].cpu().numpy()), \
+        "hop-1 scores differ from the exact plain scan"
+    qi, qs = mips.quantize_rows(q2)
+    v2, i2 = mips.mips_scan_int8_plain(qi, qs, vecs, dsc, 1, n_valid)
+    v2, i2 = v2[:, 0].cpu().numpy(), i2[:, 0].cpu().numpy()
+    got = out["hop2_ids"][:, 0]
+    d2 = scan_order_scores(q2, index, got, mips, rescan_order=True)
+    assert np.array_equal(out["path_scores"][:, 0],
+                          out["hop1_cand_scores"][:, 0] + d2), \
+        "hop-2 scores are not the rescan-order products of their rows"
+    assert (scan_order_scores(q2, index, got, mips, rescan_order=False)
+            <= v2).all(), "hop 2 returned a row above the exact top-1"
+    cert = out["pca_cert2"][:, 0]
+    assert np.array_equal(got[cert], i2[cert]), \
+        "a certified hop-2 query differs from the exact top-1"
+    return float(cert.mean())
+
+
+def check_bf16_path(out, seen, index, mips):
+    """Kernel 2 at the bf16 engine's own shapes: both hops' fp32 query
+    vectors against the plain scan over its rows.  Ids equal apart from
+    near-ties; scores within rtol 1e-5 (fp32 sums of 768 bf16 products in
+    another order); the engine returned the kernel's ids.  Returns the
+    largest relative score difference."""
+    worst = 0.0
+    for q, key in zip(seen[-2:], ("hop1_ids", "hop2_ids")):
+        kv, ki = mips.mips_scan(q, index.vectors, 1)
+        pv, pi = mips.mips_scan_plain(q, index.vectors, 1)
+        rel = ((kv - pv).abs() / pv.abs().clamp(min=1e-30)).max().item()
+        assert rel <= 1e-5, f"kernel 2 ({key}) off by {rel} relative"
+        qb = q.to(torch.bfloat16).float()
+        alt = (qb * index.vectors[ki[:, 0].long()].float()).sum(1)
+        tie_ok = (ki[:, 0] == pi[:, 0]) | \
+            ((alt - pv[:, 0]).abs() <= 1e-5 * pv[:, 0].abs())
+        assert bool(tie_ok.all()), f"kernel 2 ({key}) ids beyond near-ties"
+        assert np.array_equal(out[key][:, 0], ki[:, 0].cpu().numpy()), \
+            f"bf16 engine {key} differ from the kernel's"
+        worst = max(worst, rel)
+    return worst
+
+
+def timed_batches(engine, q_inputs, q_raw, q_lens, iters):
+    """Host-clock seconds of each of `iters` batches (search() returns
+    numpy arrays, so each batch ends after its device work and copies)."""
+    secs = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        out = engine.search(dict(q_inputs), q_raw, q_lens)
+        secs.append(time.perf_counter() - t0)
+    return out, np.array(secs)
+
+
+def run_main_path(port, mips, dev, gen, smi, table_path=None, iters=50):
     cfgmod, data, index_mod, models, search = port
     cfg = cfgmod.EncoderConfig.roberta_base(dtype="bfloat16",
                                             attention_scores_dtype="bfloat16")
@@ -246,7 +351,11 @@ def run_main_path(port, mips, dev, gen, smi, table_path=None):
     emb = make_rows(N, gen, dev)
     n_small = min(1 << 16, N)
     emb_small = emb[:n_small].copy()          # the bf16 engine's rows
-    planted = rng.choice(N, B, replace=False)
+    # the planted rows share one 512-row chunk: the prefilter can then
+    # prove hop 2 (spread over 192 chunks, each with a large PCA residual,
+    # no query certifies)
+    base = CAND * rng.randint(N // CAND)
+    planted = base + np.arange(B)
     emb[planted] = q_vec
     index = index_mod.DenseIndex.build(emb, chunk_rows=4096, dtype="int8",
                                        pca_dims=R, pca_cand_rows=CAND,
@@ -262,52 +371,69 @@ def run_main_path(port, mips, dev, gen, smi, table_path=None):
     engine = search.BeamSearcher(
         encode_fn=model.encode_seq, index=index, text_ids=text_ids,
         text_lens=text_lens, empty=empty, spec=spec, config=scfg, device=dev)
-
-    # a small bf16 index engine (no prefilter) reaches the bf16 scan
-    planted_small = rng.choice(n_small, B, replace=False)
-    emb_small[planted_small] = q_vec
-    bf16_engine = search.BeamSearcher(
-        encode_fn=model.encode_seq,
-        index=index_mod.DenseIndex.build(emb_small, chunk_rows=4096,
-                                         dtype="bfloat16", device=dev),
-        text_ids=text_ids[:n_small], text_lens=text_lens[:n_small],
-        empty=empty[:n_small], spec=spec,
-        config=dataclasses.replace(scfg, use_pca=False),
-        device=dev)
     del emb
 
+    # path 1: the int8 engine (kernels 1, 3, 4)
     engine.search(dict(q_inputs), q_raw, q_lens)          # warm-up
     torch.cuda.synchronize()
     mips.reset_launch_counts()
-    iters = 5
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        out = engine.search(dict(q_inputs), q_raw, q_lens)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    out_bf16 = bf16_engine.search(dict(q_inputs), q_raw, q_lens)
-    torch.cuda.synchronize()
-    launches = dict(mips.LAUNCHES)
-
+    out, secs = timed_batches(engine, q_inputs, q_raw, q_lens, iters)
+    launches = {"int8": dict(mips.LAUNCHES)}
+    seen = record_queries(engine)
+    checked = engine.search(dict(q_inputs), q_raw, q_lens)
     for key, val in out.items():
         assert val.shape[0] == B, (key, val.shape)
+        assert np.array_equal(val, checked[key]), f"{key} differs by batch"
     assert np.isfinite(out["path_scores"]).all(), "non-finite chain scores"
     hit = (out["hop1_ids"][:, 0] == planted).mean()
-    hit_bf16 = (out_bf16["hop1_ids"][:, 0] == planted_small).mean()
     assert hit == 1.0, f"planted self-retrieval failed: hit rate {hit}"
+    n_valid = index.n_docs if index.n_docs < index.vectors.shape[0] else None
+    cert = check_int8_path(checked, seen, index, mips, n_valid)
+    assert cert > 0, "no hop-2 query certified: the certificate went untested"
+    med = float(np.median(secs))
+    say(f"  int8 path: median {med * 1e3:.2f} ms/batch (min "
+        f"{secs.min() * 1e3:.2f}, max {secs.max() * 1e3:.2f}) over {iters} "
+        f"batches of {B}: {B / med:.1f} q/s at the median, "
+        f"{B * iters / secs.sum():.1f} q/s over the window (host clock incl. "
+        f"transfers); planted hop-1 hit rate {hit:.3f}; hop 1 = exact scan "
+        f"(bit-equal); hop-2 certified fraction {cert:.4f}, certified = "
+        f"exact top-1 [{smi}]")
+    say(f"  int8 path launches over {iters} batches: "
+        f"{json.dumps(launches['int8'])}")
+    missing = [k for k in ("mips_scan_int8", "pca_chunk_max", "pca_rescan_int8")
+               if launches["int8"][k] == 0]
+    assert not missing, f"kernels not launched on the int8 path: {missing}"
+    assert launches["int8"]["mips_scan"] == 0, "bf16 scan ran on the int8 path"
+    profile_batch(engine, q_inputs, q_raw, q_lens, med * 1e3, smi, table_path)
+    del engine, index
+
+    # path 2: a bf16 index engine without prefilter (kernel 2)
+    planted_small = rng.choice(n_small, B, replace=False)
+    emb_small[planted_small] = q_vec
+    bf16_index = index_mod.DenseIndex.build(emb_small, chunk_rows=4096,
+                                            dtype="bfloat16", device=dev)
+    bf16_engine = search.BeamSearcher(
+        encode_fn=model.encode_seq, index=bf16_index,
+        text_ids=text_ids[:n_small], text_lens=text_lens[:n_small],
+        empty=empty[:n_small], spec=spec,
+        config=dataclasses.replace(scfg, use_pca=False), device=dev)
+    bf16_engine.search(dict(q_inputs), q_raw, q_lens)     # warm-up
+    torch.cuda.synchronize()
+    seen = record_queries(bf16_engine)
+    mips.reset_launch_counts()
+    out_bf16, secs = timed_batches(bf16_engine, q_inputs, q_raw, q_lens, 5)
+    launches["bf16"] = dict(mips.LAUNCHES)
+    hit_bf16 = (out_bf16["hop1_ids"][:, 0] == planted_small).mean()
     assert hit_bf16 == 1.0, f"bf16 engine self-retrieval: hit rate {hit_bf16}"
-    cert = float(out["pca_cert2"].mean())
-    qps = B * iters / secs
-    say(f"  main path: {qps:.1f} q/s over {iters} batches of {B} "
-        f"({secs / iters * 1e3:.2f} ms/batch, host clock incl. transfers); "
-        f"hop-2 certified fraction {cert:.4f}; planted hop-1 hit rate "
-        f"int8 {hit:.3f}, bf16 {hit_bf16:.3f} [{smi}]")
-    say(f"  launches over {iters} int8 batches + 1 bf16 batch: "
-        f"{json.dumps(launches)}")
-    missing = [k for k, v in launches.items() if v == 0]
-    assert not missing, f"kernels not launched on the main path: {missing}"
-    profile_batch(engine, q_inputs, q_raw, q_lens, secs / iters * 1e3, smi,
-                  table_path)
+    rel = check_bf16_path(out_bf16, seen, bf16_index, mips)
+    med = float(np.median(secs))
+    say(f"  bf16 path ({n_small} rows): median {med * 1e3:.2f} ms/batch over "
+        f"5 batches; planted hop-1 hit rate {hit_bf16:.3f}; kernel 2 vs plain "
+        f"at both hops: max relative score difference {rel:.3g} [{smi}]")
+    say(f"  bf16 path launches over 5 batches: {json.dumps(launches['bf16'])}")
+    assert launches["bf16"]["mips_scan"] > 0, "bf16 scan not launched"
+    assert sum(launches["bf16"].values()) == launches["bf16"]["mips_scan"], \
+        "int8 kernels ran on the bf16 path"
     return launches
 
 
@@ -355,17 +481,14 @@ def profile_batch(engine, q_inputs, q_raw, q_lens, batch_ms, smi,
                                  row_limit=60))
 
 
+CU = "multihop_dense_retrieval_tpu_torch/ops/csrc/"
+TPU = "multihop_dense_retrieval_tpu/ops/mips.py:"
+# kernel: (source, TPU kernel it replaces, main path whose counts it reports)
 REPLACES = {
-    "mips_scan_int8": ("multihop_dense_retrieval_tpu_torch/ops/csrc/mips_scan.cu",
-                       "multihop_dense_retrieval_tpu/ops/mips.py:316"),
-    "mips_scan": ("multihop_dense_retrieval_tpu_torch/ops/csrc/mips_scan.cu",
-                  "multihop_dense_retrieval_tpu/ops/mips.py:220"),
-    "pca_chunk_max": (
-        "multihop_dense_retrieval_tpu_torch/ops/csrc/pca_prefilter.cu",
-        "multihop_dense_retrieval_tpu/ops/mips.py:868"),
-    "pca_rescan_int8": (
-        "multihop_dense_retrieval_tpu_torch/ops/csrc/pca_prefilter.cu",
-        "multihop_dense_retrieval_tpu/ops/mips.py:554"),
+    "mips_scan_int8": (CU + "mips_scan.cu", TPU + "316", "int8"),
+    "mips_scan": (CU + "mips_scan.cu", TPU + "220", "bf16"),
+    "pca_chunk_max": (CU + "pca_prefilter.cu", TPU + "868", "int8"),
+    "pca_rescan_int8": (CU + "pca_prefilter.cu", TPU + "554", "int8"),
 }
 
 
@@ -410,10 +533,11 @@ def main():
 
     kernels = []
     for name, r in recs.items():
-        src, rep = REPLACES[name]
+        src, rep, path = REPLACES[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": launches[name], "max_abs_err": r["err"],
+            "path": path, "launches": launches[path][name],
+            "max_abs_err": r["err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)

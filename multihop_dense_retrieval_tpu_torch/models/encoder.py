@@ -3,7 +3,11 @@
 The numerics follow the JAX package's ``models/encoder.py`` step for
 step, so a checkpoint gives the same vectors in both:
 
-  * parameters are fp32; activations run in ``config.dtype``;
+  * dense weights and biases are stored in ``config.dtype`` (Flax keeps
+    them fp32 and rounds them to the compute dtype in every product, so a
+    checkpoint rounded once at load gives the same numbers); embeddings
+    and LayerNorm parameters stay fp32; activations run in
+    ``config.dtype``;
   * each embedding lookup is cast to the compute dtype before
     ``word + pos + typ``;
   * RoBERTa position ids come from ``input_ids != pad_id`` (not the mask);
@@ -45,10 +49,10 @@ def _act(name: str):
     raise NotImplementedError(f"activation {name!r} is not ported yet")
 
 
-def dense(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
-    """Flax ``Dense(dtype=dtype)``: product in ``dtype``, then bias add."""
-    y = torch.matmul(x.to(dtype), lin.weight.to(dtype).t())
-    return y + lin.bias.to(dtype)
+def dense(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    """Flax ``Dense(dtype=...)``: product in the compute dtype (that of
+    ``x`` and of the stored weights), then bias add."""
+    return torch.matmul(x, lin.weight.t()) + lin.bias
 
 
 def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
@@ -118,9 +122,9 @@ class Attention(nn.Module):
         x_q = x if q_positions is None else x[:, :q_positions]
         Lq = x_q.shape[1]
         sa = self.self
-        q = dense(x_q, sa.query, dt).view(B, Lq, nh, d).transpose(1, 2)
-        k = dense(x, sa.key, dt).view(B, L, nh, d).transpose(1, 2)
-        v = dense(x, sa.value, dt).view(B, L, nh, d).transpose(1, 2)
+        q = dense(x_q, sa.query).view(B, Lq, nh, d).transpose(1, 2)
+        k = dense(x, sa.key).view(B, L, nh, d).transpose(1, 2)
+        v = dense(x, sa.value).view(B, L, nh, d).transpose(1, 2)
         scale = torch.tensor(math.sqrt(d), dtype=torch.float32).to(dt)
         scores = torch.matmul(q, k.transpose(-1, -2)) / scale   # (B,nh,Lq,L)
         if c.attention_scores_dtype == "bfloat16":
@@ -159,12 +163,12 @@ class EncoderLayer(nn.Module):
     def forward(self, x, attn_bias, q_positions=None):
         dt = self.c.torch_dtype
         ctx = self.attention.context(x, attn_bias, q_positions)
-        attn_out = dense(ctx, self.attention.output.dense, dt)
+        attn_out = dense(ctx, self.attention.output.dense)
         res = x if q_positions is None else x[:, :q_positions]
         x = layer_norm(res + attn_out,
                        self.attention.output.LayerNorm).to(dt)
-        inter = self.act(dense(x, self.intermediate.dense, dt))
-        out = dense(inter, self.output.dense, dt)
+        inter = self.act(dense(x, self.intermediate.dense))
+        out = dense(inter, self.output.dense)
         return layer_norm(x + out, self.output.LayerNorm).to(dt)
 
 
@@ -197,6 +201,9 @@ class TransformerEncoder(nn.Module):
         self.cls_only = cls_only
         self.embeddings = Embeddings(config)
         self.encoder = LayerStack(config)
+        for mod in self.encoder.modules():
+            if isinstance(mod, nn.Linear):
+                mod.to(config.torch_dtype)
         self._register_load_state_dict_pre_hook(_drop_unused_keys,
                                                  with_module=True)
 
