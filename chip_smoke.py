@@ -1,18 +1,22 @@
-"""Build the PyTorch port's CUDA kernels and drive its serving engine on one
+"""Build the PyTorch port's CUDA kernels and drive its search paths on one
 GPU.  Run from the repository root:  python3 chip_smoke.py
 
 Phases (each prints a line and flushes; any failure exits non-zero):
   1. build   — nvcc compiles every kernel from ops/csrc (one process each).
-  2. kernels — each of the four kernels against its plain PyTorch version
-               at the serving shapes (B=192, D=768, N=1,048,576, R=128,
-               kc=8): int8 results bit-equal, bf16/fp32 within tolerance;
-               times by CUDA events beside the plain version, a library
-               yardstick where one exists, and the card's bound.
+  2. kernels — each of the seven kernels against its plain PyTorch version
+               at its path's shapes: kernels 1-4 at B=192, D=768,
+               N=1,048,576, R=128, kc=8; kernel 7 at B=384, 2048-row
+               chunks of that int8 index; kernels 6 and 5 at B=200 over a
+               262,144-row bf16 index (2048-row chunks, kc=20; kernel 5
+               also at 512-row chunks, kc=16).  int8 results bit-equal,
+               bf16/fp32 within 1e-3; times by CUDA events beside the plain
+               version, a library yardstick where one exists, and the
+               card's bound.
   3. main paths — roberta-base shape (12 layers, 768 wide) with seeded
-               random weights; the smoke questions' own vectors are
-               planted as index rows, and hop 1 must return them.
-               Each path's launch counts are zeroed just before it and
-               read just after it, and each must launch its kernels.
+               random weights; the questions' or claims' own vectors are
+               planted as index rows, and hop 1 must return them.  Each
+               path's launch counts are zeroed just before it and read
+               just after it, and each must launch its kernels.
                a. int8: a 1,048,576-row int8 DenseIndex with a PCA
                   prefilter (R=128, 512-row chunks) and a 300-wide token
                   store; BeamSearcher at beam 1 / batch 192 / bf16 scores
@@ -23,9 +27,19 @@ Phases (each prints a line and flushes; any failure exits non-zero):
                   under torch.profiler: device time per search step and
                   per kernel, the idle share, peak memory (the full table
                   goes to --profile-out PATH when given).
+               d. int8 two-phase: the same index at beam 2 / 20, top 20,
+                  5 timed batches: hop 2 (B=384, k=20) through kernels 7
+                  + 4, bit-equal to the exact int8 scan.
                b. bf16: an engine over a 65,536-row bf16 index without
                   prefilter serves 5 batches (kernel 2), whose hop-1 and
                   hop-2 queries are then held against the plain scan.
+               c. FEVER: cli/eval_mhop_fever.main over an index directory
+                  (262,144 bf16 rows + PCA, token store, id2doc.json) with
+                  500 claims, beam 2 / 20, batch 100, run twice: c1 exact
+                  (hop 2 through kernels 6 + 5), c2 --pca (kernels 3 + 5).
+                  Every MIPS call is held against the plain exact scan;
+                  c2 must certify some hop-2 queries.  Each run's batches
+                  are timed and its last batch profiled.
   4. result  — one JSON line of kernel records, the card's name and power
                limit, and the final {"ok": true, ...} line.
 Exits with code 2 and no result when CUDA is not available.
@@ -34,8 +48,10 @@ Exits with code 2 and no result when CUDA is not available.
 import argparse
 import dataclasses
 import json
+import logging
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -46,6 +62,13 @@ PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "fp32": 67e12}
 
 B, D, N, R, CAND, KC = 192, 768, 1 << 20, 128, 512, 8
 VOCAB, TEXT_LEN, Q_LEN, QSP_LEN = 50265, 300, 40, 350
+# two-phase shapes: the FEVER CLI leg (hop 2 of batch 100 x beam 2 over a
+# bf16 index, 2048-row chunks, top 20; its --pca run rescans 16 chunks of
+# 512 rows) and the int8 engine leg (hop 2 of batch 192 x beam 2)
+FEVER_BATCH = 100
+B_F, N_F, C_F, K_F, KC_PCA_F = 2 * FEVER_BATCH, 1 << 18, 2048, 20, 16
+N_CLAIMS, CLAIM_LEN = 500, 45
+B_I8, C_I8 = 2 * B, 2048
 
 
 def say(*a):
@@ -115,7 +138,23 @@ def check_kernels(mips, dev, gen):
     bnd = bound_ms(N * D + N * 4 + B * D + B * 4 + B * 8, 2 * B * N * D, "int8")
     recs["mips_scan_int8"] = dict(err=0.0, ms=ms, plain_ms=plain, bound=bnd,
                                   library_ms=lib)
-    del idx8
+
+    # kernel 7: two-phase chunk maxima over the int8 index (leg d's shape)
+    q8, _ = mips.quantize_rows(torch.randn(B_I8, D, device=dev, generator=gen))
+    kout = mips.chunk_max_int8(q8, idx8, dsc, C_I8, n_valid)
+    pout = mips.chunk_max_plain(q8, idx8, C_I8, n_valid, dsc)
+    torch.cuda.synchronize()
+    assert torch.equal(kout, pout), "kernel 7 disagrees with its plain version"
+    ms = cuda_ms(lambda: mips.chunk_max_int8(q8, idx8, dsc, C_I8, n_valid), 10)
+    plain = cuda_ms(lambda: mips.chunk_max_plain(q8, idx8, C_I8, n_valid, dsc),
+                    2)
+    lib = _library(lambda: (torch._int_mm(q8, idx8.t()).float()
+                            * dsc[None, :]).view(B_I8, -1, C_I8).amax(-1))
+    bnd = bound_ms(N * D + N * 4 + B_I8 * D + B_I8 * (N // C_I8) * 4,
+                   2 * B_I8 * N * D, "int8")
+    recs["chunk_max_int8"] = dict(err=0.0, ms=ms, plain_ms=plain, bound=bnd,
+                                  library_ms=lib)
+    del idx8, q8
 
     # kernel 2: bf16 scan + top-1
     idxb = torch.randn(N, D, device=dev, generator=gen).to(torch.bfloat16)
@@ -142,12 +181,12 @@ def check_kernels(mips, dev, gen):
     proj = torch.randn(N, R, device=dev, generator=gen).to(torch.bfloat16)
     qp = torch.randn(B, R, device=dev, generator=gen).to(torch.bfloat16)
     kout = mips.pca_chunk_max(qp, proj, CAND, n_valid)
-    pout = mips.pca_chunk_max_plain(qp, proj, CAND, n_valid)
+    pout = mips.chunk_max_plain(qp, proj, CAND, n_valid)
     torch.cuda.synchronize()
     err = (kout - pout).abs().max().item()
     assert err <= 1e-3, f"kernel 3 off by {err} (tolerance 1e-3)"
     ms = cuda_ms(lambda: mips.pca_chunk_max(qp, proj, CAND, n_valid), 20)
-    plain = cuda_ms(lambda: mips.pca_chunk_max_plain(qp, proj, CAND, n_valid), 3)
+    plain = cuda_ms(lambda: mips.chunk_max_plain(qp, proj, CAND, n_valid), 3)
     lib = _library(lambda: (qp @ proj.t()).view(B, -1, CAND).amax(-1))
     bnd = bound_ms(N * R * 2 + B * R * 2 + B * (N // CAND) * 4,
                    2 * B * N * R, "bf16")
@@ -162,19 +201,70 @@ def check_kernels(mips, dev, gen):
                        for _ in range(B)]).to(torch.int32)
     ids[0, 0] = N // CAND - 1                      # the chunk with pad rows
     kout = mips.pca_rescan_int8(ids, qi, idx8, dsc, CAND, n_valid)
-    pout = mips.pca_rescan_plain(ids, qi, idx8, dsc, CAND, n_valid)
+    pout = mips.rescan_plain(ids, qi, idx8, dsc, CAND, n_valid)
     torch.cuda.synchronize()
     assert torch.equal(kout, pout), "kernel 4 disagrees with its plain version"
     ms = cuda_ms(lambda: mips.pca_rescan_int8(ids, qi, idx8, dsc, CAND,
                                               n_valid), 20)
-    plain = cuda_ms(lambda: mips.pca_rescan_plain(ids, qi, idx8, dsc, CAND,
+    plain = cuda_ms(lambda: mips.rescan_plain(ids, qi, idx8, dsc, CAND,
                                                   n_valid), 3)
     uniq = int(torch.unique(ids).numel())          # chunks this data reads
     bnd = bound_ms(uniq * CAND * (D + 4) + B * D + B * KC * 4
                    + B * KC * CAND * 4, 2 * B * KC * CAND * D, "int8")
     recs["pca_rescan_int8"] = dict(err=0.0, ms=ms, plain_ms=plain, bound=bnd,
                                    library_ms=None)
+    del idx8
+    check_float_two_phase(mips, dev, gen, recs)
     return recs
+
+
+def check_float_two_phase(mips, dev, gen, recs):
+    """Kernels 6 and 5 at the FEVER CLI leg's shapes over a bf16 index:
+    values within kernel 2's tolerance (1e-3 absolute at D=768 on N(0,1)
+    data; fp32 sums of exact bf16 products in another order)."""
+    n_valid = N_F - 1000
+    idxb = torch.randn(N_F, D, device=dev, generator=gen).to(torch.bfloat16)
+    qb = torch.randn(B_F, D, device=dev, generator=gen).to(torch.bfloat16)
+    kout = mips.chunk_max(qb, idxb, C_F, n_valid)
+    pout = mips.chunk_max_plain(qb, idxb, C_F, n_valid)
+    torch.cuda.synchronize()
+    err = (kout - pout).abs().max().item()
+    assert err <= 1e-3, f"kernel 6 off by {err} (tolerance 1e-3)"
+    ms = cuda_ms(lambda: mips.chunk_max(qb, idxb, C_F, n_valid), 10)
+    plain = cuda_ms(lambda: mips.chunk_max_plain(qb, idxb, C_F, n_valid), 3)
+    lib = _library(lambda: (qb @ idxb.t()).view(B_F, -1, C_F).amax(-1))
+    bnd = bound_ms(N_F * D * 2 + B_F * D * 2 + B_F * (N_F // C_F) * 4,
+                   2 * B_F * N_F * D, "bf16")
+    recs["chunk_max"] = dict(err=err, ms=ms, plain_ms=plain, bound=bnd,
+                             library_ms=lib)
+
+    # kernel 5 at its two shapes: two-phase phase 2 (20 chunks of 2048
+    # rows, the record in the kernels line) and the PCA rescan (16 chunks
+    # of 512, printed on its own line)
+    rescans = []
+    for cand, kc in ((C_F, K_F), (CAND, KC_PCA_F)):
+        ids = torch.stack([torch.randperm(N_F // cand, device=dev,
+                                          generator=gen)[:kc]
+                           for _ in range(B_F)]).to(torch.int32)
+        ids[0, 0] = N_F // cand - 1                # the chunk with pad rows
+        kout = mips.rescan(ids, qb, idxb, cand, n_valid)
+        pout = mips.rescan_plain(ids, qb, idxb, None, cand, n_valid)
+        torch.cuda.synchronize()
+        err = (kout - pout).abs().max().item()
+        assert err <= 1e-3, f"kernel 5 (C={cand}, kc={kc}) off by {err}"
+        ms = cuda_ms(lambda: mips.rescan(ids, qb, idxb, cand, n_valid), 10)
+        plain = cuda_ms(lambda: mips.rescan_plain(ids, qb, idxb, None, cand,
+                                                  n_valid), 2)
+        uniq = int(torch.unique(ids).numel())      # chunks this data reads
+        bnd = bound_ms(uniq * cand * D * 2 + B_F * D * 2 + B_F * kc * 4
+                       + B_F * kc * cand * 4, 2 * B_F * kc * cand * D, "bf16")
+        rescans.append(dict(err=err, ms=ms, plain_ms=plain, bound=bnd,
+                            library_ms=None))
+        say(f"  kernel 5 at C={cand}, kc={kc}: {ms:.4f} ms (plain "
+            f"{plain:.4f} ms, bound {bnd[0]:.4f} ms by {bnd[1]}, "
+            f"{uniq} distinct chunks)")
+    recs["rescan"] = dict(rescans[0],
+                          err=max(r["err"] for r in rescans))
 
 
 # ---- phase 3: the serving engine ------------------------------------------
@@ -225,16 +315,18 @@ def make_token_store(n, gen, dev):
     return ids, lens.to(dev), torch.zeros(n, dtype=torch.bool, device=dev)
 
 
-def record_queries(engine):
+def record_queries(engine, outputs=False):
     """Keep the query vectors each MIPS call of `engine` is given (the
     hop-1 and hop-2 vectors of the last batch), so the hops can be held
-    against the plain scans on exactly those vectors."""
+    against the plain scans on exactly those vectors; with `outputs`,
+    (queries, k, (vals, doc ids, certificates)) of each call."""
     seen = []
     hop_mips = engine._mips
 
     def _mips(queries, k, pca=True):
-        seen.append(queries)
-        return hop_mips(queries, k, pca)
+        res = hop_mips(queries, k, pca)
+        seen.append((queries, k, res) if outputs else queries)
+        return res
 
     engine._mips = _mips
     return seen
@@ -405,6 +497,8 @@ def run_main_path(port, mips, dev, gen, smi, table_path=None, iters=50):
     assert not missing, f"kernels not launched on the int8 path: {missing}"
     assert launches["int8"]["mips_scan"] == 0, "bf16 scan ran on the int8 path"
     profile_batch(engine, q_inputs, q_raw, q_lens, med * 1e3, smi, table_path)
+    launches["int8_two_phase"] = run_int8_two_phase(
+        engine, scfg, q_inputs, q_raw, q_lens, mips, search, n_valid, smi)
     del engine, index
 
     # path 2: a bf16 index engine without prefilter (kernel 2)
@@ -434,7 +528,240 @@ def run_main_path(port, mips, dev, gen, smi, table_path=None, iters=50):
     assert launches["bf16"]["mips_scan"] > 0, "bf16 scan not launched"
     assert sum(launches["bf16"].values()) == launches["bf16"]["mips_scan"], \
         "int8 kernels ran on the bf16 path"
+    del bf16_engine, bf16_index, text_ids, text_lens, empty
+
+    launches.update(run_fever_cli(port, model, mips, dev, gen, smi))
     return launches
+
+
+def run_int8_two_phase(engine, scfg, q_inputs, q_raw, q_lens, mips, search,
+                       n_valid, smi):
+    """Leg (d): the int8 index at beam 2 / 20, top 20: hop 1 (B=192, k=2)
+    through kernel 1, hop 2 (B=384, k=20) through the two-phase search
+    (kernels 7 + 4).  Five timed batches with their own launch counts;
+    hop 2 of the last is held against the exact int8 scan on its own query
+    vectors, in the two-phase search's epilogue order ((raw * d_scale) *
+    q_scale): values bit-equal, ids equal (no two rows tie exactly)."""
+    cfg = dataclasses.replace(scfg, use_pca=False, beam_size_1=2,
+                              beam_size_2=K_F, topk=K_F, chunk_rows=4096)
+    eng = search.BeamSearcher(
+        encode_fn=engine.encode_fn, index=engine.index,
+        text_ids=engine.text_ids, text_lens=engine.text_lens,
+        empty=engine.empty, spec=engine.spec, config=cfg,
+        device=engine.device)
+    eng.search(dict(q_inputs), q_raw, q_lens)              # warm-up
+    torch.cuda.synchronize()
+    seen = record_queries(eng, outputs=True)
+    mips.reset_launch_counts()
+    out, secs = timed_batches(eng, q_inputs, q_raw, q_lens, 5)
+    launches = dict(mips.LAUNCHES)
+    q2, k, (vals, docs, _) = seen[-1]
+    assert q2.shape == (B_I8, D) and k == K_F, (q2.shape, k)
+    vecs, dsc = eng.index.vectors, eng.index.scales
+    qi, qs = mips.quantize_rows(q2)
+    qf = qi.float()
+    ev, ei = mips._scan_topk_plain(
+        lambda s, e: (qf @ vecs[s:e].float().t()) * dsc[s:e][None, :]
+        * qs[:, None], vecs.shape[0], B_I8, K_F,
+        vecs.shape[0] if n_valid is None else n_valid, vecs.device)
+    assert torch.equal(vals, ev), "int8 two-phase values differ from the " \
+        "exact scan"
+    assert torch.equal(docs.to(torch.int32), ei), \
+        "int8 two-phase ids differ from the exact scan"
+    assert np.isfinite(out["path_scores"]).all()
+    med = float(np.median(secs))
+    say(f"  int8 two-phase leg (beam 2 / {K_F}, top {K_F}): median "
+        f"{med * 1e3:.2f} ms/batch over 5 batches of {B} ({B / med:.1f} q/s); "
+        f"hop 2 (B={B_I8}, k={K_F}) = exact int8 scan, values bit-equal, ids "
+        f"equal [{smi}]")
+    say(f"  int8 two-phase launches over 5 batches: {json.dumps(launches)}")
+    for name in ("mips_scan_int8", "chunk_max_int8", "pca_rescan_int8"):
+        assert launches[name] > 0, f"{name} not launched on leg (d)"
+    for name in ("mips_scan", "chunk_max", "rescan", "pca_chunk_max"):
+        assert launches[name] == 0, f"{name} ran on leg (d)"
+    return launches
+
+
+def make_claims(rng):
+    """Synthetic FEVER claims, 4-40 words (the hash tokenizer maps each
+    word to one id, so every claim fits --max-q-len 45)."""
+    return [{"id": i, "claim": " ".join(f"c{w}" for w in rng.randint(
+        10 ** 6, size=rng.randint(4, CLAIM_LEN - 4)))}
+        for i in range(N_CLAIMS)]
+
+
+def write_fever_index(port, claims, out_dir, gen, dev):
+    """An index directory as cli/encode_corpus writes it: index.npz (bf16
+    rows of make_rows, PCA R=128 over 512-row chunks), tokens.npz (a
+    300-wide synthetic token store) and id2doc.json.  The claims' own
+    vectors, encoded as the CLI will (its model from out_dir/model.pt,
+    hash tokenizer, --max-q-len 45, batches of 100), are planted as
+    N_CLAIMS contiguous rows of one 512-aligned block, so hop 1 must find
+    them and hop 2 can certify.  Returns the planted rows."""
+    from multihop_dense_retrieval_tpu_torch.cli import common
+
+    cfgmod, data, index_mod, models, search = port
+    tok = common.resolve_tokenizer("hash")
+    model = common.init_retriever(common.resolve_encoder_config(
+        "roberta-base"), checkpoint=f"{out_dir}/model.pt", device=dev)
+    vecs = []
+    with torch.inference_mode():
+        for s in range(0, N_CLAIMS, FEVER_BATCH):
+            enc = tok.encode_batch_one(
+                [c["claim"] for c in claims[s:s + FEVER_BATCH]], CLAIM_LEN)
+            vecs.append(model.encode_seq(
+                torch.from_numpy(enc["input_ids"]).to(dev),
+                torch.from_numpy(enc["attention_mask"]).to(dev)).cpu())
+    emb = make_rows(N_F, gen, dev)
+    base = 8 * CAND
+    planted = base + np.arange(N_CLAIMS)
+    emb[planted] = torch.cat(vecs).numpy()
+    del model
+    index = index_mod.DenseIndex.build(emb, chunk_rows=4096, dtype="bfloat16",
+                                       pca_dims=R, pca_cand_rows=CAND,
+                                       device=dev)
+    index.save(f"{out_dir}/index.npz")
+    del index, emb
+    ids, lens, _ = make_token_store(N_F, gen, dev)
+    ids = ids.cpu().numpy().view(np.uint16)
+    data.TokenizedCorpus(ids, lens.cpu().numpy(), ids[:, :8],
+                         np.full(N_F, 8, np.int32), np.zeros(N_F, bool)
+                         ).save(f"{out_dir}/tokens.npz")
+    data.Corpus([{"title": f"doc {i}", "text": f"text of doc {i}"}
+                 for i in range(N_F)]).save_id2doc(f"{out_dir}/id2doc.json")
+    with open(f"{out_dir}/claims.jsonl", "w") as f:
+        for c in claims:
+            f.write(json.dumps(c) + "\n")
+    return planted
+
+
+def hold_to_exact_scan(q, vals, docs, vecs, mips, rows=None):
+    """One hop of a bf16 run against the plain exact scan on its own query
+    vectors: values within rtol 1e-5 (fp32 sums of exact bf16 products in
+    another order), ids equal apart from near-ties (a differing id's plain
+    score is within that tolerance of the plain score at its rank).
+    `rows` limits the check to those queries."""
+    k = vals.shape[1]
+    pv, pi = mips.mips_scan_plain(q, vecs, k)
+    if rows is not None:
+        q, vals, docs, pv, pi = (t[rows] for t in (q, vals, docs, pv, pi))
+    tol = 1e-5 * pv.abs().clamp(min=1e-30)
+    assert bool(((vals - pv).abs() <= tol).all()), "values beyond rtol 1e-5"
+    alt = (q.to(vecs.dtype).float()[:, None, :]
+           * vecs[docs.long()].float()).sum(-1)
+    assert bool(((docs == pi.long()) | ((alt - pv).abs() <= tol)).all()), \
+        "ids differ from the exact scan beyond near-ties"
+    return int(q.shape[0])
+
+
+class _Lines(logging.Handler):
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def run_fever_cli(port, model, mips, dev, gen, smi):
+    """Leg (c): cli/eval_mhop_fever.main, the normal entry point, over an
+    index directory, twice: c1 exact (hop 1 kernel 2; hop 2 B=200, k=20
+    through the two-phase kernels 6 + 5) and c2 with --pca (hop 2 through
+    kernels 3 + 5).  Each run has its own launch counts; every MIPS call's
+    query vectors and results are recorded (the engine's _mips, patched
+    on the class) and held against the plain exact scan."""
+    from multihop_dense_retrieval_tpu_torch.cli import eval_mhop_fever
+
+    search = port[4]
+    rng = np.random.RandomState(5)
+    claims = make_claims(rng)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        torch.save(model.state_dict(), f"{tmp}/model.pt")
+        planted = write_fever_index(port, claims, tmp, gen, dev)
+        say(f"  FEVER set-up: {N_F}x{D} bf16 index + PCA R={R} + {N_F}x"
+            f"{TEXT_LEN} token store + id2doc written in "
+            f"{time.perf_counter() - t0:.1f} s; {N_CLAIMS} claims")
+        base = [f"{tmp}/claims.jsonl", tmp, "--checkpoint", f"{tmp}/model.pt",
+                "--tokenizer", "hash", "--model-name", "roberta-base",
+                "--beam-size-1", "2", "--beam-size-2", str(K_F), "--topk",
+                str(K_F), "--batch-size", str(FEVER_BATCH)]
+        logger = logging.getLogger("mdr_torch")
+        for leg, extra in (("fever_c1", []), ("fever_c2", ["--pca"])):
+            calls, batches = [], []
+            orig, orig_search = search.BeamSearcher._mips, \
+                search.BeamSearcher.search
+
+            def _mips(self, queries, k, pca=True):
+                res = orig(self, queries, k, pca)
+                calls.append((self.index.vectors, queries, k, res))
+                return res
+
+            def _search(self, *a):
+                # search() returns host arrays, so it ends after the device
+                t1 = time.perf_counter()
+                res = orig_search(self, *a)
+                batches.append((time.perf_counter() - t1, self, a))
+                return res
+
+            lines = _Lines()
+            logger.addHandler(lines)
+            search.BeamSearcher._mips = _mips
+            search.BeamSearcher.search = _search
+            torch.cuda.synchronize()
+            mips.reset_launch_counts()
+            try:
+                rows = eval_mhop_fever.main(
+                    base + extra + ["--save-path", f"{tmp}/{leg}.jsonl"])
+                torch.cuda.synchronize()
+            finally:
+                search.BeamSearcher._mips = orig
+                search.BeamSearcher.search = orig_search
+                logger.removeHandler(lines)
+            out[leg] = dict(mips.LAUNCHES)
+            assert len(rows) == N_CLAIMS and all(
+                len(r["candidate_chains"]) == K_F for r in rows)
+            hop1 = [c for c in calls if c[2] == 2]
+            hop2 = [c for c in calls if c[2] == K_F]
+            assert len(hop1) == len(hop2) == N_CLAIMS // FEVER_BATCH, \
+                len(calls)
+            cand = torch.cat([c[3][1] for c in hop1]).cpu().numpy()
+            hit = (cand == planted[:, None]).any(1).mean()
+            assert hit == 1.0, f"{leg}: planted hop-1 hit rate {hit}"
+            checked, cert = 0, []
+            for vecs, q, k, (vals, docs, c) in hop1 + hop2:
+                assert bool(torch.isfinite(vals).all()), leg
+                if c is not None:
+                    cert.append(c)
+                checked += hold_to_exact_scan(q, vals, docs, vecs, mips,
+                                              None if c is None else c)
+            qps = [x for x in lines.lines if "q/s" in x]
+            note = "every hop-2 query = exact scan"
+            if extra:
+                frac = torch.cat(cert).float().mean().item()
+                assert frac > 0, f"{leg}: no hop-2 query certified"
+                note = (f"hop-2 certified fraction {frac:.4f}, certified = "
+                        f"exact scan")
+            say(f"  {leg} ({' '.join(extra) or 'exact'}): CLI says "
+                f"\"{qps[-1]}\"; planted hop-1 hit rate {hit:.3f}; {note}; "
+                f"{checked} MIPS queries held to the exact scan [{smi}]")
+            say(f"  {leg} launches: {json.dumps(out[leg])}")
+            for name in ("mips_scan_int8", "chunk_max_int8",
+                         "pca_rescan_int8"):
+                assert out[leg][name] == 0, f"{name} ran on {leg}"
+            want = ("pca_chunk_max", "rescan") if extra else \
+                ("chunk_max", "rescan", "mips_scan")
+            missing = [n for n in want if out[leg][n] == 0]
+            assert not missing, f"kernels not launched on {leg}: {missing}"
+            secs = np.array([b[0] for b in batches])
+            say(f"  {leg} search() per batch of {FEVER_BATCH}, host clock: "
+                f"{json.dumps([round(x * 1e3, 2) for x in secs])} ms; its "
+                f"last batch profiled:")
+            profile_batch(batches[-1][1], *batches[-1][2],
+                          float(np.median(secs)) * 1e3, smi)
+            del calls, hop1, hop2, batches
+    return out
 
 
 RANGES = ("hop1_encode", "hop1_mips", "hop2_assemble", "hop2_encode",
@@ -443,7 +770,7 @@ RANGES = ("hop1_encode", "hop1_mips", "hop2_assemble", "hop2_encode",
 
 def profile_batch(engine, q_inputs, q_raw, q_lens, batch_ms, smi,
                   table_path=None):
-    """Where one int8 batch's time goes: device time per search step and
+    """Where one batch's time goes: device time per search step and
     per kernel (torch.profiler), peak memory, and the idle share: 1 minus
     the kernels' sum over `batch_ms`, the unprofiled batch time (the
     profiler slows the host's launches, so its own wall time would
@@ -487,8 +814,11 @@ TPU = "multihop_dense_retrieval_tpu/ops/mips.py:"
 REPLACES = {
     "mips_scan_int8": (CU + "mips_scan.cu", TPU + "316", "int8"),
     "mips_scan": (CU + "mips_scan.cu", TPU + "220", "bf16"),
-    "pca_chunk_max": (CU + "pca_prefilter.cu", TPU + "868", "int8"),
-    "pca_rescan_int8": (CU + "pca_prefilter.cu", TPU + "554", "int8"),
+    "pca_chunk_max": (CU + "two_phase.cu", TPU + "868", "int8"),
+    "pca_rescan_int8": (CU + "two_phase.cu", TPU + "554", "int8"),
+    "rescan": (CU + "two_phase.cu", TPU + "532", "fever_c1"),
+    "chunk_max": (CU + "two_phase.cu", TPU + "489", "fever_c1"),
+    "chunk_max_int8": (CU + "two_phase.cu", TPU + "506", "int8_two_phase"),
 }
 
 
@@ -540,6 +870,8 @@ def main():
             "max_abs_err": r["err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
+    idle = [k["name"] for k in kernels if k["launches"] == 0]
+    assert not idle, f"kernels not launched on their paths: {idle}"
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

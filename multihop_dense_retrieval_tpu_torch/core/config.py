@@ -57,6 +57,14 @@ class EncoderConfig:
         return cls(**kw)
 
     @classmethod
+    def bert_base_uncased(cls, **kw) -> "EncoderConfig":
+        d = dict(vocab_size=30522, max_position_embeddings=512,
+                 type_vocab_size=2, layer_norm_eps=1e-12, pad_token_id=0,
+                 roberta_positions=False)
+        d.update(kw)
+        return cls(**d)
+
+    @classmethod
     def tiny(cls, **kw) -> "EncoderConfig":
         """A minuscule config for unit tests (CPU-fast, same code paths)."""
         d = dict(vocab_size=128, hidden_size=32, num_layers=2, num_heads=4,

@@ -167,3 +167,32 @@ class HashTokenizer(_Base):
             else:
                 out.append(self._hash_id(t))
         return out
+
+
+class HFTokenizer(_Base):
+    """A HF fast tokenizer from a local directory (no network).  Keeps the
+    fixed-shape interface; the subword segmentation is HF's.
+    ``transformers`` is imported here only: the port needs it for this
+    class alone."""
+
+    def __init__(self, path: str):
+        from transformers import AutoTokenizer
+
+        self.tok = AutoTokenizer.from_pretrained(path, local_files_only=True)
+        self.spec = TokenizerSpec(
+            cls_id=self.tok.cls_token_id,
+            sep_id=self.tok.sep_token_id,
+            pad_id=self.tok.pad_token_id,
+            vocab_size=self.tok.vocab_size,
+            roberta_style=self.tok.cls_token_id == 0,   # roberta: <s>=0
+            mask_id=self.tok.mask_token_id,
+        )
+
+    def tokenize_ids(self, text: str) -> List[int]:
+        return self.tok(text, add_special_tokens=False)["input_ids"]
+
+    def subtokens(self, word: str) -> List[str]:
+        return self.tok.tokenize(word)
+
+    def convert_tokens_to_ids(self, tokens: Sequence[str]) -> List[int]:
+        return self.tok.convert_tokens_to_ids(list(tokens))

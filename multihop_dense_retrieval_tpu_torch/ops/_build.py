@@ -26,7 +26,7 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("mips_scan", "pca_prefilter")
+SOURCES = ("mips_scan", "two_phase")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -38,9 +38,9 @@ SIGNATURES = {
                             P, P, P, P, P], I),
         "mips_scan_smem_bytes": ([I], SZ),
     },
-    "pca_prefilter": {
-        "pca_chunk_max": ([P, P, I, LL, LL, I, I, I, P, P], I),
-        "pca_rescan_int8": ([P, P, P, P, I, I, I, I, LL, P, P], I),
+    "two_phase": {
+        "chunk_max": ([I, P, P, P, I, LL, LL, I, I, I, P, P], I),
+        "rescan": ([I, P, P, P, P, I, I, I, I, LL, P, P], I),
     },
 }
 

@@ -1,5 +1,5 @@
 // Shared SIMT tile machinery for the scan kernels (mips_scan.cu) and the
-// PCA prefilter's phase 1 (pca_prefilter.cu).
+// chunk-max kernels of the two-phase and PCA searches (two_phase.cu).
 //
 // A block of 256 threads scores a tile of QB=64 query rows, held in shared
 // memory for the whole block, against row tiles of RB=128 index rows that
@@ -13,6 +13,9 @@
 //
 // Element types are read as packed 32-bit words: int8 (4 per word, __dp4a,
 // exact int32 sums), bf16 (2 per word, fp32 FMA) and fp32 (1 per word).
+// Elem<T>::word accumulates one word pair (dot4 four), and Elem<T>::score
+// turns a sum into the fp32 score (int8: float(raw) * d_scale[row], one
+// rounding, the JAX kernels' order; the query scale is the caller's).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -34,12 +37,12 @@ template <typename T> struct Elem;
 
 template <> struct Elem<int8_t> {
   using Acc = int;
-  static __device__ __forceinline__ void dot(Acc& acc, const int4& a,
-                                             const int4& b) {
-    acc = __dp4a(a.x, b.x, acc);
-    acc = __dp4a(a.y, b.y, acc);
-    acc = __dp4a(a.z, b.z, acc);
-    acc = __dp4a(a.w, b.w, acc);
+  static __device__ __forceinline__ void word(Acc& acc, int a, int b) {
+    acc = __dp4a(a, b, acc);
+  }
+  static __device__ __forceinline__ float score(Acc acc, const float* d_scale,
+                                                long long row) {
+    return __fmul_rn(__int2float_rn(acc), __ldg(d_scale + row));
   }
 };
 
@@ -54,25 +57,32 @@ template <> struct Elem<__nv_bfloat16> {
     acc = fmaf(x.x, y.x, acc);
     acc = fmaf(x.y, y.y, acc);
   }
-  static __device__ __forceinline__ void dot(Acc& acc, const int4& a,
-                                             const int4& b) {
-    word(acc, a.x, b.x);
-    word(acc, a.y, b.y);
-    word(acc, a.z, b.z);
-    word(acc, a.w, b.w);
+  static __device__ __forceinline__ float score(Acc acc, const float*,
+                                                long long) {
+    return acc;
   }
 };
 
 template <> struct Elem<float> {
   using Acc = float;
-  static __device__ __forceinline__ void dot(Acc& acc, const int4& a,
-                                             const int4& b) {
-    acc = fmaf(__int_as_float(a.x), __int_as_float(b.x), acc);
-    acc = fmaf(__int_as_float(a.y), __int_as_float(b.y), acc);
-    acc = fmaf(__int_as_float(a.z), __int_as_float(b.z), acc);
-    acc = fmaf(__int_as_float(a.w), __int_as_float(b.w), acc);
+  static __device__ __forceinline__ void word(Acc& acc, int a, int b) {
+    acc = fmaf(__int_as_float(a), __int_as_float(b), acc);
+  }
+  static __device__ __forceinline__ float score(Acc acc, const float*,
+                                                long long) {
+    return acc;
   }
 };
+
+// Four word pairs, in order.
+template <typename T>
+__device__ __forceinline__ void dot4(typename Elem<T>::Acc& acc,
+                                     const int4& a, const int4& b) {
+  Elem<T>::word(acc, a.x, b.x);
+  Elem<T>::word(acc, a.y, b.y);
+  Elem<T>::word(acc, a.z, b.z);
+  Elem<T>::word(acc, a.w, b.w);
+}
 
 // Shared memory a block needs for a query tile of `w` words per row.
 inline size_t tile_smem_bytes(int w) {
@@ -143,7 +153,7 @@ __device__ __forceinline__ void score_row_tile(
 #pragma unroll
       for (int i = 0; i < TQ; ++i)
 #pragma unroll
-        for (int j = 0; j < TR; ++j) Elem<T>::dot(acc[i][j], qv[i], rv[j]);
+        for (int j = 0; j < TR; ++j) dot4<T>(acc[i][j], qv[i], rv[j]);
     }
   }
 }

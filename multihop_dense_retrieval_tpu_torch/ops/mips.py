@@ -1,15 +1,22 @@
 """Exact maximum-inner-product search (MIPS) over a device-resident index.
 
-The PyTorch counterpart of the JAX package's ``ops/mips.py``.  Four
-hand-written CUDA kernels (``csrc/``) carry the serving path; each has a
+The PyTorch counterpart of the JAX package's ``ops/mips.py``.  Seven
+hand-written CUDA kernels (``csrc/``) carry the search paths; each has a
 plain PyTorch version here with the same arithmetic, and a wrapper that
 launches the kernel for a CUDA tensor and takes the plain version only for
 a tensor on the CPU (a CUDA tensor the kernel does not take raises):
 
-  1. ``mips_scan_int8``  — int8 scan + fused top-k      (csrc/mips_scan.cu)
-  2. ``mips_scan``       — bf16/fp32 scan + fused top-k  (csrc/mips_scan.cu)
-  3. ``pca_chunk_max``   — PCA phase 1, chunk maxima     (csrc/pca_prefilter.cu)
-  4. ``pca_rescan_int8`` — PCA phase 2, int8 rescan      (csrc/pca_prefilter.cu)
+  1. ``mips_scan_int8``  — int8 scan + fused top-k       (csrc/mips_scan.cu)
+  2. ``mips_scan``       — bf16/fp32 scan + fused top-k   (csrc/mips_scan.cu)
+  3. ``pca_chunk_max``   — PCA phase 1, chunk maxima      (csrc/two_phase.cu)
+  4. ``pca_rescan_int8`` — phase 2, int8 rescan           (csrc/two_phase.cu)
+  5. ``rescan``          — phase 2, bf16/fp32 rescan      (csrc/two_phase.cu)
+  6. ``chunk_max``       — two-phase phase 1, bf16/fp32   (csrc/two_phase.cu)
+  7. ``chunk_max_int8``  — two-phase phase 1, int8        (csrc/two_phase.cu)
+
+Kernels 1-2 serve ``mips_topk`` for small k, kernels 6-7 then 4-5 its
+exact two-phase search for large k (``mips_topk_two_phase``), and kernels
+3 then 4-5 the PCA-prefiltered search (``mips_topk_pca``).
 
 ``LAUNCHES`` counts kernel launches per wrapper.  Every JAX ``top_k`` or
 ``argsort`` mirrored here goes through ``topk_lower_index`` (a stable
@@ -30,7 +37,15 @@ import torch
 NEG_INF = -3.0e38
 
 LAUNCHES = {"mips_scan_int8": 0, "mips_scan": 0, "pca_chunk_max": 0,
-            "pca_rescan_int8": 0}
+            "pca_rescan_int8": 0, "rescan": 0, "chunk_max": 0,
+            "chunk_max_int8": 0}
+
+# The JAX dispatcher's chunk rule, kept as the port's default so that the
+# chunk choice, the covering chunks and the tie order match the JAX
+# package (a TPU VMEM rule, to be re-decided by measurement on the GPU).
+VMEM_BUDGET = 12 * 1024 * 1024
+
+_FLOAT_CODES = {torch.bfloat16: 1, torch.float32: 2}   # the kernels' dtypes
 
 _PLAIN_CHUNK = 65536  # rows per step of the plain scans (bounds memory)
 
@@ -69,9 +84,12 @@ def _require(cond: bool, msg: str) -> None:
 
 def quantize_rows(x: torch.Tensor):
     """Symmetric per-row int8: (int8 values, fp32 scales); round half to
-    even, scale floor 1e-10 (the JAX package's quantize_rows)."""
+    even, scale floor 1e-10 (the JAX package's quantize_rows as it runs
+    inside its jitted searches, where XLA turns ``max / 127`` into
+    ``max * float32(1/127)``: one ulp off the quotient on ~4% of rows)."""
     x = x.float()
-    scale = torch.clamp(x.abs().amax(dim=1, keepdim=True) / 127.0, min=1e-10)
+    inv127 = torch.tensor(1.0 / 127.0, dtype=torch.float32, device=x.device)
+    scale = torch.clamp(x.abs().amax(dim=1, keepdim=True) * inv127, min=1e-10)
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale[:, 0]
 
@@ -184,85 +202,108 @@ def mips_scan(queries, index, k: int, n_valid: Optional[int] = None):
     """Kernel 2: exact bf16/fp32 MIPS top-k (k < 8), fp32 accumulation."""
     if not _on_cuda(queries, index):
         return mips_scan_plain(queries, index, k, n_valid)
-    codes = {torch.bfloat16: 1, torch.float32: 2}
-    _require(index.dtype in codes, f"unsupported index dtype {index.dtype}")
+    _require(index.dtype in _FLOAT_CODES,
+             f"unsupported index dtype {index.dtype}")
     q = queries.to(index.dtype).contiguous()
-    out = _launch_scan(codes[index.dtype], q, None, index, None, k, n_valid)
+    out = _launch_scan(_FLOAT_CODES[index.dtype], q, None, index, None, k,
+                       n_valid)
     LAUNCHES["mips_scan"] += 1
     return out
 
 
-def mips_topk(index, queries, k: int, *, n_valid: Optional[int] = None,
-              doc_scales=None):
-    """Single-device exact top-k.  On CUDA the scan kernels serve k < 8;
-    k >= 8 is where the JAX dispatcher takes its two-phase kernels, which
-    are not ported yet, so it raises."""
-    if index.dtype == torch.int8:
-        _require(doc_scales is not None, "int8 index requires doc_scales")
-    if index.is_cuda and k >= 8:
-        raise NotImplementedError(
-            "k >= 8 needs the two-phase chunk-max kernels, not ported yet")
-    if index.dtype == torch.int8:
-        q_int8, q_scale = quantize_rows(queries)
-        return mips_scan_int8(q_int8, q_scale, index, doc_scales, k, n_valid)
-    return mips_scan(queries, index, k, n_valid)
-
-
 # --------------------------------------------------------------------------
-# PCA-prefiltered search with exactness certificates
+# two-phase exact search: chunk maxima (kernels 6, 7), then a rescan of
+# each query's top chunks (kernels 4, 5)
 # --------------------------------------------------------------------------
+#
+# Why it is exact: a chunk holding one of the query's top-k rows has a max
+# at least the k-th value, and every chunk ranked above it by max holds a
+# row at least that large, so the k chunks with the largest maxima hold
+# all top-k rows (the JAX package's section comment, mips.py:479-484).
 
 
-def pca_chunk_max_plain(qp, proj, cand_rows: int, n_valid: Optional[int] = None):
-    """Plain version of kernel 3: (B, N/cand_rows) maxima of qp . proj^T
-    over each chunk's valid rows (fp32 sums of bf16 products)."""
-    n = proj.shape[0]
+def chunk_max_plain(q, rows, chunk_rows: int, n_valid: Optional[int] = None,
+                    d_scale=None):
+    """Plain version of kernels 3, 6 and 7: (B, N/chunk_rows) maxima over
+    each chunk's valid rows (NEG_INF for a chunk with none).  Float rows:
+    ``q`` cast to the rows' dtype, fp32 sums.  int8 rows (``d_scale``
+    given): float(raw) * d_scale[row], no query scale."""
+    n = rows.shape[0]
     nv = n if n_valid is None else n_valid
-    qf = qp.float()
+    qf = q.float() if rows.dtype == torch.int8 else q.to(rows.dtype).float()
     outs = []
-    step = max(cand_rows, (_PLAIN_CHUNK // cand_rows) * cand_rows)
+    step = max(chunk_rows, (_PLAIN_CHUNK // chunk_rows) * chunk_rows)
     for s in range(0, n, step):
         e = min(s + step, n)
-        sc = qf @ proj[s:e].float().t()
-        col = torch.arange(s, e, device=proj.device)
+        sc = qf @ rows[s:e].float().t()
+        if d_scale is not None:
+            sc = sc * d_scale[s:e].float()[None, :]
+        col = torch.arange(s, e, device=rows.device)
         sc = torch.where(col[None, :] < nv, sc, NEG_INF)
-        outs.append(sc.view(sc.shape[0], -1, cand_rows).amax(dim=2))
+        outs.append(sc.view(sc.shape[0], -1, chunk_rows).amax(dim=2))
     return torch.cat(outs, dim=1)
 
 
-def pca_chunk_max(qp, proj, cand_rows: int, n_valid: Optional[int] = None):
-    """Kernel 3: PCA phase 1 chunk maxima, (B, num_cand) fp32."""
-    if not _on_cuda(qp, proj):
-        return pca_chunk_max_plain(qp, proj, cand_rows, n_valid)
+def _launch_chunk_max(code, q, rows, d_scale, chunk_rows, n_valid):
     from . import _build
 
-    b, r = qp.shape
-    n = proj.shape[0]
-    _require(qp.dtype == proj.dtype == torch.bfloat16, "bf16 inputs expected")
-    _require(r % 32 == 0, f"projection width {r} must be a multiple of 32")
-    _require(cand_rows % 128 == 0 and n % cand_rows == 0,
-             "cand_rows must be a multiple of 128 dividing the row count")
-    qp, proj = qp.contiguous(), proj.contiguous()
-    num_cand = n // cand_rows
-    sms = torch.cuda.get_device_properties(qp.device).multi_processor_count
+    b, d = q.shape
+    n = rows.shape[0]
+    row_bytes = d * rows.element_size()
+    _require(row_bytes % 64 == 0, f"row bytes {row_bytes} must be a "
+             "multiple of 64")
+    _require(chunk_rows % 128 == 0 and n % chunk_rows == 0,
+             f"chunk_rows {chunk_rows} must be a multiple of 128 dividing "
+             f"the row count {n}")
+    for t in (q, rows, d_scale):
+        _require(t is None or t.is_contiguous(), "inputs must be contiguous")
+    num_chunks = n // chunk_rows
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     q_tiles = -(-b // 64)
-    per_block = max(1, num_cand * q_tiles // (8 * sms))
-    out = torch.empty((b, num_cand), dtype=torch.float32, device=qp.device)
-    lib = _build.load("pca_prefilter")
-    _build.check(lib.pca_chunk_max(
-        qp.data_ptr(), proj.data_ptr(), b, n, n if n_valid is None else n_valid,
-        r // 2, cand_rows, per_block, out.data_ptr(), _stream()),
-        "pca_chunk_max")
-    LAUNCHES["pca_chunk_max"] += 1
+    per_block = max(1, num_chunks * q_tiles // (8 * sms))
+    out = torch.empty((b, num_chunks), dtype=torch.float32, device=q.device)
+    lib = _build.load("two_phase")
+    _build.check(lib.chunk_max(
+        code, q.data_ptr(), rows.data_ptr(),
+        None if d_scale is None else d_scale.data_ptr(), b, n,
+        n if n_valid is None else n_valid, row_bytes // 4, chunk_rows,
+        per_block, out.data_ptr(), _stream()), "chunk_max")
     return out
 
 
-def pca_rescan_plain(chunk_ids, q_used, index, d_scale, cand_rows: int,
-                     n_valid: Optional[int] = None):
-    """Plain version of kernel 4 (and of the not-yet-ported float rescan):
-    (B, kc*cand_rows) scores of each query against its selected chunks.
-    int8: float(raw) * d_scale[row] (the query scale is the caller's);
-    float: queries cast to the index dtype, fp32 accumulation."""
+def chunk_max(q, index, chunk_rows: int, n_valid: Optional[int] = None):
+    """Kernel 6: two-phase phase 1 over a bf16/fp32 index, (B, N/chunk_rows)
+    fp32 maxima; ``q`` is cast to the index dtype."""
+    if not _on_cuda(q, index):
+        return chunk_max_plain(q, index, chunk_rows, n_valid)
+    _require(index.dtype in _FLOAT_CODES,
+             f"unsupported index dtype {index.dtype}")
+    out = _launch_chunk_max(_FLOAT_CODES[index.dtype],
+                            q.to(index.dtype).contiguous(), index, None,
+                            chunk_rows, n_valid)
+    LAUNCHES["chunk_max"] += 1
+    return out
+
+
+def chunk_max_int8(q_int8, index, d_scale, chunk_rows: int,
+                   n_valid: Optional[int] = None):
+    """Kernel 7: two-phase phase 1 over an int8 index, maxima of
+    float(raw) * d_scale[row], bit-equal to the JAX kernel."""
+    if not _on_cuda(q_int8, index, d_scale):
+        return chunk_max_plain(q_int8, index, chunk_rows, n_valid, d_scale)
+    _require(q_int8.dtype == index.dtype == torch.int8, "int8 inputs expected")
+    _require(d_scale.dtype == torch.float32, "fp32 scales expected")
+    out = _launch_chunk_max(0, q_int8, index, d_scale, chunk_rows, n_valid)
+    LAUNCHES["chunk_max_int8"] += 1
+    return out
+
+
+def rescan_plain(chunk_ids, q_used, index, d_scale, cand_rows: int,
+                 n_valid: Optional[int] = None):
+    """Plain version of kernels 4 and 5: (B, kc*cand_rows) scores of each
+    query against its selected chunks.  int8: float(raw) * d_scale[row]
+    (the query scale is the caller's); float: queries cast to the index
+    dtype, fp32 accumulation."""
     b, kc = chunk_ids.shape
     nv = index.shape[0] if n_valid is None else n_valid
     offs = torch.arange(cand_rows, device=index.device)
@@ -279,28 +320,166 @@ def pca_rescan_plain(chunk_ids, q_used, index, d_scale, cand_rows: int,
     return torch.cat(outs, dim=1)
 
 
+def _launch_rescan(code, chunk_ids, q, index, d_scale, cand_rows, n_valid):
+    from . import _build
+
+    b, kc = chunk_ids.shape
+    row_bytes = index.shape[1] * index.element_size()
+    _require(row_bytes % 4 == 0 and row_bytes <= 4096,
+             f"row bytes {row_bytes}: need a multiple of 4, at most 4096")
+    ids = chunk_ids.to(torch.int32).contiguous()
+    for t in (q, index, d_scale):
+        _require(t is None or t.is_contiguous(), "inputs must be contiguous")
+    out = torch.empty((b, kc * cand_rows), dtype=torch.float32,
+                      device=index.device)
+    lib = _build.load("two_phase")
+    _build.check(lib.rescan(
+        code, ids.data_ptr(), q.data_ptr(), index.data_ptr(),
+        None if d_scale is None else d_scale.data_ptr(), b, kc,
+        row_bytes // 4, cand_rows,
+        index.shape[0] if n_valid is None else n_valid, out.data_ptr(),
+        _stream()), "rescan")
+    return out
+
+
 def pca_rescan_int8(chunk_ids, q_int8, index, d_scale, cand_rows: int,
                     n_valid: Optional[int] = None):
     """Kernel 4: int8 rescan of each query's selected chunks."""
     if not _on_cuda(chunk_ids, q_int8, index, d_scale):
-        return pca_rescan_plain(chunk_ids, q_int8, index, d_scale, cand_rows,
-                                n_valid)
-    from . import _build
-
-    b, kc = chunk_ids.shape
-    d = index.shape[1]
+        return rescan_plain(chunk_ids, q_int8, index, d_scale, cand_rows,
+                            n_valid)
     _require(q_int8.dtype == index.dtype == torch.int8, "int8 inputs expected")
-    _require(d % 4 == 0 and d <= 1024, f"D={d}: need D % 4 == 0, D <= 1024")
-    ids = chunk_ids.to(torch.int32).contiguous()
-    q_int8, d_scale = q_int8.contiguous(), d_scale.float().contiguous()
-    out = torch.empty((b, kc * cand_rows), dtype=torch.float32,
-                      device=index.device)
-    lib = _build.load("pca_prefilter")
-    _build.check(lib.pca_rescan_int8(
-        ids.data_ptr(), q_int8.data_ptr(), index.data_ptr(), d_scale.data_ptr(),
-        b, kc, d // 4, cand_rows, index.shape[0] if n_valid is None else n_valid,
-        out.data_ptr(), _stream()), "pca_rescan_int8")
+    out = _launch_rescan(0, chunk_ids, q_int8, index,
+                         d_scale.float().contiguous(), cand_rows, n_valid)
     LAUNCHES["pca_rescan_int8"] += 1
+    return out
+
+
+def rescan(chunk_ids, q, index, cand_rows: int, n_valid: Optional[int] = None):
+    """Kernel 5: bf16/fp32 rescan of each query's selected chunks; ``q`` is
+    cast to the index dtype, products accumulate in fp32."""
+    if not _on_cuda(chunk_ids, q, index):
+        return rescan_plain(chunk_ids, q, index, None, cand_rows, n_valid)
+    _require(index.dtype in _FLOAT_CODES,
+             f"unsupported index dtype {index.dtype}")
+    out = _launch_rescan(_FLOAT_CODES[index.dtype], chunk_ids,
+                         q.to(index.dtype).contiguous(), index, None,
+                         cand_rows, n_valid)
+    LAUNCHES["rescan"] += 1
+    return out
+
+
+def mips_topk_two_phase(index, queries, k: int, chunk_rows: int = 2048,
+                        n_valid: Optional[int] = None, doc_scales=None):
+    """Exact top-k via chunk maxima + a rescan of each query's top
+    ``min(k, num_chunks)`` chunks (the JAX package's mips_topk_two_phase,
+    step for step).  bf16/fp32 and int8 (+doc_scales) indexes; any batch.
+    Returns (vals (B, k) fp32, row ids (B, k) int32); ties in the final
+    top-k go to the lower position in chunk-rank order, as ``lax.top_k``
+    gives, so int8 results are bit-equal to the JAX function's."""
+    n = index.shape[0]
+    b = queries.shape[0]
+    if n % chunk_rows:
+        raise ValueError(f"index rows {n} not a multiple of chunk {chunk_rows}")
+    num_chunks = n // chunk_rows
+    k_chunks = min(k, num_chunks)
+    is_int8 = index.dtype == torch.int8
+    if is_int8:
+        _require(doc_scales is not None, "int8 index requires doc_scales")
+        q_used, q_scales = quantize_rows(queries)
+        maxima = chunk_max_int8(q_used, index, doc_scales, chunk_rows, n_valid)
+    else:
+        q_used = queries.to(index.dtype)
+        maxima = chunk_max(q_used, index, chunk_rows, n_valid)
+    chunk_ids = topk_lower_index(maxima, k_chunks)[1].to(torch.int32)
+    if is_int8:
+        scores = pca_rescan_int8(chunk_ids, q_used, index, doc_scales,
+                                 chunk_rows, n_valid) * q_scales[:, None]
+    else:
+        scores = rescan(chunk_ids, q_used, index, chunk_rows, n_valid)
+    row_ids = (chunk_ids.long()[:, :, None] * chunk_rows
+               + torch.arange(chunk_rows, device=index.device)[None, None, :]
+               ).reshape(b, k_chunks * chunk_rows)
+    vals, pos = topk_lower_index(scores, k)
+    return vals, torch.gather(row_ids, 1, pos).to(torch.int32)
+
+
+def auto_chunk_rows(b: int, d: int, itemsize: int = 2,
+                    max_chunk: int = 8192) -> int:
+    """The JAX package's chunk rule: the largest power-of-two chunk whose
+    double-buffered tile + score matrix + merge temporaries fit in
+    ``VMEM_BUDGET`` for a (b, d) query block; 0 when even the floor chunk
+    of 512 does not."""
+    chunk = max_chunk
+    while chunk > 512:
+        need = 2 * chunk * d * itemsize + 3 * b * chunk * 4
+        if need <= VMEM_BUDGET:
+            return chunk
+        chunk //= 2
+    need = 2 * chunk * d * itemsize + 3 * b * chunk * 4
+    return chunk if need <= VMEM_BUDGET else 0
+
+
+def two_phase_chunk(n: int, b: int, d: int, itemsize: int, k: int,
+                    chunk_rows: int = 4096) -> int:
+    """The route ``mips_topk`` takes: the chunk of the two-phase search, or
+    0 for the scan kernels.  The JAX dispatcher's rule (mips.py:1041-1091):
+    chunk = min(chunk_rows, auto_chunk_rows(b, d, itemsize)), two-phase iff
+    k >= 8, b % 8 == 0, k <= chunk and n % chunk == 0.  Two cases differ,
+    because they are TPU rules:
+      * k > 8 with b % 8 != 0: JAX takes its single-pass kernel, but the
+        port's scan keeps at most 8, and CUDA has no 8-row block rule, so
+        the port takes the two-phase search.  The answer is the same exact
+        top-k set; only the choice among exactly tied rows can differ.
+      * auto_chunk_rows == 0, where JAX's VMEM rule sends the call to its
+        XLA tier: the port uses the floor chunk of 512.
+    (The JAX int8 rule for chunks below 1024 is a Mosaic constraint with no
+    counterpart here.)"""
+    chunk = min(chunk_rows, auto_chunk_rows(b, d, itemsize) or 512)
+    if k >= 8 and (b % 8 == 0 or k > 8) and k <= chunk and n % chunk == 0:
+        return chunk
+    return 0
+
+
+def mips_topk(index, queries, k: int, *, chunk_rows: int = 4096,
+              n_valid: Optional[int] = None, doc_scales=None):
+    """Single-device exact top-k; pass ``doc_scales`` with an int8 index.
+    Routes as ``two_phase_chunk`` says: the two-phase search (kernels 6-7,
+    4-5) or the scan kernels 1-2.  Returns (vals (B, k), row ids (B, k))."""
+    is_int8 = index.dtype == torch.int8
+    if is_int8:
+        _require(doc_scales is not None, "int8 index requires doc_scales")
+    chunk = two_phase_chunk(index.shape[0], queries.shape[0], index.shape[1],
+                            index.element_size(), k, chunk_rows)
+    if chunk:
+        return mips_topk_two_phase(index, queries, k, chunk_rows=chunk,
+                                   n_valid=n_valid, doc_scales=doc_scales)
+    if index.is_cuda and k > 8:
+        raise NotImplementedError(
+            f"k={k} over {index.shape[0]} rows: the scan kernels keep at most "
+            f"8, and the two-phase search needs the row count to be a "
+            f"multiple of its chunk (min({chunk_rows}, the VMEM rule))")
+    if is_int8:
+        q_int8, q_scale = quantize_rows(queries)
+        return mips_scan_int8(q_int8, q_scale, index, doc_scales, k, n_valid)
+    return mips_scan(queries, index, k, n_valid)
+
+
+# --------------------------------------------------------------------------
+# PCA-prefiltered search with exactness certificates
+# --------------------------------------------------------------------------
+
+
+def pca_chunk_max(qp, proj, cand_rows: int, n_valid: Optional[int] = None):
+    """Kernel 3: PCA phase 1 chunk maxima, (B, num_cand) fp32."""
+    if not _on_cuda(qp, proj):
+        return chunk_max_plain(qp, proj, cand_rows, n_valid)
+    _require(qp.dtype == proj.dtype == torch.bfloat16, "bf16 inputs expected")
+    _require(qp.shape[1] % 32 == 0,
+             f"projection width {qp.shape[1]} must be a multiple of 32")
+    out = _launch_chunk_max(1, qp.contiguous(), proj.contiguous(), None,
+                            cand_rows, n_valid)
+    LAUNCHES["pca_chunk_max"] += 1
     return out
 
 
@@ -310,17 +489,14 @@ def mips_topk_pca(index, proj, rot, bounds, queries, k: int,
     """PCA-prefiltered top-k with per-query exactness certificates (the JAX
     package's mips_topk_pca).  Returns (vals (B, k), row ids (B, k) int32,
     certified (B,) bool): a certified query's result equals the exact
-    top-k of the stored index."""
+    top-k of the stored index.  Phase 1 is kernel 3, phase 2 kernel 4
+    (int8 index) or 5 (bf16/fp32)."""
     n = index.shape[0]
     num_cand = n // cand_rows
     _require(n % cand_rows == 0, f"rows {n} not a multiple of {cand_rows}")
     if num_cand <= k_chunks:
         raise ValueError("k_chunks must be < number of candidate chunks")
     is_int8 = index.dtype == torch.int8
-    if index.is_cuda and not is_int8:
-        raise NotImplementedError(
-            "PCA over a non-int8 index needs the float rescan kernel, not "
-            "ported yet")
 
     # query-side projections and exact error norms
     q32 = queries.float()
@@ -354,8 +530,7 @@ def mips_topk_pca(index, proj, rot, bounds, queries, k: int,
                                  cand_rows, n_valid)
         scores = scores * q_scales[:, None]
     else:
-        scores = pca_rescan_plain(chunk_ids, q_used, index, None, cand_rows,
-                                  n_valid)
+        scores = rescan(chunk_ids, q_used, index, cand_rows, n_valid)
     row_ids = (chunk_ids.long()[:, :, None] * cand_rows
                + torch.arange(cand_rows, device=index.device)[None, None, :]
                ).reshape(chunk_ids.shape[0], -1)

@@ -160,7 +160,8 @@ class BeamSearcher:
                 k_rows, k_chunks=kc, cand_rows=cand, n_valid=n_valid,
                 doc_scales=idx.scales)
         else:
-            vals, rows = mips_topk(vectors, queries, k_rows, n_valid=n_valid,
+            vals, rows = mips_topk(vectors, queries, k_rows,
+                                   chunk_rows=cfg.chunk_rows, n_valid=n_valid,
                                    doc_scales=idx.scales)
         vals, docs = merge_multivector(vals, rows, k, m)
         return vals, docs.long(), cert

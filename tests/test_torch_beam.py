@@ -129,12 +129,21 @@ CASES = {
                          max_q_sp_len=88, use_pca=True, pca_k_chunks=4,
                          pca_hops="12", pca_dims=32)),
 }
+# beam 2 of 8 over 16 hop-2 rows: the port's engine takes the two-phase
+# search at hop 2, with the chunk of config.chunk_rows (the JAX engine its
+# XLA tier on the CPU; both are exact)
+TWO_PHASE = {f"two_phase_{dtype}_c{chunk}": (
+    True, dtype, 1000, False,
+    dict(beam_size_1=2, beam_size_2=8, topk=8, max_q_len=24,
+         max_q_sp_len=88, chunk_rows=chunk))
+    for dtype in ("float32", "int8") for chunk in (128, 256)}
+CASES.update(TWO_PHASE)
 
 
 @functools.lru_cache(maxsize=None)
 def _case(name):
     roberta, dtype, n_docs, random_emb, kw = CASES[name]
-    kw = dict(kw, chunk_rows=128, use_pallas=False)
+    kw = dict(dict(chunk_rows=128), **kw, use_pallas=False)
     pca_dims = kw.pop("pca_dims", None)
     tok = JaxHashTokenizer(vocab_size=512, roberta_style=roberta)
     rng = np.random.RandomState(40 + len(name))
@@ -232,6 +241,37 @@ def test_beam_search_matches_jax_engine(case, encoder):
         # honestly certify none); certified paths are then compared too
         assert any(exp[key].any() for key in ("pca_cert1", "pca_cert2")
                    if key in exp)
+
+
+@pytest.mark.parametrize("case", sorted(TWO_PHASE))
+def test_engine_passes_chunk_rows_to_two_phase(case, monkeypatch):
+    """The engine hands config.chunk_rows to the MIPS dispatcher: hop 2
+    (k = 8, B = 16) runs the two-phase search with that chunk, and the
+    chains equal the JAX engine's."""
+    from multihop_dense_retrieval_tpu_torch.ops import mips as tm
+
+    f, exp = _case(case)
+    calls = []
+    two_phase = tm.mips_topk_two_phase
+    monkeypatch.setattr(tm, "mips_topk_two_phase", lambda *a, **kw: (
+        calls.append((tuple(a[1].shape), kw["chunk_rows"])),
+        two_phase(*a, **kw))[1])
+    model = MhopRetriever(EncoderConfig.tiny(**f["ekw"]))
+    model.load_state_dict(retriever_state_dict_from_jax(
+        jax.device_get(f["params"])))
+    index = DenseIndex.build(f["emb"], chunk_rows=128, dtype=f["dtype"],
+                             device="cpu")
+    searcher = BeamSearcher(encode_fn=model.encode_seq, index=index,
+                            text_ids=f["text"][0], text_lens=f["text"][1],
+                            empty=f["text"][2],
+                            spec=HashTokenizer(vocab_size=512).spec,
+                            config=SearchConfig(**f["kw"]), device="cpu")
+    got = searcher.search(dict(f["q_inputs"]), *f["q_raw"])
+    assert calls == [((16, 32), f["kw"]["chunk_rows"])]
+    for key in ("hop1_ids", "hop2_ids"):
+        np.testing.assert_array_equal(got[key], exp[key], err_msg=key)
+    np.testing.assert_allclose(got["path_scores"], exp["path_scores"],
+                               rtol=0, atol=1e-4)
 
 
 def test_token_store_16_bit_widens_after_gather():

@@ -95,6 +95,21 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch,
                      config=SearchConfig())
 
 
+@pytest.mark.parametrize("cli", ["eval_mhop_retrieval", "eval_mhop_fever"])
+def test_cli_without_device_raises_when_cuda_is_absent(monkeypatch, tmp_path,
+                                                       cli):
+    """The CLIs default to --device cuda: without CUDA they raise before
+    reading anything, and never run on the CPU on their own."""
+    import importlib
+
+    main = importlib.import_module(f"{PORT}.cli.{cli}").main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    missing = str(tmp_path / "missing")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main([missing + ".jsonl", missing, "--tokenizer", "hash",
+              "--model-name", "tiny"])
+
+
 def test_numerics_policy_disables_tf32():
     import multihop_dense_retrieval_tpu_torch  # noqa: F401
 

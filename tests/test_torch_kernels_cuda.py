@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at edge shapes the serving path does not reach (ragged query tiles, every
-k, masked tails, fp32 rows).  These need a GPU and skip without one; run
-them there with
+k, masked tails, fp32 rows, one chunk, k = the number of chunks).  These
+need a GPU and skip without one; run them there with
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 
@@ -73,7 +73,7 @@ def test_pca_chunk_max_matches_plain(dev, b, n, r, n_valid):
     proj = torch.randn(n, r, device=dev, generator=g).to(torch.bfloat16)
     qp = torch.randn(b, r, device=dev, generator=g).to(torch.bfloat16)
     got = mips.pca_chunk_max(qp, proj, 512, n_valid)
-    exp = mips.pca_chunk_max_plain(qp, proj, 512, n_valid)
+    exp = mips.chunk_max_plain(qp, proj, 512, n_valid)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, exp, rtol=0, atol=1e-4)
 
@@ -89,21 +89,123 @@ def test_pca_rescan_int8_matches_plain(dev, b, d, n_valid):
     ids = torch.randint(0, n // cand, (b, kc), device=dev, generator=g,
                         dtype=torch.int32)
     got = mips.pca_rescan_int8(ids, qi, idx, dsc, cand, n_valid)
-    exp = mips.pca_rescan_plain(ids, qi, idx, dsc, cand, n_valid)
+    exp = mips.rescan_plain(ids, qi, idx, dsc, cand, n_valid)
     torch.cuda.synchronize()
     assert torch.equal(got, exp)
 
 
-def test_unported_cuda_paths_raise(dev):
-    idx = torch.zeros(4096, 64, device=dev, dtype=torch.bfloat16)
-    q = torch.zeros(4, 64, device=dev)
-    with pytest.raises(NotImplementedError):
-        mips.mips_topk(idx, q, 8)
-    with pytest.raises(NotImplementedError):
-        mips.mips_topk_pca(idx, torch.zeros(4096, 16, device=dev,
-                                            dtype=torch.bfloat16),
-                           torch.zeros(64, 16, device=dev),
-                           torch.zeros(4, 8, device=dev), q, 1, k_chunks=2)
+def _rows(dev, g, n, d, dtype):
+    """Small integers (int8: the full range) with fp32 scales: every float
+    product and sum is exact, so kernel and plain version agree exactly
+    whatever their order."""
+    if dtype == torch.int8:
+        return torch.randint(-127, 128, (n, d), device=dev, generator=g,
+                             dtype=torch.int8)
+    return torch.randint(-8, 9, (n, d), device=dev, generator=g).to(dtype)
+
+
+DTYPES = [torch.int8, torch.bfloat16, torch.float32]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,n,chunk,n_valid", [(1, 2048, 2048, None),
+                                               (70, 8192, 512, 8000),
+                                               (200, 16384, 2048, 14000)])
+def test_chunk_max_matches_plain(dev, dtype, b, n, chunk, n_valid):
+    """Kernels 6 and 7: one chunk, ragged query tiles, masked tails (a
+    chunk with no valid row gives NEG_INF)."""
+    g = _gen(dev, b + n)
+    idx = _rows(dev, g, n, 64, dtype)
+    q = _rows(dev, g, b, 64, dtype)
+    if dtype == torch.int8:
+        dsc = torch.rand(n, device=dev, generator=g) + 0.01
+        got = mips.chunk_max_int8(q, idx, dsc, chunk, n_valid)
+        exp = mips.chunk_max_plain(q, idx, chunk, n_valid, dsc)
+    else:
+        got = mips.chunk_max(q, idx, chunk, n_valid)
+        exp = mips.chunk_max_plain(q, idx, chunk, n_valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got, exp)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,d,cand,kc,n_valid", [(3, 64, 128, 1, None),
+                                                 (33, 768, 512, 4, 3000),
+                                                 (9, 1024, 256, 16, 4095)])
+def test_rescan_matches_plain(dev, dtype, b, d, cand, kc, n_valid):
+    """Kernels 4 and 5 at every register width (8, 16 and 32 words a
+    lane) and with the pad rows' chunk selected."""
+    g = _gen(dev, d + kc)
+    n = 4096
+    idx = _rows(dev, g, n, d, dtype)
+    q = _rows(dev, g, b, d, dtype)
+    ids = torch.randint(0, n // cand, (b, kc), device=dev, generator=g,
+                        dtype=torch.int32)
+    ids[0, 0] = n // cand - 1
+    if dtype == torch.int8:
+        dsc = torch.rand(n, device=dev, generator=g)
+        got = mips.pca_rescan_int8(ids, q, idx, dsc, cand, n_valid)
+        exp = mips.rescan_plain(ids, q, idx, dsc, cand, n_valid)
+    else:
+        got = mips.rescan(ids, q, idx, cand, n_valid)
+        exp = mips.rescan_plain(ids, q, idx, None, cand, n_valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got, exp)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,k", [(8, 8), (12, 20), (16, 64)])
+def test_two_phase_on_card_matches_cpu(dev, dtype, b, k):
+    """The whole two-phase search on the card against the CPU (plain
+    twins): k = 8 with B % 8 == 0, k > 8 with B % 8 != 0, and k = 64 =
+    the number of chunks (every chunk rescanned)."""
+    g = torch.Generator().manual_seed(k)
+    n, d, chunk = 32768, 128, 512
+    idx = torch.randint(-60, 61, (n, d), generator=g).to(dtype)
+    q = torch.randn(b, d, generator=g)
+    dsc = (torch.rand(n, generator=g) + 0.01) if dtype == torch.int8 else None
+    cpu = mips.mips_topk(idx, q, k, chunk_rows=chunk, n_valid=n - 5,
+                         doc_scales=dsc)
+    mips.reset_launch_counts()
+    gpu = mips.mips_topk(idx.to(dev), q.to(dev), k, chunk_rows=chunk,
+                         n_valid=n - 5,
+                         doc_scales=None if dsc is None else dsc.to(dev))
+    torch.cuda.synchronize()
+    int8 = dtype == torch.int8
+    assert mips.LAUNCHES["chunk_max_int8" if int8 else "chunk_max"] == 1
+    assert mips.LAUNCHES["pca_rescan_int8" if int8 else "rescan"] == 1
+    assert torch.equal(gpu[1].cpu(), cpu[1])
+    if int8:
+        assert torch.equal(gpu[0].cpu(), cpu[0])
+    else:
+        torch.testing.assert_close(gpu[0].cpu(), cpu[0], rtol=1e-5, atol=0)
+
+
+def test_float_pca_on_card_matches_cpu(dev):
+    """mips_topk_pca over a bf16 index (kernels 3 and 5) on the card
+    against the CPU: certificates and ids equal, values to rtol 1e-5."""
+    g = torch.Generator().manual_seed(6)
+    n, d, r, cand, b = 8192, 64, 32, 128, 24
+    basis = torch.linalg.qr(torch.randn(d, d, generator=g))[0][:, :8]
+    emb = (torch.randn(n, 8, generator=g) * torch.linspace(3, 0.8, 8)
+           ) @ basis.t() + 0.05 * torch.randn(n, d, generator=g)
+    rot = torch.from_numpy(mips.train_pca_rotation(emb[:2048].numpy(), r))
+    proj, bounds = mips.build_pca_prefilter(emb.numpy(), rot.numpy(),
+                                            cand_rows=cand)
+    args = (emb.to(torch.bfloat16), torch.from_numpy(proj).to(torch.bfloat16),
+            rot, torch.from_numpy(bounds),
+            emb[torch.randperm(n, generator=g)[:b]]
+            + 0.05 * torch.randn(b, d, generator=g))
+    cpu = mips.mips_topk_pca(*args, 2, k_chunks=6, cand_rows=cand,
+                             n_valid=n - 50)
+    mips.reset_launch_counts()
+    gpu = mips.mips_topk_pca(*(a.to(dev) for a in args), 2, k_chunks=6,
+                             cand_rows=cand, n_valid=n - 50)
+    torch.cuda.synchronize()
+    assert mips.LAUNCHES["pca_chunk_max"] == mips.LAUNCHES["rescan"] == 1
+    assert torch.equal(gpu[2].cpu(), cpu[2]) and bool(cpu[2].any())
+    assert torch.equal(gpu[1].cpu(), cpu[1])
+    torch.testing.assert_close(gpu[0].cpu(), cpu[0], rtol=1e-5, atol=0)
 
 
 def test_mips_topk_pca_on_card_matches_cpu(dev):

@@ -38,11 +38,13 @@ def _anisotropic(rng, n, d, r0=8, noise=0.05):
 
 
 def test_quantize_rows_bit_equal():
+    """Against the JAX function as its searches run it, under jit (XLA
+    rewrites ``max / 127`` there as a product with the fp32 reciprocal)."""
     rng = np.random.RandomState(0)
     x = rng.randn(64, 48).astype(np.float32) * rng.rand(64, 1).astype(np.float32)
     x[3] = 0.0                                   # scale floor row
     x[5, :4] = [0.5, -0.5, 1.5, 127.0]           # half-way rounding
-    jq, js = jm.quantize_rows(jnp.asarray(x))
+    jq, js = jax.jit(jm.quantize_rows)(jnp.asarray(x))
     tq, ts = tm.quantize_rows(_t(x))
     np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
