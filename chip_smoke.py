@@ -1,17 +1,21 @@
-"""Build the PyTorch port's CUDA kernels and drive its search paths on one
-GPU.  Run from the repository root:  python3 chip_smoke.py
+"""Build the PyTorch port's CUDA kernels and drive its search and corpus-
+encoding paths on one GPU.  Run from the repository root:  python3 chip_smoke.py
 
 Phases (each prints a line and flushes; any failure exits non-zero):
   1. build   — nvcc compiles every kernel from ops/csrc (one process each).
-  2. kernels — each of the seven kernels against its plain PyTorch version
+  2. kernels — each of the eight kernels against its plain PyTorch version
                at its path's shapes: kernels 1-4 at B=192, D=768,
                N=1,048,576, R=128, kc=8; kernel 7 at B=384, 2048-row
                chunks of that int8 index; kernels 6 and 5 at B=200 over a
                262,144-row bf16 index (2048-row chunks, kc=20; kernel 5
-               also at 512-row chunks, kc=16).  int8 results bit-equal,
-               bf16/fp32 within 1e-3; times by CUDA events beside the plain
-               version, a library yardstick where one exists, and the
-               card's bound.
+               also at 512-row chunks, kc=16); kernel 8 (fused attention,
+               12 heads of 64) at the corpus leg's (B, Wq, W) = (256, 300,
+               300) and (256, 1, 300), the engine's (192, 40, 40) and
+               (192, 350, 350) in bf16 and (8, 128, 128) in fp32, ragged
+               masks and a fully masked row.  int8 results bit-equal,
+               bf16/fp32 MIPS within 1e-3, kernel 8 as attention_error
+               says; times by CUDA events beside the plain version, a
+               library yardstick where one exists, and the card's bound.
   3. main paths — roberta-base shape (12 layers, 768 wide) with seeded
                random weights; the questions' or claims' own vectors are
                planted as index rows, and hop 1 must return them.  Each
@@ -30,6 +34,11 @@ Phases (each prints a line and flushes; any failure exits non-zero):
                d. int8 two-phase: the same index at beam 2 / 20, top 20,
                   5 timed batches: hop 2 (B=384, k=20) through kernels 7
                   + 4, bit-equal to the exact int8 scan.
+               f. fused serving: leg a's engine and weights with
+                  attention_impl="fused", 5 timed batches: kernel 8 once
+                  a layer for hop 1 and for each hop-2 tile, beside
+                  kernels 1, 3, 4; one more batch held as in leg a, one
+                  profiled.
                b. bf16: an engine over a 65,536-row bf16 index without
                   prefilter serves 5 batches (kernel 2), whose hop-1 and
                   hop-2 queries are then held against the plain scan.
@@ -40,6 +49,15 @@ Phases (each prints a line and flushes; any failure exits non-zero):
                   Every MIPS call is held against the plain exact scan;
                   c2 must certify some hop-2 queries.  Each run's batches
                   are timed and its last batch profiled.
+               e. corpus encoding: 32,768 wiki-like passages (JSONL,
+                  20-300 words), max_c_len 300, batch 256, length sort.
+                  e1: index.build.build_index with a fused retriever
+                  (int8, PCA R=128): kernel 8 once a layer for every
+                  batch.  e2: cli/encode_corpus.main at its default
+                  attention (no kernel 8) into a directory that must load
+                  back.  docs/s of each; on the widest batch the fused
+                  encoder is held to its plain twin, and compared with
+                  the xla encoder by cosine.
   4. result  — one JSON line of kernel records, the card's name and power
                limit, and the final {"ok": true, ...} line.
 Exits with code 2 and no result when CUDA is not available.
@@ -69,6 +87,17 @@ FEVER_BATCH = 100
 B_F, N_F, C_F, K_F, KC_PCA_F = 2 * FEVER_BATCH, 1 << 18, 2048, 20, 16
 N_CLAIMS, CLAIM_LEN = 500, 45
 B_I8, C_I8 = 2 * B, 2048
+# kernel 8 (fused attention): roberta-base's 12 heads of 64; the corpus
+# encoding leg (e) encodes N_DOCS wiki-like passages in batches of C_BATCH
+# at widths up to C_LEN
+NH = 12
+N_DOCS, C_BATCH, C_LEN = 32768, 256, 300
+# (what, B, Wq, W, dtype) of the kernel-8 checks; the first is the record
+ATTN_CASES = (("corpus square", C_BATCH, C_LEN, C_LEN, torch.bfloat16),
+              ("corpus cls layer", C_BATCH, 1, C_LEN, torch.bfloat16),
+              ("hop 1", B, Q_LEN, Q_LEN, torch.bfloat16),
+              ("widest hop-2 bucket", B, QSP_LEN, QSP_LEN, torch.bfloat16),
+              ("fp32", 8, 128, 128, torch.float32))
 
 
 def say(*a):
@@ -215,6 +244,7 @@ def check_kernels(mips, dev, gen):
                                    library_ms=None)
     del idx8
     check_float_two_phase(mips, dev, gen, recs)
+    check_attention(dev, gen, recs)
     return recs
 
 
@@ -265,6 +295,114 @@ def check_float_two_phase(mips, dev, gen, recs):
             f"{uniq} distinct chunks)")
     recs["rescan"] = dict(rescans[0],
                           err=max(r["err"] for r in rescans))
+
+
+def attention_inputs(dev, gen, b, wq, w, dtype):
+    """N(0,1) q, k, v of width D; ragged masks and a fully masked last row."""
+    q, k, v = (torch.randn(b, n, D, device=dev, generator=gen).to(dtype)
+               for n in (wq, w, w))
+    lens = torch.randint(1, w + 1, (b,), device=dev, generator=gen)
+    mask = (torch.arange(w, device=dev)[None] < lens[:, None]).to(torch.int32)
+    mask[-1] = 0
+    return q, k, v, mask
+
+
+def bf16_ulp(x):
+    _, e = torch.frexp(x.float().abs())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def attention_error(fa, got, exp, q, k, v, mask):
+    """Kernel 8 against its plain version: (max abs error, max error in
+    bf16 ulps of the plain value, share beyond 2 ulps).  fp32 must be
+    within atol/rtol 1e-5 (sums in another order).  bf16 must be within 2
+    ulps of the plain value plus 2^-7 * sum_j p_j |v_j|: both round p to
+    bf16 from fp32 values whose sums differ in order, and a p_j rounded
+    the other way moves o by one ulp of p_j (<= 2^-7 p_j) times |v_j|."""
+    assert got.dtype == exp.dtype == q.dtype and got.shape == exp.shape
+    got_f, exp_f = got.float(), exp.float()
+    assert bool(torch.isfinite(got_f).all()), "kernel 8: non-finite output"
+    diff = (got_f - exp_f).abs()
+    ulps = diff / bf16_ulp(exp_f)
+    if q.dtype == torch.float32:
+        torch.testing.assert_close(got_f, exp_f, atol=1e-5, rtol=1e-5)
+    else:
+        env = fa.fused_attention_plain(q, k, v.abs(), mask, NH).float()
+        tol = 2 * bf16_ulp(exp_f) + 2.0 ** -7 * env * (1 + 2.0 ** -7)
+        assert bool((diff <= tol).all()), \
+            f"kernel 8 beyond its bf16 envelope by {(diff - tol).max()}"
+    return diff.max().item(), ulps.max().item(), (ulps > 2).float().mean().item()
+
+
+def check_attention(dev, gen, recs):
+    """Kernel 8 at the shapes of its paths (the corpus leg's square and
+    cls layers, the engine's hop 1 and widest hop-2 bucket, an fp32 case),
+    each against its plain version, with CUDA-event times beside the plain
+    version, the bound, and the library yardstick:
+    scaled_dot_product_attention with the same fp32 bias as a float mask,
+    on (B, nh, W, d) inputs transposed beforehand (the transposes are not
+    timed).  The port never calls it.  At the corpus shape it also times
+    the encoder's attention step (the three projections, attention and the
+    head layout) with attention_impl "fused" and "xla"."""
+    import importlib
+
+    import torch.nn.functional as F
+
+    fa = importlib.import_module(
+        "multihop_dense_retrieval_tpu_torch.ops.fused_attention")
+    dh = D // NH
+    for i, (what, b, wq, w, dt) in enumerate(ATTN_CASES):
+        q, k, v, mask = attention_inputs(dev, gen, b, wq, w, dt)
+        got = fa.fused_attention(q, k, v, mask, NH)
+        exp = fa.fused_attention_plain(q, k, v, mask, NH)
+        torch.cuda.synchronize()
+        err, ulps, beyond = attention_error(fa, got, exp, q, k, v, mask)
+        del got, exp
+        ms = cuda_ms(lambda: fa.fused_attention(q, k, v, mask, NH), 10)
+        plain = cuda_ms(lambda: fa.fused_attention_plain(q, k, v, mask, NH),
+                        2)
+        qt, kt, vt = (x.view(b, -1, NH, dh).transpose(1, 2).contiguous()
+                      for x in (q, k, v))
+        bias = torch.where(mask.bool(), 0.0, -1e9).to(dt)[:, None, None, :]
+        lib = _library(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=bias))
+        bnd = bound_ms((2 * b * wq * D + 2 * b * w * D) * q.element_size()
+                       + 4 * b * w, 4 * b * NH * wq * w * dh,
+                       "bf16" if dt == torch.bfloat16 else "fp32")
+        say(f"  kernel 8 {what} (B={b}, Wq={wq}, W={w}, {str(dt)[6:]}): "
+            f"{ms:.4f} ms (plain {plain:.4f} ms, SDPA {lib:.4f} ms, bound "
+            f"{bnd[0]:.4f} ms by {bnd[1]}); max abs err {err:.3g}, max "
+            f"{ulps:.3g} bf16 ulps, {beyond:.3g} of outputs beyond 2 ulps")
+        if i == 0:
+            recs["fused_attention"] = dict(err=err, ms=ms, plain_ms=plain,
+                                           bound=bnd, library_ms=lib)
+            time_attention_step(dev, gen, mask)
+        del q, k, v, qt, kt, vt
+
+
+def time_attention_step(dev, gen, mask):
+    """The encoder's attention step at the shape of ``mask`` (the corpus
+    shape, B=256, L=300; bf16, roberta-base width) under each
+    attention_impl, with one set of weights: CUDA events over 10 calls."""
+    from multihop_dense_retrieval_tpu_torch.core.config import EncoderConfig
+    from multihop_dense_retrieval_tpu_torch.models.encoder import Attention
+
+    b, w = mask.shape
+    x = torch.randn(b, w, D, device=dev, generator=gen).to(torch.bfloat16)
+    bias = torch.where(mask[:, None, None, :].bool(), 0.0, -1e9
+                       ).to(torch.float32)
+    torch.manual_seed(3)
+    att = Attention(EncoderConfig.roberta_base()).to(dev, torch.bfloat16)
+    times = {}
+    for impl, scores in (("fused", "float32"), ("xla", "float32"),
+                         ("xla", "bfloat16")):
+        att.c = EncoderConfig.roberta_base(attention_impl=impl,
+                                           attention_scores_dtype=scores)
+        with torch.inference_mode():
+            times[f"{impl}/{scores} scores"] = cuda_ms(
+                lambda: att.context(x, bias, mask), 10)
+    say(f"  encoder attention step at B={b}, L={w} (projections "
+        f"included), ms: {json.dumps(times)}")
 
 
 # ---- phase 3: the serving engine ------------------------------------------
@@ -499,6 +637,9 @@ def run_main_path(port, mips, dev, gen, smi, table_path=None, iters=50):
     profile_batch(engine, q_inputs, q_raw, q_lens, med * 1e3, smi, table_path)
     launches["int8_two_phase"] = run_int8_two_phase(
         engine, scfg, q_inputs, q_raw, q_lens, mips, search, n_valid, smi)
+    launches["fused_serving"] = run_fused_serving(
+        engine, model, models, search, q_inputs, q_raw, q_lens, planted, mips,
+        n_valid, smi)
     del engine, index
 
     # path 2: a bf16 index engine without prefilter (kernel 2)
@@ -531,7 +672,226 @@ def run_main_path(port, mips, dev, gen, smi, table_path=None, iters=50):
     del bf16_engine, bf16_index, text_ids, text_lens, empty
 
     launches.update(run_fever_cli(port, model, mips, dev, gen, smi))
+    launches.update(run_corpus_encoding(port, model.state_dict(), mips, dev,
+                                        smi))
     return launches
+
+
+def run_fused_serving(engine, model, models, search, q_inputs, q_raw, q_lens,
+                      planted, mips, n_valid, smi):
+    """Leg (f): the int8 path's engine with the same weights under
+    attention_impl="fused": 5 timed batches with their own launch counts
+    (kernel 8 once a layer for hop 1 and for each hop-2 tile, beside
+    kernels 1, 3, 4); one more batch held to the exact scans on its own
+    query vectors (check_int8_path), and one profiled.  The planted rows
+    are the "xla" encoder's vectors, so the hit rate is reported, not
+    held."""
+    cfg = dataclasses.replace(model.config, attention_impl="fused")
+    fused = models.MhopRetriever(cfg, cls_only=True)
+    fused.load_state_dict(model.state_dict())
+    fused = fused.to(engine.device).eval()
+    eng = search.BeamSearcher(
+        encode_fn=fused.encode_seq, index=engine.index,
+        text_ids=engine.text_ids, text_lens=engine.text_lens,
+        empty=engine.empty, spec=engine.spec, config=engine.config,
+        device=engine.device)
+    eng.search(dict(q_inputs), q_raw, q_lens)              # warm-up
+    torch.cuda.synchronize()
+    mips.reset_launch_counts()
+    out, secs = timed_batches(eng, q_inputs, q_raw, q_lens, 5)
+    launches = dict(mips.LAUNCHES)
+    seen = record_queries(eng)
+    checked = eng.search(dict(q_inputs), q_raw, q_lens)
+    for key, val in out.items():
+        assert np.array_equal(val, checked[key]), f"{key} differs by batch"
+    cert = check_int8_path(checked, seen, eng.index, mips, n_valid)
+    hit = (out["hop1_ids"][:, 0] == planted).mean()
+    med = float(np.median(secs))
+    tiles = len(engine.config.hop2_buckets)
+    say(f"  fused serving leg (attention_impl=fused): median "
+        f"{med * 1e3:.2f} ms/batch over 5 batches of {B} ({B / med:.1f} q/s)"
+        f"; hop 1 = exact scan (bit-equal); hop-2 certified fraction "
+        f"{cert:.4f}, certified = exact top-1; planted hop-1 hit rate {hit:.3f}"
+        f" (planted rows are the xla encoder's) [{smi}]")
+    say(f"  fused serving launches over 5 batches: {json.dumps(launches)}")
+    want = 5 * model.config.num_layers * (1 + tiles)
+    assert launches["fused_attention"] == want, \
+        f"kernel 8 launched {launches['fused_attention']} times, not {want}"
+    for name in ("mips_scan_int8", "pca_chunk_max", "pca_rescan_int8"):
+        assert launches[name] > 0, f"{name} not launched on leg (f)"
+    profile_batch(eng, q_inputs, q_raw, q_lens, med * 1e3, smi)
+    del eng, fused
+    return launches
+
+
+def write_corpus(path, rng):
+    """N_DOCS passages as JSONL: a two-word title and a text of
+    synth_doc_lens words (20-300); the hash tokenizer maps each word to
+    one id, so the assembled passages span widths up to C_LEN."""
+    vocab = np.array([f"w{i}" for i in range(1 << 16)])
+    lens = synth_doc_lens(rng, N_DOCS)
+    words = vocab[rng.randint(len(vocab), size=int(lens.sum()))]
+    with open(path, "w") as f:
+        s = 0
+        for i, n in enumerate(lens):
+            f.write(json.dumps({"title": f"doc {i}",
+                                "text": " ".join(words[s:s + n])}) + "\n")
+            s += n
+
+
+def widest_batch(tc, spec, dev):
+    """The C_BATCH longest passages, assembled at width C_LEN as the corpus
+    encoder assembles them."""
+    from multihop_dense_retrieval_tpu_torch.search.beam import \
+        assemble_pair_inputs
+
+    total = np.minimum(tc.title_lens, C_LEN) + np.minimum(tc.text_lens, C_LEN)
+    idx = np.argsort(total, kind="stable")[-C_BATCH:]
+    ids = [torch.from_numpy(np.ascontiguousarray(a[idx], np.int32)).to(dev)
+           for a in (tc.title_ids, tc.title_lens, tc.text_ids, tc.text_lens)]
+    return assemble_pair_inputs(*ids, C_LEN, spec)
+
+
+def run_corpus_encoding(port, state, mips, dev, smi):
+    """Leg (e): corpus encoding at roberta-base width over N_DOCS wiki-like
+    passages (max_c_len 300, batch 256, length sort on), same weights as
+    the other legs.  e1: index.build.build_index on a cls_only retriever
+    with attention_impl="fused" (int8, PCA R=128, chunk_rows 4096): kernel
+    8 once a layer for every batch.  e2: cli/encode_corpus.main at its
+    default ("xla") attention, --index-dtype int8 --pca-dims 128, into a
+    temp dir that must load back with N_DOCS docs: no kernel-8 launch.
+    On the widest batch the fused encoder is held to the same encoder with
+    fused_attention_plain swapped in: in fp32 (the same weights) within
+    1e-3 (fp32 sums in another order, through 12 layers); in bf16, whose
+    one-ulp roundings of p and o the 12 random layers amplify, every
+    vector's cosine >= 0.999 and no entry off by more than 0.1 (entries
+    are ~1).  The fused and xla vectors are compared by cosine (reported:
+    the xla encoder rounds its scores to bf16, the kernel keeps fp32)."""
+    import importlib
+
+    from multihop_dense_retrieval_tpu_torch.cli import common
+    from multihop_dense_retrieval_tpu_torch.cli import encode_corpus as cli
+    from multihop_dense_retrieval_tpu_torch.index import build
+
+    enc = importlib.import_module(
+        "multihop_dense_retrieval_tpu_torch.models.encoder")
+    fa = importlib.import_module(
+        "multihop_dense_retrieval_tpu_torch.ops.fused_attention")
+    cfgmod, data, index_mod, models, _ = port
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_corpus(f"{tmp}/corpus.jsonl", np.random.RandomState(11))
+        torch.save(state, f"{tmp}/model.pt")
+        tok = common.resolve_tokenizer("hash")
+        tc = data.TokenizedCorpus.build(
+            data.Corpus.from_jsonl(f"{tmp}/corpus.jsonl"), tok,
+            max_text_len=C_LEN)
+        say(f"  corpus set-up: {N_DOCS} docs written and tokenized in "
+            f"{time.perf_counter() - t0:.1f} s; text lengths mean "
+            f"{tc.text_lens.mean():.1f}, max {tc.text_lens.max()}")
+        fused = models.MhopRetriever(cfgmod.EncoderConfig.roberta_base(
+            attention_impl="fused"), cls_only=True)
+        fused.load_state_dict(state)
+        fused = fused.to(dev).eval()
+
+        # e1: build_index with the fused encoder; the encode timed alone
+        enc_secs, encode = [], build.encode_corpus
+
+        def timed_encode(*a, **kw):
+            t = time.perf_counter()
+            res = encode(*a, **kw)          # host array: the device is done
+            enc_secs.append(time.perf_counter() - t)
+            return res
+
+        build.encode_corpus = timed_encode
+        torch.cuda.synchronize()
+        mips.reset_launch_counts()
+        t1 = time.perf_counter()
+        try:
+            index = build.build_index(
+                fused.encode_seq, tc, tok.spec, max_c_len=C_LEN,
+                batch_size=C_BATCH, chunk_rows=4096, dtype="int8",
+                pca_dims=R, pca_cand_rows=CAND, device=dev)
+            torch.cuda.synchronize()
+        finally:
+            build.encode_corpus = encode
+        e1 = time.perf_counter() - t1
+        out["corpus_e1"] = dict(mips.LAUNCHES)
+        n_batches = -(-N_DOCS // C_BATCH)
+        assert index.n_docs == N_DOCS and index.vectors.dtype == torch.int8
+        assert bool(torch.isfinite(index.scales).all())
+        say(f"  e1 build_index (fused): encode {N_DOCS / enc_secs[0]:.1f} "
+            f"docs/s ({enc_secs[0]:.2f} s), build_index {N_DOCS / e1:.1f} "
+            f"docs/s ({e1:.2f} s), {n_batches} batches [{smi}]")
+        say(f"  e1 launches: {json.dumps(out['corpus_e1'])}")
+        assert out["corpus_e1"]["fused_attention"] == \
+            fused.config.num_layers * n_batches, \
+            "kernel 8 did not run once a layer for every batch"
+        del index
+
+        # e2: the CLI at its default attention
+        torch.cuda.synchronize()
+        mips.reset_launch_counts()
+        t2 = time.perf_counter()
+        cli.main([f"{tmp}/corpus.jsonl", f"{tmp}/e2", "--tokenizer", "hash",
+                  "--model-name", "roberta-base", "--checkpoint",
+                  f"{tmp}/model.pt", "--index-dtype", "int8", "--pca-dims",
+                  str(R)])
+        torch.cuda.synchronize()
+        e2 = time.perf_counter() - t2
+        out["corpus_e2"] = dict(mips.LAUNCHES)
+        index = index_mod.DenseIndex.load(f"{tmp}/e2/index.npz", device=dev)
+        tc2 = data.TokenizedCorpus.load(f"{tmp}/e2/tokens.npz")
+        with open(f"{tmp}/e2/id2doc.json") as f:
+            n_id2doc = len(json.load(f))
+        assert index.n_docs == tc2.text_ids.shape[0] == n_id2doc == N_DOCS
+        assert index.pca_proj is not None and index.vectors.dtype == torch.int8
+        say(f"  e2 cli/encode_corpus (xla): {N_DOCS / e2:.1f} docs/s for the "
+            f"whole CLI ({e2:.2f} s: tokenize, encode, int8 + PCA build, "
+            f"save); the directory loads with {index.n_docs} docs [{smi}]")
+        say(f"  e2 launches: {json.dumps(out['corpus_e2'])}")
+        assert out["corpus_e2"]["fused_attention"] == 0, \
+            "kernel 8 ran under the default attention"
+        del index
+
+        # the widest batch: kernel against plain inside the encoder (bf16,
+        # and fp32 with the same weights); fused against xla
+        inputs = widest_batch(tc, tok.spec, dev)
+        ids, am = inputs["input_ids"], inputs["attention_mask"]
+        kernel = enc.fused_attention
+        cosine = torch.nn.functional.cosine_similarity
+
+        def twin_gap(model):
+            with torch.inference_mode():
+                got = model.encode_seq(ids, am)
+                enc.fused_attention = fa.fused_attention_plain
+                try:
+                    twin = model.encode_seq(ids, am)
+                finally:
+                    enc.fused_attention = kernel
+            assert bool(torch.isfinite(got).all())
+            return (got, (got - twin).abs().max().item(),
+                    cosine(got, twin).min().item())
+
+        v_fused, gap16, cos16 = twin_gap(fused)
+        fused32 = models.MhopRetriever(cfgmod.EncoderConfig.roberta_base(
+            attention_impl="fused", dtype="float32"), cls_only=True)
+        fused32.load_state_dict(state)
+        _, gap32, cos32 = twin_gap(fused32.to(dev).eval())
+        xla = common.init_retriever(common.resolve_encoder_config(
+            "roberta-base"), checkpoint=f"{tmp}/model.pt", device=dev)
+        with torch.inference_mode():
+            cos_xla = cosine(v_fused, xla.encode_seq(ids, am))
+        say(f"  widest batch ({C_BATCH} x {C_LEN}), fused encoder vs its "
+            f"plain twin: bf16 max abs {gap16:.4g}, min cosine {cos16:.6f}; "
+            f"fp32 max abs {gap32:.4g}, min cosine {cos32:.8f}; fused vs xla "
+            f"(bf16) cosine min {cos_xla.min().item():.6f}, median "
+            f"{cos_xla.median().item():.6f}")
+        assert gap32 <= 1e-3, f"fp32 fused encoder off its twin by {gap32}"
+        assert cos16 >= 0.999 and gap16 <= 0.1, \
+            f"bf16 fused encoder off its twin: {gap16}, cosine {cos16}"
+    return out
 
 
 def run_int8_two_phase(engine, scfg, q_inputs, q_raw, q_lens, mips, search,
@@ -819,6 +1179,9 @@ REPLACES = {
     "rescan": (CU + "two_phase.cu", TPU + "532", "fever_c1"),
     "chunk_max": (CU + "two_phase.cu", TPU + "489", "fever_c1"),
     "chunk_max_int8": (CU + "two_phase.cu", TPU + "506", "int8_two_phase"),
+    "fused_attention": (CU + "fused_attention.cu",
+                        "multihop_dense_retrieval_tpu/ops/fused_attention.py:61",
+                        "corpus_e1"),
 }
 
 

@@ -1,0 +1,190 @@
+"""CLI: bulk-encode a corpus into the dense index and the tokenized store.
+
+The port of the JAX package's ``cli/encode_corpus.py``, writing the same
+three artifacts, which both packages' eval CLIs read:
+  <out>/index.npz      — DenseIndex (bf16, fp32 or int8; chunk-aligned)
+  <out>/tokens.npz     — TokenizedCorpus (uint16 ids) for on-device hop 2
+  <out>/id2doc.json    — row → {title, text}
+It runs on CUDA unless ``--device`` names another device.  The encoder is
+the ``--model-name`` preset; a caller that wants kernel 8 builds the
+retriever from ``EncoderConfig(attention_impl="fused")`` and calls
+``index.build.build_index`` (the CLI has no flag for it, as in JAX).
+Not ported (each raises NotImplementedError): ``--unified`` (ROADMAP item
+8), ``--data-parallel`` > 1 and pod auto-sharding under an initialised
+``torch.distributed`` with more than one process (item 12).
+
+Usage:
+  python -m multihop_dense_retrieval_tpu_torch.cli.encode_corpus \\
+      CORPUS.jsonl OUT_DIR --tokenizer hash --model-name tiny \\
+      [--checkpoint ckpt.pt] [--device cuda]
+"""
+
+import argparse
+import os
+
+import numpy as np
+import torch
+
+from ..core.device import resolve_device
+from ..data.corpus import Corpus, TokenizedCorpus
+from ..index import shards as sh
+from ..index.build import encode_corpus
+from ..index.store import DenseIndex
+from ..models import MultiVectorCtxEncoder
+from . import common
+
+
+def _refuse_unported(args):
+    if args.unified:
+        raise NotImplementedError(
+            "--unified (UnifiedRetriever) is not ported yet (ROADMAP item 8)")
+    if args.data_parallel is not None and args.data_parallel > 1:
+        raise NotImplementedError(
+            "--data-parallel > 1 is not ported yet (ROADMAP item 12)")
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized() and \
+            dist.get_world_size() > 1:
+        raise NotImplementedError(
+            "pod auto-sharding across processes is not ported yet (ROADMAP "
+            "item 12): pass --num-shards/--shard-id per process, then "
+            "--merge-only")
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("corpus", help="JSONL with {title, text} per line")
+    p.add_argument("out_dir")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (cpu: the kernels' plain "
+                        "versions)")
+    p.add_argument("--tokenizer", default="hash")
+    p.add_argument("--model-name", default="roberta-base")
+    p.add_argument("--checkpoint", default="")
+    p.add_argument("--max-c-len", type=int, default=300)
+    p.add_argument("--batch-size", type=int, default=256)
+    p.add_argument("--chunk-rows", type=int, default=4096)
+    p.add_argument("--index-dtype", default="bfloat16",
+                   choices=["bfloat16", "float32", "int8"],
+                   help="int8 halves device memory against bf16 (per-row "
+                        "symmetric scales)")
+    p.add_argument("--max-docs", type=int, default=None)
+    p.add_argument("--no-length-sort", action="store_true",
+                   help="disable length-sorted bucketed encoding (exact "
+                        "either way; sorting is the fast path)")
+    p.add_argument("--pca-dims", type=int, default=None,
+                   help="build a PCA prefilter of this rank alongside the "
+                        "index (search with eval --pca)")
+    p.add_argument("--pca-cand-rows", type=int, default=512,
+                   help="candidate-chunk granularity of the prefilter "
+                        "(multiple of 128, divides chunk-rows)")
+    p.add_argument("--data-parallel", type=int, default=None,
+                   help="devices on the data axis; not ported beyond 1")
+    p.add_argument("--multi-vector", type=int, default=1,
+                   help=">1: encode each passage into N grouped index rows "
+                        "(models/retriever.py::MultiVectorCtxEncoder); "
+                        "search collapses rows to docs by max-over-vectors")
+    p.add_argument("--mv-scheme", default="tokenwise",
+                   choices=["tokenwise", "layerwise"])
+    p.add_argument("--unified", action="store_true",
+                   help="encode with a UnifiedRetriever checkpoint (not "
+                        "ported yet)")
+    p.add_argument("--num-shards", type=int, default=1,
+                   help="split the corpus into N contiguous slices; this "
+                        "invocation encodes one slice (see --shard-id) and "
+                        "writes a shard artifact instead of the final index "
+                        "(merge with --merge-only)")
+    p.add_argument("--shard-id", type=int, default=None,
+                   help="which slice to encode (default 0)")
+    p.add_argument("--merge-only", action="store_true",
+                   help="skip encoding; merge existing shard artifacts in "
+                        "OUT_DIR into index.npz/tokens.npz/id2doc.json")
+    p.add_argument("--keep-shards", action="store_true",
+                   help="keep the per-shard artifacts after merging")
+    p.add_argument("--export-npy", action="store_true",
+                   help="also write wiki_index.npy, the reference's raw fp32 "
+                        "embedding matrix (np.load + FAISS add there); "
+                        "single-host only (not --num-shards)")
+    args = p.parse_args(argv)
+    if args.export_npy and (args.num_shards > 1 or args.merge_only):
+        p.error("--export-npy requires the single-host encode path (each "
+                "shard only holds its slice and merged artifacts are "
+                "already quantized); re-encode without --num-shards/"
+                "--merge-only to export")
+    if args.export_npy and args.multi_vector > 1:
+        p.error("--export-npy is the reference's one-row-per-doc FAISS "
+                "format; a multi-vector matrix (N rows per doc) would "
+                "silently misalign with id2doc.json there")
+
+    device = resolve_device(args.device)
+    _refuse_unported(args)
+    logger = common.setup_logging(args.out_dir)
+    build_kw = dict(chunk_rows=args.chunk_rows, dtype=args.index_dtype,
+                    multi_vector=args.multi_vector, pca_dims=args.pca_dims,
+                    pca_cand_rows=args.pca_cand_rows, device=device)
+    if args.merge_only:
+        index = sh.merge_shards(args.out_dir,
+                                args.num_shards if args.num_shards > 1
+                                else None,
+                                keep_shards=args.keep_shards, **build_kw)
+        logger.info("merged shards: index (%d docs, padded %d) in %s",
+                    index.n_docs, index.vectors.shape[0], args.out_dir)
+        return
+
+    num_shards = args.num_shards
+    # rank 0 where the JAX CLI takes jax.process_index()
+    shard_id = 0 if args.shard_id is None else args.shard_id
+
+    cfg = common.resolve_encoder_config(args.model_name)
+    tok = common.resolve_tokenizer(args.tokenizer)
+    model = common.init_retriever(cfg, checkpoint=args.checkpoint,
+                                  device=device)
+
+    logger.info("loading corpus %s", args.corpus)
+    corpus = Corpus.from_jsonl(args.corpus, max_docs=args.max_docs)
+    if num_shards > 1:
+        lo, hi = sh.shard_bounds(len(corpus), num_shards, shard_id)
+        logger.info("shard %d/%d: docs [%d, %d)", shard_id, num_shards,
+                    lo, hi)
+        corpus = Corpus(corpus.docs[lo:hi])
+    logger.info("tokenizing %d docs", len(corpus))
+    tc = TokenizedCorpus.build(corpus, tok, max_text_len=args.max_c_len)
+
+    encode_fn = model.encode_seq
+    if args.multi_vector > 1:
+        # the multi-vector encoder shares the retriever's transformer stack
+        # and projection head: corpus rows must live in the projected space
+        # of the query vectors they are scored against
+        mv_model = MultiVectorCtxEncoder(cfg, multi_vector=args.multi_vector,
+                                         scheme=args.mv_scheme)
+        mv_model.load_state_dict(model.state_dict())
+        encode_fn = mv_model.to(device).eval()
+
+    logger.info("encoding on %s", device)
+    emb = encode_corpus(encode_fn, tc, tok.spec, max_c_len=args.max_c_len,
+                        batch_size=args.batch_size, progress=True,
+                        multi_vector=args.multi_vector,
+                        length_sort=not args.no_length_sort, device=device)
+    if num_shards > 1:
+        sh.save_shard(args.out_dir, shard_id, num_shards, emb, tc, corpus)
+        logger.info("wrote shard %d/%d (%d docs) to %s; encode the remaining "
+                    "shards, then run with --merge-only to produce the final "
+                    "index", shard_id, num_shards, len(corpus), args.out_dir)
+        return
+
+    os.makedirs(args.out_dir, exist_ok=True)
+    if args.export_npy:
+        # raw fp32, unpadded, unquantized: what the reference's
+        # np.load(index_path) + index.add(xb) expects
+        np.save(os.path.join(args.out_dir, "wiki_index.npy"), emb)
+        logger.info("wrote wiki_index.npy %s (reference FAISS format)",
+                    emb.shape)
+    index = DenseIndex.build(emb, **build_kw)
+    index.save(os.path.join(args.out_dir, "index.npz"))
+    tc.save(os.path.join(args.out_dir, "tokens.npz"))
+    corpus.save_id2doc(os.path.join(args.out_dir, "id2doc.json"))
+    logger.info("wrote index (%d docs, padded %d) to %s",
+                index.n_docs, index.vectors.shape[0], args.out_dir)
+
+
+if __name__ == "__main__":
+    main()

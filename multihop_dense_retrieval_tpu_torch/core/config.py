@@ -39,8 +39,9 @@ class EncoderConfig:
     hidden_act: str = "gelu"
     # compute dtype; params are fp32
     dtype: str = "bfloat16"
-    # "xla" (plain torch ops) is the only implementation this port serves;
-    # "fused" raises NotImplementedError until its kernel is ported
+    # "xla": plain torch ops; "fused": kernel 8 (ops/fused_attention.py),
+    # fp32 scores and softmax whatever attention_scores_dtype says; "flash"
+    # (JAX's stock TPU kernel) raises NotImplementedError
     attention_impl: str = "xla"
     attention_scores_dtype: str = "float32"
 

@@ -54,6 +54,11 @@ class DenseIndex:
     pca_bounds: Optional[torch.Tensor] = None   # (4, N_pad/cand_rows) fp32
     pca_cand_rows: int = 512
 
+    @property
+    def n_passages(self) -> int:
+        """Distinct documents in the index (n_docs / multi_vector)."""
+        return self.n_docs // self.multi_vector
+
     @classmethod
     def build(cls, embeddings: np.ndarray, *, chunk_rows: int = 4096,
               dtype: Union[str, torch.dtype] = "bfloat16",

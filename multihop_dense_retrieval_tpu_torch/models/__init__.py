@@ -1,6 +1,6 @@
 from .convert import retriever_state_dict_from_jax
 from .encoder import TransformerEncoder
-from .retriever import MhopRetriever, ProjectionHead
+from .retriever import MhopRetriever, MultiVectorCtxEncoder, ProjectionHead
 
-__all__ = ["MhopRetriever", "ProjectionHead", "TransformerEncoder",
-           "retriever_state_dict_from_jax"]
+__all__ = ["MhopRetriever", "MultiVectorCtxEncoder", "ProjectionHead",
+           "TransformerEncoder", "retriever_state_dict_from_jax"]

@@ -6,7 +6,8 @@ without the outer ``{"params": ...}``) and returns a state dict under the
 reference's names: ``encoder.*`` (HF layout), ``project.0``, ``project.1``.
 It is the port's own copy of the mapping in the JAX package's
 ``models/export.py``; no pooler is synthesized because the port's module
-has none.  Load the result with ``MhopRetriever.load_state_dict``.
+has none.  Load the result with ``MhopRetriever.load_state_dict`` (or
+``MultiVectorCtxEncoder.load_state_dict``: the same names).
 """
 
 from __future__ import annotations
@@ -76,11 +77,14 @@ def encoder_state_dict_from_jax(enc: Dict, prefix: str = "") -> StateDict:
 
 
 def retriever_state_dict_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
-    """MhopRetriever Flax params (numpy leaves) → the port's state dict."""
+    """MhopRetriever or MultiVectorCtxEncoder Flax params (numpy leaves) →
+    the port's state dict (no ``project.*`` where the tree has no
+    projection head: ``MultiVectorCtxEncoder(project=False)``)."""
     if "params" in params and "encoder" not in params:
         params = params["params"]
     out = encoder_state_dict_from_jax(params["encoder"], prefix="encoder.")
-    _dense(out, "project.0", params["project"]["dense"])
-    _layer_norm(out, "project.1", params["project"]["layer_norm"])
+    if "project" in params:
+        _dense(out, "project.0", params["project"]["dense"])
+        _layer_norm(out, "project.1", params["project"]["layer_norm"])
     return {k: torch.from_numpy(np.array(v, np.float32))
             for k, v in out.items()}

@@ -16,10 +16,21 @@ step, so a checkpoint gives the same vectors in both:
   * gelu is fp32 erf with one downcast;
   * a dense layer is a matmul in the compute dtype, then a separate bias
     add in that dtype (Flax rounds the product before adding the bias);
-  * attention is two matmuls and an explicit softmax; the mask bias is
-    -1e9.  ``attention_scores_dtype="bfloat16"`` divides by √d and adds
-    the bias in bf16, ``"float32"`` upcasts the scores before the bias;
-  * ``cls_only`` runs the last layer's queries and FFN for position 0.
+  * attention (``attention_impl="xla"``) is two matmuls and an explicit
+    softmax; the mask bias is -1e9.  ``attention_scores_dtype="bfloat16"``
+    divides by √d and adds the bias in bf16, ``"float32"`` upcasts the
+    scores before the bias;
+  * ``attention_impl="fused"`` hands the (B, L, H) q/k/v projections to
+    kernel 8 (``ops/fused_attention.py``) without a head transpose, as the
+    JAX encoder does: fp32 scores times fp32(1/√d) plus an fp32 0 / -1e9
+    bias from the mask (``attention_scores_dtype`` is ignored), a one-pass
+    fp32 softmax, the probabilities rounded to the compute dtype, and an
+    fp32 product with v; ``"flash"`` (JAX's stock TPU kernel) is not
+    ported;
+  * ``cls_only`` runs the last layer's queries and FFN for position 0;
+    ``return_all_hiddens`` returns every layer's output (embeddings first)
+    for the layerwise multi-vector encoder, and then runs the last layer
+    in full.
 
 Module and parameter names are those of HF RoBERTa/BERT, so a reference
 ``.pt`` loads with ``load_state_dict``; an HF pooler in the checkpoint is
@@ -34,6 +45,7 @@ import torch
 import torch.nn as nn
 
 from ..core.config import EncoderConfig
+from ..ops.fused_attention import fused_attention
 
 NEG_INF = -1e9  # attention mask bias, as in the JAX encoder
 
@@ -113,7 +125,7 @@ class Attention(nn.Module):
         self.output = AttentionOutput(c)
         self.c = c
 
-    def context(self, x, attn_bias, q_positions=None):
+    def context(self, x, attn_bias, attention_mask, q_positions=None):
         """Multi-head attention before the output projection: (B, Lq, H)."""
         c = self.c
         dt = c.torch_dtype
@@ -122,6 +134,9 @@ class Attention(nn.Module):
         x_q = x if q_positions is None else x[:, :q_positions]
         Lq = x_q.shape[1]
         sa = self.self
+        if c.attention_impl == "fused":
+            return fused_attention(dense(x_q, sa.query), dense(x, sa.key),
+                                   dense(x, sa.value), attention_mask, nh)
         q = dense(x_q, sa.query).view(B, Lq, nh, d).transpose(1, 2)
         k = dense(x, sa.key).view(B, L, nh, d).transpose(1, 2)
         v = dense(x, sa.value).view(B, L, nh, d).transpose(1, 2)
@@ -160,9 +175,9 @@ class EncoderLayer(nn.Module):
         self.c = c
         self.act = _act(c.hidden_act)
 
-    def forward(self, x, attn_bias, q_positions=None):
+    def forward(self, x, attn_bias, attention_mask, q_positions=None):
         dt = self.c.torch_dtype
-        ctx = self.attention.context(x, attn_bias, q_positions)
+        ctx = self.attention.context(x, attn_bias, attention_mask, q_positions)
         attn_out = dense(ctx, self.attention.output.dense)
         res = x if q_positions is None else x[:, :q_positions]
         x = layer_norm(res + attn_out,
@@ -189,16 +204,19 @@ def _drop_unused_keys(module, state_dict, prefix, *args):
 
 class TransformerEncoder(nn.Module):
     """Returns the last hidden state (B, L, H) in the compute dtype;
-    (B, 1, H) with ``cls_only``."""
+    (B, 1, H) with ``cls_only``; with ``return_all_hiddens`` the list of
+    every layer's hidden state, the embeddings' output first."""
 
-    def __init__(self, config: EncoderConfig, cls_only: bool = False):
+    def __init__(self, config: EncoderConfig, cls_only: bool = False,
+                 return_all_hiddens: bool = False):
         super().__init__()
-        if config.attention_impl != "xla":
+        if config.attention_impl not in ("xla", "fused"):
             raise NotImplementedError(
-                f"attention_impl={config.attention_impl!r} is not ported yet; "
-                "use 'xla' (plain attention)")
+                f"attention_impl={config.attention_impl!r} is not ported; "
+                "use 'xla' (plain attention) or 'fused' (kernel 8)")
         self.config = config
         self.cls_only = cls_only
+        self.return_all_hiddens = return_all_hiddens
         self.embeddings = Embeddings(config)
         self.encoder = LayerStack(config)
         for mod in self.encoder.modules():
@@ -222,8 +240,12 @@ class TransformerEncoder(nn.Module):
         attn_bias = torch.where(attention_mask[:, None, None, :].bool(),
                                 0.0, NEG_INF).to(torch.float32)
         layers = self.encoder.layer
+        hiddens = [x]
         for i, layer in enumerate(layers):
             last = i == len(layers) - 1
-            x = layer(x, attn_bias,
-                      q_positions=1 if (self.cls_only and last) else None)
-        return x
+            qp = 1 if (self.cls_only and last
+                       and not self.return_all_hiddens) else None
+            x = layer(x, attn_bias, attention_mask, q_positions=qp)
+            if self.return_all_hiddens:
+                hiddens.append(x)
+        return hiddens if self.return_all_hiddens else x

@@ -1,8 +1,10 @@
-"""The multi-hop bi-encoder retriever (shared encoder + projection head).
+"""The multi-hop bi-encoder retriever (shared encoder + projection head)
+and the multi-vector corpus encoder.
 
 Parameter names match the reference's RobertaRetriever state dict:
 ``encoder.*`` (an HF RoBERTa/BERT model), ``project.0`` (Linear) and
-``project.1`` (LayerNorm).
+``project.1`` (LayerNorm); ``MultiVectorCtxEncoder`` uses the same names,
+so a retriever's state dict loads into it.
 """
 
 from __future__ import annotations
@@ -42,3 +44,54 @@ class MhopRetriever(nn.Module):
         return self.project(hidden[:, 0, :])
 
     forward = encode_seq
+
+
+class MultiVectorCtxEncoder(nn.Module):
+    """Multi-vector corpus encoder (the JAX package's
+    ``models/retriever.py::MultiVectorCtxEncoder``):
+
+    scheme="layerwise" — CLS of the last ``multi_vector`` layers, last first
+    scheme="tokenwise" — the first ``multi_vector`` positions of the last
+                         layer
+    multi_vector=1     — the plain CLS vector
+    Returns (B * multi_vector, H) fp32, rows grouped per passage.
+
+    ``project=True`` runs every vector through the retriever's projection
+    head, so corpus rows live in the space of ``MhopRetriever.encode_seq``;
+    ``project=False`` returns the raw hidden states (fp32)."""
+
+    def __init__(self, config: EncoderConfig, multi_vector: int = 1,
+                 scheme: str = "tokenwise", project: bool = True):
+        super().__init__()
+        self.config = config
+        self.multi_vector = multi_vector
+        self.scheme = scheme
+        self.projected = project
+        self.encoder = TransformerEncoder(
+            config, return_all_hiddens=(scheme == "layerwise"))
+        if project:
+            self.project = ProjectionHead(config)
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        return self.project(x) if self.projected else x.float()
+
+    def forward(self, input_ids, mask, token_type_ids=None):
+        out = self.encoder(input_ids, mask, token_type_ids)
+        m = self.multi_vector
+        if m <= 1:
+            h = out[-1] if isinstance(out, list) else out
+            return self._head(h[:, 0, :])
+        if self.scheme == "layerwise":
+            cls = torch.stack([h[:, 0, :] for h in out[::-1][:m]], dim=1)
+        elif self.scheme == "tokenwise":
+            cls = out[:, :m, :]
+        else:
+            raise ValueError(f"unknown scheme {self.scheme}")
+        if cls.shape[1] != m:
+            # fewer rows would break the doc = row // multi_vector layout
+            # that the index and merge_multivector rely on
+            what = ("encoder layers" if self.scheme == "layerwise"
+                    else "sequence positions")
+            raise ValueError(f"{self.scheme} multi_vector={m} needs >= {m} "
+                             f"{what}, got {cls.shape[1]}")
+        return self._head(cls.reshape(-1, cls.shape[-1]))

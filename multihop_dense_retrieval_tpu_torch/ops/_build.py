@@ -26,11 +26,12 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("mips_scan", "two_phase")
+SOURCES = ("mips_scan", "two_phase", "fused_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 P, I, LL, SZ = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_size_t
+F = ctypes.c_float
 # argtypes of every C entry point: pointers and streams are c_void_p
 SIGNATURES = {
     "mips_scan": {
@@ -41,6 +42,9 @@ SIGNATURES = {
     "two_phase": {
         "chunk_max": ([I, P, P, P, I, LL, LL, I, I, I, P, P], I),
         "rescan": ([I, P, P, P, P, I, I, I, I, LL, P, P], I),
+    },
+    "fused_attention": {
+        "fused_attention": ([I, P, P, P, P, I, I, I, I, I, F, P, P], I),
     },
 }
 

@@ -18,7 +18,8 @@ Kernels 1-2 serve ``mips_topk`` for small k, kernels 6-7 then 4-5 its
 exact two-phase search for large k (``mips_topk_two_phase``), and kernels
 3 then 4-5 the PCA-prefiltered search (``mips_topk_pca``).
 
-``LAUNCHES`` counts kernel launches per wrapper.  Every JAX ``top_k`` or
+``LAUNCHES`` counts kernel launches per wrapper (kernel 8, the fused
+attention of ``fused_attention.py``, counts here too).  Every JAX ``top_k`` or
 ``argsort`` mirrored here goes through ``topk_lower_index`` (a stable
 descending sort), so ties go to the lower index as in ``lax.top_k``.
 
@@ -38,7 +39,7 @@ NEG_INF = -3.0e38
 
 LAUNCHES = {"mips_scan_int8": 0, "mips_scan": 0, "pca_chunk_max": 0,
             "pca_rescan_int8": 0, "rescan": 0, "chunk_max": 0,
-            "chunk_max_int8": 0}
+            "chunk_max_int8": 0, "fused_attention": 0}
 
 # The JAX dispatcher's chunk rule, kept as the port's default so that the
 # chunk choice, the covering chunks and the tie order match the JAX

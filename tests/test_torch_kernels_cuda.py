@@ -10,7 +10,8 @@ lacks).
 
 Tolerances: int8 results bit-equal; bf16/fp32 values to 1e-4 absolute
 (fp32 sums in another order) with ids equal — the inputs are integers
-scaled so that no two scores tie within that tolerance.
+scaled so that no two scores tie within that tolerance.  Kernel 8 (fused
+attention): see ``assert_attention_close``.
 """
 
 import pytest
@@ -240,3 +241,100 @@ def test_mips_topk_pca_on_card_matches_cpu(dev):
     # the two orders differ by at most an ulp
     torch.testing.assert_close(gpu[0].cpu()[cert], exact[0][cert],
                                rtol=1e-6, atol=0)
+
+
+def _attn_inputs(dev, g, b, wq, w, nh, d, dtype, masked_row=True):
+    q, k, v = (torch.randn(b, n, nh * d, device=dev, generator=g).to(dtype)
+               for n in (wq, w, w))
+    lens = torch.randint(1, w + 1, (b,), device=dev, generator=g)
+    mask = (torch.arange(w, device=dev)[None] < lens[:, None]).to(torch.int32)
+    if masked_row:
+        mask[-1] = 0                      # a fully masked row
+    return q, k, v, mask
+
+
+def _bf16_ulp(x):
+    _, e = torch.frexp(x.float().abs())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def assert_attention_close(got, exp, q, k, v, mask, nh):
+    """Kernel 8 against its plain version.  fp32: atol/rtol 1e-5 (sums in
+    another order).  bf16: within 2 bf16 ulps of the plain value, plus
+    2^-7 * sum_j p_j |v_j|: both round p to bf16 from fp32 values whose
+    sums differ in order, and a p rounded the other way moves o by one ulp
+    of p_j (<= 2^-7 p_j) times |v_j|."""
+    assert got.dtype == exp.dtype == q.dtype and got.shape == exp.shape
+    got, exp_f = got.float(), exp.float()
+    assert bool(torch.isfinite(got).all())
+    if q.dtype == torch.float32:
+        torch.testing.assert_close(got, exp_f, atol=1e-5, rtol=1e-5)
+        return
+    from multihop_dense_retrieval_tpu_torch.ops.fused_attention import \
+        fused_attention_plain
+    env = fused_attention_plain(q, k, v.abs(), mask, nh).float()
+    tol = 2 * _bf16_ulp(exp_f) + 2.0 ** -7 * env * (1 + 2.0 ** -7)
+    assert bool(((got - exp_f).abs() <= tol).all()), \
+        float(((got - exp_f).abs() - tol).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("w", [1, 33, 350, 512])
+def test_fused_attention_matches_plain(dev, dtype, d, w):
+    """Kernel 8 at every head dim, square (Wq = W: a ragged last query
+    tile at 33 and 350) and Wq = 1, with ragged masks and a fully masked
+    row; B=1 at the widest W."""
+    from multihop_dense_retrieval_tpu_torch.ops.fused_attention import (
+        fused_attention, fused_attention_plain)
+
+    g = _gen(dev, d * 1000 + w)
+    nh = max(1, 256 // d)
+    b = 1 if w == 512 else 3
+    for wq in sorted({w, 1}):
+        q, k, v, mask = _attn_inputs(dev, g, b, wq, w, nh, d, dtype)
+        mips.reset_launch_counts()
+        got = fused_attention(q, k, v, mask, nh)
+        exp = fused_attention_plain(q, k, v, mask, nh)
+        torch.cuda.synchronize()
+        assert mips.LAUNCHES["fused_attention"] == 1
+        assert_attention_close(got, exp, q, k, v, mask, nh)
+
+
+def test_fused_attention_fully_masked_rows_are_uniform(dev):
+    """No attendable key: JAX's softmax over s - 1e9 (equal after
+    rounding) is uniform, so each query row is the mean of v."""
+    from multihop_dense_retrieval_tpu_torch.ops.fused_attention import \
+        fused_attention
+
+    g = _gen(dev, 8)
+    q, k, v, _ = _attn_inputs(dev, g, 2, 40, 40, 4, 64, torch.float32)
+    mask = torch.zeros(2, 40, dtype=torch.int32, device=dev)
+    got = fused_attention(q, k, v, mask, 4)
+    torch.testing.assert_close(got, v.mean(1, keepdim=True).expand_as(got),
+                               atol=1e-5, rtol=1e-5)
+
+
+def test_fused_encoder_on_card_matches_cpu(dev):
+    """A 2-layer, 128-wide fp32 fused encoder (d=64) on the card against
+    the same weights on the CPU (the plain version): one launch a layer,
+    and the vectors within 1e-4 (two layers of fp32 sums in another
+    order)."""
+    from multihop_dense_retrieval_tpu_torch.core.config import EncoderConfig
+    from multihop_dense_retrieval_tpu_torch.models import MhopRetriever
+
+    cfg = EncoderConfig.tiny(attention_impl="fused", hidden_size=128,
+                             num_heads=2, intermediate_size=256)
+    torch.manual_seed(0)
+    model = MhopRetriever(cfg, cls_only=True).eval()
+    g = torch.Generator().manual_seed(1)
+    ids = torch.randint(4, 120, (6, 30), generator=g)
+    mask = (torch.arange(30)[None] < torch.randint(3, 31, (6, 1),
+                                                    generator=g)).int()
+    with torch.no_grad():
+        cpu = model.encode_seq(ids, mask)
+        mips.reset_launch_counts()
+        gpu = model.to(dev).encode_seq(ids.to(dev), mask.to(dev))
+    torch.cuda.synchronize()
+    assert mips.LAUNCHES["fused_attention"] == cfg.num_layers
+    torch.testing.assert_close(gpu.cpu(), cpu, atol=1e-4, rtol=1e-4)
