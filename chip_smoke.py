@@ -4,7 +4,8 @@ encoding paths on one GPU.  Run from the repository root:  python3 chip_smoke.py
 Phases (each prints a line and flushes; any failure exits non-zero):
   1. build   — nvcc compiles every kernel from ops/csrc (one process each).
   2. kernels — each of the eight kernels against its plain PyTorch version
-               at its path's shapes: kernels 1-4 at B=192, D=768,
+               at its path's shapes (bf16 kernels 6 and 8 on their tensor-
+               core templates): kernels 1-4 at B=192, D=768,
                N=1,048,576, R=128, kc=8; kernel 7 at B=384, 2048-row
                chunks of that int8 index; kernels 6 and 5 at B=200 over a
                262,144-row bf16 index (2048-row chunks, kc=20; kernel 5
@@ -15,7 +16,8 @@ Phases (each prints a line and flushes; any failure exits non-zero):
                masks and a fully masked row.  int8 results bit-equal,
                bf16/fp32 MIPS within 1e-3, kernel 8 as attention_error
                says; times by CUDA events beside the plain version, a
-               library yardstick where one exists, and the card's bound.
+               library yardstick where one exists, the card's bound and the
+               share of it reached (bound / time).
   3. main paths — roberta-base shape (12 layers, 768 wide) with seeded
                random weights; the questions' or claims' own vectors are
                planted as index rows, and hop 1 must return them.  Each
@@ -371,7 +373,8 @@ def check_attention(dev, gen, recs):
                        "bf16" if dt == torch.bfloat16 else "fp32")
         say(f"  kernel 8 {what} (B={b}, Wq={wq}, W={w}, {str(dt)[6:]}): "
             f"{ms:.4f} ms (plain {plain:.4f} ms, SDPA {lib:.4f} ms, bound "
-            f"{bnd[0]:.4f} ms by {bnd[1]}); max abs err {err:.3g}, max "
+            f"{bnd[0]:.4f} ms by {bnd[1]}, {bnd[0] / ms:.3f} of it); max abs "
+            f"err {err:.3g}, max "
             f"{ulps:.3g} bf16 ulps, {beyond:.3g} of outputs beyond 2 ulps")
         if i == 0:
             recs["fused_attention"] = dict(err=err, ms=ms, plain_ms=plain,
@@ -719,7 +722,12 @@ def run_fused_serving(engine, model, models, search, q_inputs, q_raw, q_lens,
         f"kernel 8 launched {launches['fused_attention']} times, not {want}"
     for name in ("mips_scan_int8", "pca_chunk_max", "pca_rescan_int8"):
         assert launches[name] > 0, f"{name} not launched on leg (f)"
-    profile_batch(eng, q_inputs, q_raw, q_lens, med * 1e3, smi)
+    kernels = profile_batch(eng, q_inputs, q_raw, q_lens, med * 1e3, smi)
+    attn = {n.split("(")[0].replace("void ", ""): round(t, 3)
+            for t, n in kernels if "mdrt_attn" in n}     # kernel 8's templates
+    say(f"  leg f kernel 8 in the profiled batch: {sum(attn.values()):.3f} "
+        f"device ms (the SIMT kernel's: 25.91 ms): {json.dumps(attn)}")
+    assert attn, "no kernel-8 time in leg f's profile"
     del eng, fused
     return launches
 
@@ -1134,7 +1142,8 @@ def profile_batch(engine, q_inputs, q_raw, q_lens, batch_ms, smi,
     per kernel (torch.profiler), peak memory, and the idle share: 1 minus
     the kernels' sum over `batch_ms`, the unprofiled batch time (the
     profiler slows the host's launches, so its own wall time would
-    overstate the idle share).  The full table goes to `table_path`."""
+    overstate the idle share).  The full table goes to `table_path`.
+    Returns (device ms, name) of every kernel and copy, largest first."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.reset_peak_memory_stats()
@@ -1166,6 +1175,7 @@ def profile_batch(engine, q_inputs, q_raw, q_lens, batch_ms, smi,
         with open(table_path, "w") as f:
             f.write(events.table(sort_by="self_device_time_total",
                                  row_limit=60))
+    return kernels
 
 
 CU = "multihop_dense_retrieval_tpu_torch/ops/csrc/"
@@ -1177,12 +1187,17 @@ REPLACES = {
     "pca_chunk_max": (CU + "two_phase.cu", TPU + "868", "int8"),
     "pca_rescan_int8": (CU + "two_phase.cu", TPU + "554", "int8"),
     "rescan": (CU + "two_phase.cu", TPU + "532", "fever_c1"),
-    "chunk_max": (CU + "two_phase.cu", TPU + "489", "fever_c1"),
+    "chunk_max": (CU + "chunk_max_mma.cu", TPU + "489", "fever_c1"),
     "chunk_max_int8": (CU + "two_phase.cu", TPU + "506", "int8_two_phase"),
     "fused_attention": (CU + "fused_attention.cu",
                         "multihop_dense_retrieval_tpu/ops/fused_attention.py:61",
                         "corpus_e1"),
 }
+
+
+# sources of the tensor-core templates (kernels 6 and 8), whose ptxas lines
+# are printed under their kernels' names
+TENSOR_CORE_SOURCES = ("chunk_max_mma", "fused_attention")
 
 
 def main():
@@ -1209,6 +1224,10 @@ def main():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 say(f"  {name}: {line.strip()}")
+            elif "entry function" in line and name in TENSOR_CORE_SOURCES:
+                # the new templates' ptxas lines, each under its kernel
+                fn = line.split("'")[1] if "'" in line else line.strip()
+                say(f"  {name}: {fn[:72]}")
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
@@ -1216,7 +1235,8 @@ def main():
     say("kernels: " + json.dumps({k: {"ok": True, "max_abs_err": r["err"],
                                       "ms": r["ms"], "plain_ms": r["plain_ms"],
                                       "library_ms": r["library_ms"],
-                                      "bound_ms": r["bound"][0]}
+                                      "bound_ms": r["bound"][0],
+                                      "bound_share": r["bound"][0] / r["ms"]}
                                   for k, r in recs.items()}) + f" [{smi}]")
 
     launches = run_main_path(

@@ -26,7 +26,7 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("mips_scan", "two_phase", "fused_attention")
+SOURCES = ("mips_scan", "two_phase", "chunk_max_mma", "fused_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -43,8 +43,13 @@ SIGNATURES = {
         "chunk_max": ([I, P, P, P, I, LL, LL, I, I, I, P, P], I),
         "rescan": ([I, P, P, P, P, I, I, I, I, LL, P, P], I),
     },
+    "chunk_max_mma": {
+        "chunk_max_mma": ([P, P, I, LL, LL, I, I, I, LL, P, P], I),
+    },
     "fused_attention": {
-        "fused_attention": ([I, P, P, P, P, I, I, I, I, I, F, P, P], I),
+        "fused_attention": ([I, I, I, P, P, P, P, I, I, I, I, I, F, LL, P,
+                             P], I),
+        "attention_divide": ([P, P, P, I, P], I),
     },
 }
 

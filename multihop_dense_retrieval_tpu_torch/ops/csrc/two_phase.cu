@@ -8,9 +8,11 @@
 //   kernel 3  _chunk_max_fine_kernel  bf16 q_proj . P[row], cand_rows chunks
 //             (phase 1 of mips_topk_pca; B=192, R=128, N=1M: 0.27 GB of
 //             projection, bytes-bound, 0.08 ms);
-//   kernel 6  _chunk_max_kernel       q . x[row] over bf16/fp32 rows (phase 1
-//             of mips_topk_two_phase; B=200, D=768, N=262,144 bf16: 0.40 GB,
-//             bytes-bound, 0.12 ms);
+//   kernel 6  _chunk_max_kernel       q . x[row] over fp32 rows, and bf16
+//             rows whose width is not a multiple of 64 (phase 1 of
+//             mips_topk_two_phase; the other bf16 rows, the FEVER CLI's
+//             among them, run on the tensor-core template of
+//             chunk_max_mma.cu);
 //   kernel 7  _chunk_max_kernel_int8  float(raw) * d_scale[row] (the query
 //             scale is left out: it does not change a query's ranking), in
 //             the JAX order with one rounding, so the maxima are bit-equal

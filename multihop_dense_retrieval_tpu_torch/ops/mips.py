@@ -11,7 +11,9 @@ a tensor on the CPU (a CUDA tensor the kernel does not take raises):
   3. ``pca_chunk_max``   — PCA phase 1, chunk maxima      (csrc/two_phase.cu)
   4. ``pca_rescan_int8`` — phase 2, int8 rescan           (csrc/two_phase.cu)
   5. ``rescan``          — phase 2, bf16/fp32 rescan      (csrc/two_phase.cu)
-  6. ``chunk_max``       — two-phase phase 1, bf16/fp32   (csrc/two_phase.cu)
+  6. ``chunk_max``       — two-phase phase 1, bf16/fp32   (csrc/chunk_max_mma.cu
+                           for bf16, on the tensor cores; csrc/two_phase.cu
+                           for fp32)
   7. ``chunk_max_int8``  — two-phase phase 1, int8        (csrc/two_phase.cu)
 
 Kernels 1-2 serve ``mips_topk`` for small k, kernels 6-7 then 4-5 its
@@ -49,6 +51,8 @@ VMEM_BUDGET = 12 * 1024 * 1024
 _FLOAT_CODES = {torch.bfloat16: 1, torch.float32: 2}   # the kernels' dtypes
 
 _PLAIN_CHUNK = 65536  # rows per step of the plain scans (bounds memory)
+
+SMEM_LIMIT = 232448   # dynamic shared memory a block may use on an H100
 
 
 def reset_launch_counts() -> None:
@@ -162,7 +166,7 @@ def _launch_scan(dtype_code, q, q_scale, index, d_scale, k, n_valid):
     for t in (q, index, q_scale, d_scale):
         _require(t is None or t.is_contiguous(), "inputs must be contiguous")
     lib = _build.load("mips_scan")
-    _require(lib.mips_scan_smem_bytes(w) <= 232448,
+    _require(lib.mips_scan_smem_bytes(w) <= SMEM_LIMIT,
              f"D={d} needs more shared memory than a block has")
     kmax = _kmax(k)
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
@@ -245,6 +249,55 @@ def chunk_max_plain(q, rows, chunk_rows: int, n_valid: Optional[int] = None,
     return torch.cat(outs, dim=1)
 
 
+# kernel 6's tensor-core template (csrc/chunk_max_mma.cu): index rows a
+# tile, bf16 columns a pipeline stage, stages, and the widest query tile
+_MMA_ROWS, _MMA_KS, _MMA_STAGES, _MMA_QMAX = 128, 64, 4, 256
+
+
+def simt_chunk_max_plan(b: int, n: int, row_bytes: int, chunk_rows: int,
+                        sms: int = 132) -> dict:
+    """Launch plan of the SIMT chunk-max template (csrc/two_phase.cu; kernels
+    3 and 7, and kernel 6 over fp32 rows): 64-query tiles (queries padded
+    with zero rows to a multiple of 64), ``per_block`` chunks a block, and
+    the shared memory of csrc/tile_dot.cuh's ``tile_smem_bytes``."""
+    num_chunks = n // chunk_rows
+    q_tiles = -(-b // 64)
+    per_block = max(1, num_chunks * q_tiles // (8 * sms))
+    words = row_bytes // 4
+    return dict(route="simt", block=256, q_tile=64, q_pad=64 * q_tiles,
+                per_block=per_block,
+                grid=(q_tiles, -(-num_chunks // per_block), 1),
+                smem=4 * (64 * (words + 4) + 128 * 20))
+
+
+def chunk_max_plan(b: int, n: int, d: int, chunk_rows: int, dtype,
+                   sms: int = 132) -> dict:
+    """Route and launch plan of kernel 6.  bf16 rows of a width that is a
+    multiple of 64 take the tensor-core template: one block a chunk, all
+    queries of a query tile (at most 256, a multiple of 32, zero rows past
+    B) as the mma's N side, ``smem`` = 4 stages of (128 index rows + the
+    query tile) x 72 bf16, plus the row-warp maxima.  fp32 rows (a
+    tensor-core product of fp32 would be TF32) and narrower bf16 rows take
+    the SIMT template.  The C entry point checks ``q_tile`` and ``smem``
+    against its own count."""
+    if dtype != torch.bfloat16 or d % _MMA_KS:
+        return simt_chunk_max_plan(
+            b, n, d * (2 if dtype == torch.bfloat16 else 4), chunk_rows, sms)
+    q_tiles = -(-b // _MMA_QMAX)
+    q_tile = -(-(-(-b // q_tiles)) // 32) * 32
+    q_tiles = -(-b // q_tile)
+    smem = (_MMA_STAGES * (_MMA_ROWS + q_tile) * (_MMA_KS + 8) * 2
+            + 2 * q_tile * 4)
+    return dict(route="mma", block=256, q_tile=q_tile, q_pad=q_tile * q_tiles,
+                grid=(n // chunk_rows, q_tiles, 1), smem=smem)
+
+
+def _check_chunks(n: int, chunk_rows: int) -> None:
+    _require(chunk_rows % 128 == 0 and n % chunk_rows == 0,
+             f"chunk_rows {chunk_rows} must be a multiple of 128 dividing "
+             f"the row count {n}")
+
+
 def _launch_chunk_max(code, q, rows, d_scale, chunk_rows, n_valid):
     from . import _build
 
@@ -253,35 +306,57 @@ def _launch_chunk_max(code, q, rows, d_scale, chunk_rows, n_valid):
     row_bytes = d * rows.element_size()
     _require(row_bytes % 64 == 0, f"row bytes {row_bytes} must be a "
              "multiple of 64")
-    _require(chunk_rows % 128 == 0 and n % chunk_rows == 0,
-             f"chunk_rows {chunk_rows} must be a multiple of 128 dividing "
-             f"the row count {n}")
+    _check_chunks(n, chunk_rows)
     for t in (q, rows, d_scale):
         _require(t is None or t.is_contiguous(), "inputs must be contiguous")
-    num_chunks = n // chunk_rows
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    q_tiles = -(-b // 64)
-    per_block = max(1, num_chunks * q_tiles // (8 * sms))
-    out = torch.empty((b, num_chunks), dtype=torch.float32, device=q.device)
+    plan = simt_chunk_max_plan(b, n, row_bytes, chunk_rows, sms)
+    out = torch.empty((b, n // chunk_rows), dtype=torch.float32,
+                      device=q.device)
     lib = _build.load("two_phase")
     _build.check(lib.chunk_max(
         code, q.data_ptr(), rows.data_ptr(),
         None if d_scale is None else d_scale.data_ptr(), b, n,
         n if n_valid is None else n_valid, row_bytes // 4, chunk_rows,
-        per_block, out.data_ptr(), _stream()), "chunk_max")
+        plan["per_block"], out.data_ptr(), _stream()), "chunk_max")
+    return out
+
+
+def _launch_chunk_max_mma(q, rows, chunk_rows, n_valid, plan):
+    from . import _build
+
+    b, d = q.shape
+    n = rows.shape[0]
+    _check_chunks(n, chunk_rows)
+    for t in (q, rows):
+        _require(t.is_contiguous() and t.data_ptr() % 16 == 0,
+                 "inputs must be contiguous and 16-byte aligned")
+    out = torch.empty((b, n // chunk_rows), dtype=torch.float32,
+                      device=q.device)
+    lib = _build.load("chunk_max_mma")
+    _build.check(lib.chunk_max_mma(
+        q.data_ptr(), rows.data_ptr(), b, n,
+        n if n_valid is None else n_valid, d, chunk_rows, plan["q_tile"],
+        plan["smem"], out.data_ptr(), _stream()), "chunk_max_mma")
     return out
 
 
 def chunk_max(q, index, chunk_rows: int, n_valid: Optional[int] = None):
     """Kernel 6: two-phase phase 1 over a bf16/fp32 index, (B, N/chunk_rows)
-    fp32 maxima; ``q`` is cast to the index dtype."""
+    fp32 maxima; ``q`` is cast to the index dtype.  Routed as
+    ``chunk_max_plan`` says: bf16 (widths a multiple of 64) on the tensor
+    cores, the rest on SIMT."""
     if not _on_cuda(q, index):
         return chunk_max_plain(q, index, chunk_rows, n_valid)
     _require(index.dtype in _FLOAT_CODES,
              f"unsupported index dtype {index.dtype}")
-    out = _launch_chunk_max(_FLOAT_CODES[index.dtype],
-                            q.to(index.dtype).contiguous(), index, None,
-                            chunk_rows, n_valid)
+    qc = q.to(index.dtype).contiguous()
+    plan = chunk_max_plan(qc.shape[0], *index.shape, chunk_rows, index.dtype)
+    if plan["route"] == "mma":
+        out = _launch_chunk_max_mma(qc, index, chunk_rows, n_valid, plan)
+    else:
+        out = _launch_chunk_max(_FLOAT_CODES[index.dtype], qc, index, None,
+                                chunk_rows, n_valid)
     LAUNCHES["chunk_max"] += 1
     return out
 

@@ -1,0 +1,240 @@
+"""Launch plans of kernels 6 and 8, on the CPU.
+
+Each wrapper decides its template (tensor cores, one warp a row, or SIMT),
+grid, padding and dynamic shared memory in a plain Python function
+(``mips.chunk_max_plan``, ``fused_attention.attention_plan``), and the C
+entry point refuses a plan that disagrees with its own count.  These tests
+walk every shape the wrappers accept, so that a plan the card would refuse
+(too much shared memory, a grid dimension too large, a misaligned stage)
+shows here and not at a launch.  They also read the tile constants out of
+the CUDA sources, and drive each wrapper against a stand-in library to
+show that it hands the entry point its plan.
+"""
+
+import importlib
+import re
+from pathlib import Path
+
+import pytest
+import torch
+
+from multihop_dense_retrieval_tpu_torch.ops import _build, mips
+
+# the module, not the function the package exports under the same name
+fa = importlib.import_module(
+    "multihop_dense_retrieval_tpu_torch.ops.fused_attention")
+
+SMEM_LIMIT = 232448        # dynamic shared memory a block may use (H100)
+GRID_YZ = 65535            # the largest grid y and z dimensions
+CSRC = Path(_build.CSRC)
+
+
+def _constexpr(source: str, name: str) -> int:
+    text = (CSRC / source).read_text()
+    found = re.findall(rf"constexpr int {name} = (\d+);", text)
+    assert len(found) == 1, (source, name, found)
+    return int(found[0])
+
+
+@pytest.mark.parametrize("source,name,value", [
+    ("chunk_max_mma.cu", "MT", mips._MMA_ROWS),
+    ("chunk_max_mma.cu", "KS", mips._MMA_KS),
+    ("chunk_max_mma.cu", "STAGES", mips._MMA_STAGES),
+    ("fused_attention.cu", "KSTRIP", fa._KSTRIP),
+    ("fused_attention.cu", "ROW_WARPS", fa._ROW_WARPS),
+])
+def test_plan_constants_match_the_cuda_sources(source, name, value):
+    assert _constexpr(source, name) == value
+
+
+# ---- kernel 8 ---------------------------------------------------------------
+
+
+def _expected_route(wq, d, dtype):
+    if dtype == torch.bfloat16 and wq == 1:
+        return "row"
+    if dtype == torch.bfloat16 and d >= 16:
+        return "mma"
+    return "simt"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_attention_plan_fits_every_width(d, dtype):
+    """W from 1 to 514, Wq in (W, 1), at roberta-base's 768 width (or
+    one head for d = 8 .. 128 alone): the route follows the fixed rule,
+    shared memory fits a block, key pads are multiples of 16 that only
+    add pad keys, query tiles cover Wq, and the grid fits."""
+    b = 256
+    max_strips = _constexpr("fused_attention.cu", "MAX_STRIPS")
+    for nh in (max(1, 768 // d), 1):
+        for w in range(1, fa.MAX_WIDTH + 1):
+            for wq in sorted({w, 1}):
+                plan = fa.attention_plan(b, wq, w, nh, d, dtype)
+                route = plan["route"]
+                assert route == _expected_route(wq, d, dtype), (w, wq)
+                assert 0 < plan["smem"] <= SMEM_LIMIT, (w, wq, plan)
+                assert max(plan["grid"][1:]) <= GRID_YZ
+                if route == "mma":
+                    kp, rows = plan["key_pad"], 16 * plan["warps"]
+                    assert kp % 16 == 0 and w <= kp < w + 16
+                    assert -(-kp // fa._KSTRIP) <= max_strips
+                    assert plan["warps"] == (8 if w > 64 else 4)
+                    assert plan["q_pad"] % rows == 0
+                    assert w <= plan["q_pad"] < w + rows
+                    assert plan["grid"] == (plan["q_pad"] // rows, nh, b)
+                    # every cp.async destination region starts on 16 bytes
+                    assert (2 * (d + 8)) % 16 == 0
+                    assert (2 * kp * (d + 8)) % 16 == 0
+                elif route == "row":
+                    assert plan["grid"][0] * fa._ROW_WARPS >= b * nh
+                    assert (plan["grid"][0] - 1) * fa._ROW_WARPS < b * nh
+                    assert plan["smem"] >= 4 * fa._ROW_WARPS * w
+                else:
+                    assert plan["q_pad"] % 32 == 0
+                    assert wq <= plan["q_pad"] < wq + 32
+                    assert plan["grid"] == (b, nh, plan["q_pad"] // 32)
+
+
+@pytest.mark.parametrize("wq,w,d,dtype,route", [
+    (300, 300, 64, torch.bfloat16, "mma"),     # the corpus square
+    (350, 350, 64, torch.bfloat16, "mma"),     # the widest hop-2 bucket
+    (40, 40, 64, torch.bfloat16, "mma"),       # hop 1
+    (1, 300, 64, torch.bfloat16, "row"),       # the cls_only layer
+    (1, 1, 64, torch.bfloat16, "row"),
+    (128, 128, 64, torch.float32, "simt"),     # fp32: tensor cores are TF32
+    (1, 300, 64, torch.float32, "simt"),
+    (40, 40, 8, torch.bfloat16, "simt"),       # d = 8 below the k16 step
+    (1, 40, 8, torch.bfloat16, "row"),
+])
+def test_attention_routes(wq, w, d, dtype, route):
+    assert fa.attention_plan(192, wq, w, 768 // d, d, dtype)["route"] == route
+
+
+def test_attention_mma_plan_at_the_widest_shapes():
+    """The largest tensor-core block, d = 128 at W = 514 (k_h whole and two
+    v strips in rows of 136 bf16, and the biases of nine 64-key strips),
+    and the corpus shape's three 8-warp blocks an SM at d = 64, W = 300."""
+    wide = fa.attention_plan(1, 514, 514, 6, 128, torch.bfloat16)
+    assert wide["smem"] == 2 * (528 + 128) * 136 + 4 * 9 * 64 == 180736
+    corpus = fa.attention_plan(256, 300, 300, 12, 64, torch.bfloat16)
+    assert corpus["smem"] == 63488 and 3 * corpus["smem"] <= SMEM_LIMIT
+    assert corpus["warps"] == 8 and corpus["grid"] == (3, 12, 256)
+
+
+# ---- kernel 6 ---------------------------------------------------------------
+
+
+@pytest.mark.parametrize("chunk_rows", [512, 2048, 8192])
+def test_chunk_max_plan_fits_every_batch(chunk_rows):
+    """B from 1 to 512 over a bf16 index: the tensor-core plan takes query
+    tiles of 32 to 256 (multiples of 32, so of the mma's 8), as few tiles
+    as the 256 cap allows, each padded by fewer than 32 zero rows; shared
+    memory fits.  fp32 rows take the SIMT plan (64-query tiles)."""
+    n = 4 * chunk_rows
+    for b in range(1, 513):
+        plan = mips.chunk_max_plan(b, n, 768, chunk_rows, torch.bfloat16)
+        tiles = plan["grid"][1]
+        assert plan["route"] == "mma"
+        assert plan["q_tile"] % 32 == 0 and 32 <= plan["q_tile"] <= 256
+        assert tiles == -(-b // 256)
+        assert plan["q_pad"] == plan["q_tile"] * tiles
+        assert b <= plan["q_pad"] < b + 32 * tiles
+        assert plan["grid"] == (n // chunk_rows, tiles, 1)
+        assert plan["smem"] <= SMEM_LIMIT
+        for d in (64, 768):
+            simt = mips.chunk_max_plan(b, n, d, chunk_rows, torch.float32)
+            assert simt["route"] == "simt" and simt["q_tile"] == 64
+            assert b <= simt["q_pad"] < b + 64
+            assert simt["smem"] <= SMEM_LIMIT
+            assert simt["grid"][0] == simt["q_pad"] // 64
+            assert simt["grid"][1] * simt["per_block"] >= n // chunk_rows
+
+
+def test_chunk_max_plan_at_the_fever_shape():
+    """B = 200 (hop 2 of batch 100 x beam 2): one 224-wide query tile, one
+    block a 2048-row chunk of the 262,144-row index."""
+    plan = mips.chunk_max_plan(200, 1 << 18, 768, 2048, torch.bfloat16)
+    assert plan["q_tile"] == 224 and plan["grid"] == (128, 1, 1)
+    assert plan["smem"] == 4 * (128 + 224) * 72 * 2 + 2 * 224 * 4
+    # the widest query tile still fits a block
+    assert mips.chunk_max_plan(256, 1 << 18, 768, 2048,
+                               torch.bfloat16)["smem"] == 223232
+
+
+@pytest.mark.parametrize("d,route", [(768, "mma"), (64, "mma"), (96, "simt"),
+                                     (32, "simt")])
+def test_chunk_max_routes_by_row_width(d, route):
+    """bf16 rows whose width is not a multiple of the 64-column stage stay
+    on the SIMT template (which takes rows of 64-byte multiples)."""
+    plan = mips.chunk_max_plan(200, 8192, d, 2048, torch.bfloat16)
+    assert plan["route"] == route
+    if route == "simt":
+        assert plan["smem"] == 4 * (64 * (d // 2 + 4) + 128 * 20)
+
+
+def test_chunk_max_rejects_chunks_off_the_row_tile():
+    with pytest.raises(ValueError, match="multiple of 128"):
+        mips._check_chunks(4096, 192)
+    with pytest.raises(ValueError, match="dividing"):
+        mips._check_chunks(5000, 1024)
+
+
+# ---- the wrappers hand their plan to the entry point --------------------------
+
+
+class _Lib:
+    """Stands in for a loaded kernel library: records each call, returns 0."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, fn):
+        def call(*args):
+            self.calls.append((fn, args))
+            return 0
+        return call
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """The wrappers' CUDA branch on CPU tensors, against a stand-in library
+    (nothing is launched)."""
+    lib = _Lib()
+    for mod in (mips, fa):
+        monkeypatch.setattr(mod, "_on_cuda", lambda *t: True)
+        monkeypatch.setattr(mod, "_stream", lambda: 0)
+    monkeypatch.setattr(_build, "load", lambda name: lib)
+    mips.reset_launch_counts()
+    yield lib
+    mips.reset_launch_counts()
+
+
+@pytest.mark.parametrize("wq,w,d,dtype", [
+    (300, 300, 64, torch.bfloat16), (1, 300, 64, torch.bfloat16),
+    (40, 40, 8, torch.bfloat16), (128, 128, 64, torch.float32),
+])
+def test_fused_attention_passes_its_plan(fake_card, wq, w, d, dtype):
+    b, nh = 2, 768 // d
+    q = torch.zeros(b, wq, 768, dtype=dtype)
+    k = torch.zeros(b, w, 768, dtype=dtype)
+    mask = torch.ones(b, w, dtype=torch.int32)
+    fa.fused_attention(q, k, k.clone(), mask, nh)
+    plan = fa.attention_plan(b, wq, w, nh, d, dtype)
+    (fn, args), = fake_card.calls
+    assert fn == "fused_attention"
+    assert args[:2] == (fa._ROUTES[plan["route"]], plan["warps"])
+    assert args[7:12] == (b, wq, w, nh, d) and args[13] == plan["smem"]
+    assert mips.LAUNCHES["fused_attention"] == 1
+
+
+def test_chunk_max_routes_bf16_to_the_tensor_cores(fake_card):
+    q = torch.zeros(200, 768, dtype=torch.bfloat16)
+    index = torch.zeros(8192, 768, dtype=torch.bfloat16)
+    mips.chunk_max(q, index, 2048, 7000)
+    plan = mips.chunk_max_plan(200, 8192, 768, 2048, torch.bfloat16)
+    (fn, args), = fake_card.calls
+    assert fn == "chunk_max_mma"
+    assert args[2:9] == (200, 8192, 7000, 768, 2048, plan["q_tile"],
+                         plan["smem"])
+    assert mips.LAUNCHES["chunk_max"] == 1

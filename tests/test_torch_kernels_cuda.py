@@ -109,15 +109,18 @@ DTYPES = [torch.int8, torch.bfloat16, torch.float32]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("b,n,chunk,n_valid", [(1, 2048, 2048, None),
-                                               (70, 8192, 512, 8000),
-                                               (200, 16384, 2048, 14000)])
-def test_chunk_max_matches_plain(dev, dtype, b, n, chunk, n_valid):
-    """Kernels 6 and 7: one chunk, ragged query tiles, masked tails (a
-    chunk with no valid row gives NEG_INF)."""
+@pytest.mark.parametrize("b,n,chunk,n_valid,d", [
+    (1, 2048, 2048, None, 64), (7, 4096, 512, 3000, 64),
+    (8, 3072, 1024, 1100, 768), (70, 8192, 512, 8000, 64),
+    (200, 16384, 2048, 14000, 768), (257, 8192, 2048, 5000, 64)])
+def test_chunk_max_matches_plain(dev, dtype, b, n, chunk, n_valid, d):
+    """Kernels 6 and 7: one chunk, ragged query tiles (bf16 rows: query
+    tiles of 32 to 256, two tiles at B=257), D = 768 (24 pipeline stages a
+    row tile), n_valid cutting inside a chunk with whole chunks after it
+    that hold no valid row (NEG_INF)."""
     g = _gen(dev, b + n)
-    idx = _rows(dev, g, n, 64, dtype)
-    q = _rows(dev, g, b, 64, dtype)
+    idx = _rows(dev, g, n, d, dtype)
+    q = _rows(dev, g, b, d, dtype)
     if dtype == torch.int8:
         dsc = torch.rand(n, device=dev, generator=g) + 0.01
         got = mips.chunk_max_int8(q, idx, dsc, chunk, n_valid)
@@ -280,17 +283,18 @@ def assert_attention_close(got, exp, q, k, v, mask, nh):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("d", [8, 16, 32, 64, 128])
-@pytest.mark.parametrize("w", [1, 33, 350, 512])
+@pytest.mark.parametrize("w", [1, 15, 16, 17, 33, 300, 350, 514])
 def test_fused_attention_matches_plain(dev, dtype, d, w):
-    """Kernel 8 at every head dim, square (Wq = W: a ragged last query
-    tile at 33 and 350) and Wq = 1, with ragged masks and a fully masked
+    """Kernel 8 at every head dim and every template (attention_plan),
+    square (Wq = W: key padding at 15, 17, 33, 300, 350 and 514, ragged
+    last query tiles) and Wq = 1, with ragged masks and a fully masked
     row; B=1 at the widest W."""
     from multihop_dense_retrieval_tpu_torch.ops.fused_attention import (
         fused_attention, fused_attention_plain)
 
     g = _gen(dev, d * 1000 + w)
     nh = max(1, 256 // d)
-    b = 1 if w == 512 else 3
+    b = 1 if w >= 512 else 3
     for wq in sorted({w, 1}):
         q, k, v, mask = _attn_inputs(dev, g, b, wq, w, nh, d, dtype)
         mips.reset_launch_counts()
@@ -301,18 +305,58 @@ def test_fused_attention_matches_plain(dev, dtype, d, w):
         assert_attention_close(got, exp, q, k, v, mask, nh)
 
 
-def test_fused_attention_fully_masked_rows_are_uniform(dev):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("wq", [40, 1])
+def test_fused_attention_fully_masked_rows_are_uniform(dev, dtype, wq):
     """No attendable key: JAX's softmax over s - 1e9 (equal after
-    rounding) is uniform, so each query row is the mean of v."""
+    rounding) is uniform over the W = 40 real keys, so each query row is
+    the mean of v (bf16: p = bf16(1/40) times the sum of v, within 2 ulps;
+    the tensor-core template pads the keys to 48, and pad keys counted in
+    the softmax would give 40/48 of it)."""
     from multihop_dense_retrieval_tpu_torch.ops.fused_attention import \
         fused_attention
 
     g = _gen(dev, 8)
-    q, k, v, _ = _attn_inputs(dev, g, 2, 40, 40, 4, 64, torch.float32)
+    q, k, v, _ = _attn_inputs(dev, g, 2, wq, 40, 4, 64, dtype)
     mask = torch.zeros(2, 40, dtype=torch.int32, device=dev)
     got = fused_attention(q, k, v, mask, 4)
-    torch.testing.assert_close(got, v.mean(1, keepdim=True).expand_as(got),
-                               atol=1e-5, rtol=1e-5)
+    if dtype == torch.float32:
+        torch.testing.assert_close(
+            got, v.mean(1, keepdim=True).expand_as(got), atol=1e-5, rtol=1e-5)
+        return
+    p = torch.tensor(1 / 40).to(dtype).float()
+    exp = (p * v.float().sum(1, keepdim=True)).to(dtype).float()
+    diff = (got.float() - exp).abs()
+    assert bool((diff <= 2 * _bf16_ulp(exp) + 1e-6).all()), float(diff.max())
+
+
+def test_attention_division_is_ieee(dev):
+    """Kernel 8's tensor-core template divides e = expf(s - m) by the row
+    sum l without __fdiv_rn (csrc/fused_attention.cu::div_rn, a rounded
+    reciprocal and two FMA corrections).  It must give the IEEE quotient
+    bit for bit wherever that is a normal float, and stay within one
+    subnormal ulp (2^-149) below: e over every binade expf gives for
+    s - m in [-104, 0] (subnormals and 0 included), l over [1, 514] and
+    every integer sum, against torch's division (IEEE on the card)."""
+    from multihop_dense_retrieval_tpu_torch.ops import _build
+
+    g = _gen(dev, 11)
+    n = 1 << 22
+    e = torch.exp(-104 * torch.rand(n, device=dev, generator=g))
+    e[:6] = torch.tensor([0.0, 1.0, 2.0 ** -149, 2.0 ** -126, 1 - 2.0 ** -24,
+                          2.0 ** -100], device=dev)
+    lsum = 1 + 513 * torch.rand(n, device=dev, generator=g)
+    lsum[6:520] = torch.arange(1, 515, dtype=torch.float32, device=dev)
+    out = torch.empty_like(e)
+    _build.check(_build.load("fused_attention").attention_divide(
+        e.data_ptr(), lsum.data_ptr(), out.data_ptr(), n,
+        torch.cuda.current_stream().cuda_stream), "attention_divide")
+    exp = e / lsum
+    torch.cuda.synchronize()
+    normal = exp >= 2.0 ** -126
+    assert int(normal.sum()) > n // 2 and int((~normal).sum()) > 1000
+    assert torch.equal(out[normal], exp[normal])
+    assert bool(((out - exp)[~normal].abs() <= 2.0 ** -149).all())
 
 
 def test_fused_encoder_on_card_matches_cpu(dev):
