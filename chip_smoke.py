@@ -4,9 +4,12 @@ encoding paths on one GPU.  Run from the repository root:  python3 chip_smoke.py
 Phases (each prints a line and flushes; any failure exits non-zero):
   1. build   — nvcc compiles every kernel from ops/csrc (one process each).
   2. kernels — each of the eight kernels against its plain PyTorch version
-               at its path's shapes (bf16 kernels 6 and 8 on their tensor-
-               core templates): kernels 1-4 at B=192, D=768,
-               N=1,048,576, R=128, kc=8; kernel 7 at B=384, 2048-row
+               at its path's shapes (bf16 kernels 2, 3, 6 and 8 on their
+               tensor-core templates, which each record names and must
+               have taken): kernels 1-4 at B=192, D=768,
+               N=1,048,576, R=128, kc=8 (kernel 2 also at the FEVER
+               CLI's hop 1, B=100 over 262,144 rows, k=2, and kernel 3 at
+               its hop 2, B=200 over 262,144 rows); kernel 7 at B=384, 2048-row
                chunks of that int8 index; kernels 6 and 5 at B=200 over a
                262,144-row bf16 index (2048-row chunks, kc=20; kernel 5
                also at 512-row chunks, kc=16); kernel 8 (fused attention,
@@ -14,7 +17,8 @@ Phases (each prints a line and flushes; any failure exits non-zero):
                300) and (256, 1, 300), the engine's (192, 40, 40) and
                (192, 350, 350) in bf16 and (8, 128, 128) in fp32, ragged
                masks and a fully masked row.  int8 results bit-equal,
-               bf16/fp32 MIPS within 1e-3, kernel 8 as attention_error
+               bf16/fp32 MIPS within 1e-3 (kernel 2 also rtol 1e-5), kernel
+               8 as attention_error
                says; times by CUDA events beside the plain version, a
                library yardstick where one exists, the card's bound and the
                share of it reached (bound / time).
@@ -22,7 +26,9 @@ Phases (each prints a line and flushes; any failure exits non-zero):
                random weights; the questions' or claims' own vectors are
                planted as index rows, and hop 1 must return them.  Each
                path's launch counts are zeroed just before it and read
-               just after it, and each must launch its kernels.
+               just after it, and each must launch its kernels; kernels 2
+               and 3 must have taken their tensor-core templates on every
+               path that launches them (a, b, c1, c2, f).
                a. int8: a 1,048,576-row int8 DenseIndex with a PCA
                   prefilter (R=128, 512-row chunks) and a 300-wide token
                   store; BeamSearcher at beam 1 / batch 192 / bf16 scores
@@ -43,12 +49,14 @@ Phases (each prints a line and flushes; any failure exits non-zero):
                   profiled.
                b. bf16: an engine over a 65,536-row bf16 index without
                   prefilter serves 5 batches (kernel 2), whose hop-1 and
-                  hop-2 queries are then held against the plain scan.
+                  hop-2 queries are then held against the plain scan (rtol
+                  1e-5; the worst relative difference is printed).
                c. FEVER: cli/eval_mhop_fever.main over an index directory
                   (262,144 bf16 rows + PCA, token store, id2doc.json) with
                   500 claims, beam 2 / 20, batch 100, run twice: c1 exact
                   (hop 2 through kernels 6 + 5), c2 --pca (kernels 3 + 5).
-                  Every MIPS call is held against the plain exact scan;
+                  Every MIPS call is held against the plain exact scan
+                  (rtol 1e-5; hop 1's worst relative difference printed);
                   c2 must certify some hop-2 queries.  Each run's batches
                   are timed and its last batch profiled.
                e. corpus encoding: 32,768 wiki-like passages (JSONL,
@@ -67,6 +75,7 @@ Exits with code 2 and no result when CUDA is not available.
 
 import argparse
 import dataclasses
+import importlib
 import json
 import logging
 import subprocess
@@ -126,6 +135,62 @@ def bound_ms(n_bytes, n_ops, kind):
                                        else "operations")
 
 
+# the templates the planned wrappers took since the launch counts were last
+# reset: while such a wrapper runs, its plan function is wrapped to note
+# the route it returns (track_routes); kernels 4, 5 and 7 have one template
+ROUTES = {}
+PLANNED = (("mips_scan_int8", "scan_plan"), ("mips_scan", "scan_plan"),
+           ("chunk_max", "chunk_max_plan"), ("pca_chunk_max", "chunk_max_plan"))
+FIXED_TEMPLATE = {"pca_rescan_int8": "simt", "rescan": "simt",
+                  "chunk_max_int8": "simt"}
+
+
+def track_routes(mips, fa):
+    def planned(mod, name, plan_name):
+        wrapper, plan = getattr(mod, name), getattr(mod, plan_name)
+
+        def noted(*a, **kw):
+            out = plan(*a, **kw)
+            ROUTES.setdefault(name, set()).add(out["route"])
+            return out
+
+        def call(*a, **kw):
+            setattr(mod, plan_name, noted)
+            try:
+                return wrapper(*a, **kw)
+            finally:
+                setattr(mod, plan_name, plan)
+
+        setattr(mod, name, call)
+
+    for name, plan_name in PLANNED:
+        planned(mips, name, plan_name)
+    planned(fa, "fused_attention", "attention_plan")
+    reset = mips.reset_launch_counts
+
+    def reset_all():
+        reset()
+        ROUTES.clear()
+
+    mips.reset_launch_counts = reset_all
+
+
+def template(name):
+    """The one template `name` took since its routes were last read or
+    dropped (each check drops them just before its call)."""
+    if name in FIXED_TEMPLATE:
+        return FIXED_TEMPLATE[name]
+    taken = ROUTES.pop(name, set())
+    assert len(taken) == 1, f"{name} took templates {sorted(taken)}"
+    return next(iter(taken))
+
+
+def leg_counts(mips):
+    """Launches of each kernel since the last reset, and the templates the
+    planned wrappers took."""
+    return dict(mips.LAUNCHES, routes={k: sorted(v) for k, v in ROUTES.items()})
+
+
 def nvidia_smi():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -155,12 +220,14 @@ def check_kernels(mips, dev, gen):
     idx8[777] = idx8[5]                        # exact tie: lower id wins
     dsc[777] = dsc[5]
     qi, qs = mips.quantize_rows(q32)
+    ROUTES.clear()
     for k in (1, 4):
         kv, ki = mips.mips_scan_int8(qi, qs, idx8, dsc, k, n_valid)
         pv, pi = mips.mips_scan_int8_plain(qi, qs, idx8, dsc, k, n_valid)
         torch.cuda.synchronize()
         assert torch.equal(kv, pv) and torch.equal(ki, pi), \
             f"kernel 1 (k={k}) disagrees with its plain version"
+    tmpl = template("mips_scan_int8")
     ms = cuda_ms(lambda: mips.mips_scan_int8(qi, qs, idx8, dsc, 1, n_valid), 20)
     plain = cuda_ms(
         lambda: mips.mips_scan_int8_plain(qi, qs, idx8, dsc, 1, n_valid), 2)
@@ -168,7 +235,7 @@ def check_kernels(mips, dev, gen):
         torch._int_mm(qi, idx8.t()).float() * qs[:, None] * dsc[None, :], 1))
     bnd = bound_ms(N * D + N * 4 + B * D + B * 4 + B * 8, 2 * B * N * D, "int8")
     recs["mips_scan_int8"] = dict(err=0.0, ms=ms, plain_ms=plain, bound=bnd,
-                                  library_ms=lib)
+                                  library_ms=lib, template=tmpl)
 
     # kernel 7: two-phase chunk maxima over the int8 index (leg d's shape)
     q8, _ = mips.quantize_rows(torch.randn(B_I8, D, device=dev, generator=gen))
@@ -184,45 +251,23 @@ def check_kernels(mips, dev, gen):
     bnd = bound_ms(N * D + N * 4 + B_I8 * D + B_I8 * (N // C_I8) * 4,
                    2 * B_I8 * N * D, "int8")
     recs["chunk_max_int8"] = dict(err=0.0, ms=ms, plain_ms=plain, bound=bnd,
-                                  library_ms=lib)
+                                  library_ms=lib,
+                                  template=template("chunk_max_int8"))
     del idx8, q8
 
-    # kernel 2: bf16 scan + top-1
+    # kernel 2: bf16 scan + top-1 (the record), and the FEVER CLI's hop 1
     idxb = torch.randn(N, D, device=dev, generator=gen).to(torch.bfloat16)
-    qb = q32.to(torch.bfloat16)
-    kv, ki = mips.mips_scan(q32, idxb, 1, n_valid)
-    pv, pi = mips.mips_scan_plain(q32, idxb, 1, n_valid)
-    torch.cuda.synchronize()
-    err = (kv - pv).abs().max().item()
-    # ids equal apart from near-ties: a differing id must score (plainly)
-    # within the value tolerance of the plain top-1
-    alt = (qb.float() * idxb[ki[:, 0].long()].float()).sum(1)
-    tie_ok = (ki[:, 0] == pi[:, 0]) | ((alt - pv[:, 0]).abs() <= 1e-3)
-    assert bool(tie_ok.all()), "kernel 2 ids disagree beyond near-ties"
-    assert err <= 1e-3, f"kernel 2 values off by {err} (tolerance 1e-3)"
-    ms = cuda_ms(lambda: mips.mips_scan(qb, idxb, 1, n_valid), 10)
-    plain = cuda_ms(lambda: mips.mips_scan_plain(qb, idxb, 1, n_valid), 2)
-    lib = _library(lambda: torch.topk(qb @ idxb.t(), 1))
-    bnd = bound_ms(N * D * 2 + B * D * 2 + B * 8, 2 * B * N * D, "bf16")
-    recs["mips_scan"] = dict(err=err, ms=ms, plain_ms=plain, bound=bnd,
-                             library_ms=lib)
+    recs["mips_scan"] = check_scan(mips, q32, idxb, 1, n_valid, "record")
+    check_scan(mips, q32[:FEVER_BATCH], idxb[:N_F], 2, N_F - 1000,
+               "the FEVER CLI's hop 1")
     del idxb
 
-    # kernel 3: PCA phase 1 chunk maxima
+    # kernel 3: PCA phase 1 chunk maxima (the record), and leg c2's hop 2
     proj = torch.randn(N, R, device=dev, generator=gen).to(torch.bfloat16)
-    qp = torch.randn(B, R, device=dev, generator=gen).to(torch.bfloat16)
-    kout = mips.pca_chunk_max(qp, proj, CAND, n_valid)
-    pout = mips.chunk_max_plain(qp, proj, CAND, n_valid)
-    torch.cuda.synchronize()
-    err = (kout - pout).abs().max().item()
-    assert err <= 1e-3, f"kernel 3 off by {err} (tolerance 1e-3)"
-    ms = cuda_ms(lambda: mips.pca_chunk_max(qp, proj, CAND, n_valid), 20)
-    plain = cuda_ms(lambda: mips.chunk_max_plain(qp, proj, CAND, n_valid), 3)
-    lib = _library(lambda: (qp @ proj.t()).view(B, -1, CAND).amax(-1))
-    bnd = bound_ms(N * R * 2 + B * R * 2 + B * (N // CAND) * 4,
-                   2 * B * N * R, "bf16")
-    recs["pca_chunk_max"] = dict(err=err, ms=ms, plain_ms=plain, bound=bnd,
-                                 library_ms=lib)
+    qp = torch.randn(B_F, R, device=dev, generator=gen).to(torch.bfloat16)
+    recs["pca_chunk_max"] = check_pca_chunk_max(mips, qp[:B], proj, n_valid,
+                                                "record")
+    check_pca_chunk_max(mips, qp, proj[:N_F], N_F - 1000, "leg c2's hop 2")
     del proj
 
     # kernel 4: int8 rescan of 8 selected chunks per query
@@ -243,11 +288,71 @@ def check_kernels(mips, dev, gen):
     bnd = bound_ms(uniq * CAND * (D + 4) + B * D + B * KC * 4
                    + B * KC * CAND * 4, 2 * B * KC * CAND * D, "int8")
     recs["pca_rescan_int8"] = dict(err=0.0, ms=ms, plain_ms=plain, bound=bnd,
-                                   library_ms=None)
+                                   library_ms=None,
+                                   template=template("pca_rescan_int8"))
     del idx8
     check_float_two_phase(mips, dev, gen, recs)
     check_attention(dev, gen, recs)
     return recs
+
+
+def check_scan(mips, q32, idxb, k, n_valid, what):
+    """Kernel 2 at one shape against its plain version: values within 1e-3
+    absolute and rtol 1e-5 (the kept rows rescored in fp32: fp32 sums of
+    exact bf16 products in another order), ids equal apart from near-ties
+    (a differing id's plain score within that tolerance of the plain score
+    at its rank); the tensor-core template taken; times beside the plain
+    version, bf16 mm + topk, and the bound."""
+    b, n = q32.shape[0], idxb.shape[0]
+    qb = q32.to(torch.bfloat16)
+    ROUTES.pop("mips_scan", None)
+    kv, ki = mips.mips_scan(q32, idxb, k, n_valid)
+    pv, pi = mips.mips_scan_plain(q32, idxb, k, n_valid)
+    torch.cuda.synchronize()
+    tmpl = template("mips_scan")
+    err = (kv - pv).abs().max().item()
+    rel = ((kv - pv).abs() / pv.abs()).max().item()
+    alt = (qb.float()[:, None, :] * idxb[ki.long()].float()).sum(-1)
+    tie_ok = (ki == pi) | ((alt - pv).abs() <= 1e-5 * pv.abs())
+    ms = cuda_ms(lambda: mips.mips_scan(qb, idxb, k, n_valid), 10)
+    plain = cuda_ms(lambda: mips.mips_scan_plain(qb, idxb, k, n_valid), 2)
+    lib = _library(lambda: torch.topk(qb @ idxb.t(), k))
+    bnd = bound_ms(n * D * 2 + b * D * 2 + b * k * 8, 2 * b * n * D, "bf16")
+    say(f"  kernel 2 {what} (B={b}, N={n}, k={k}, {tmpl}): {ms:.4f} ms "
+        f"(plain {plain:.4f} ms, mm + topk {lib:.4f} ms, bound {bnd[0]:.4f} "
+        f"ms by {bnd[1]}, {bnd[0] / ms:.3f} of it); max abs err {err:.3g}, "
+        f"max relative {rel:.3g}")
+    assert tmpl == "mma", f"kernel 2 took the {tmpl} template at {what}"
+    assert bool(tie_ok.all()), f"kernel 2 ids disagree beyond near-ties"
+    assert err <= 1e-3 and rel <= 1e-5, \
+        f"kernel 2 values off by {err} ({rel} relative)"
+    return dict(err=err, ms=ms, plain_ms=plain, bound=bnd, library_ms=lib,
+                template=tmpl)
+
+
+def check_pca_chunk_max(mips, qp, proj, n_valid, what):
+    """Kernel 3 at one shape against its plain version (within 1e-3: fp32
+    sums of exact bf16 products in another order); the tensor-core template
+    taken; times beside the plain version, bf16 mm + amax, and the bound."""
+    b, n = qp.shape[0], proj.shape[0]
+    ROUTES.pop("pca_chunk_max", None)
+    kout = mips.pca_chunk_max(qp, proj, CAND, n_valid)
+    pout = mips.chunk_max_plain(qp, proj, CAND, n_valid)
+    torch.cuda.synchronize()
+    tmpl = template("pca_chunk_max")
+    err = (kout - pout).abs().max().item()
+    ms = cuda_ms(lambda: mips.pca_chunk_max(qp, proj, CAND, n_valid), 20)
+    plain = cuda_ms(lambda: mips.chunk_max_plain(qp, proj, CAND, n_valid), 3)
+    lib = _library(lambda: (qp @ proj.t()).view(b, -1, CAND).amax(-1))
+    bnd = bound_ms(n * R * 2 + b * R * 2 + b * (n // CAND) * 4,
+                   2 * b * n * R, "bf16")
+    say(f"  kernel 3 {what} (B={b}, N={n}, R={R}, {tmpl}): {ms:.4f} ms "
+        f"(plain {plain:.4f} ms, mm + amax {lib:.4f} ms, bound {bnd[0]:.4f} "
+        f"ms by {bnd[1]}, {bnd[0] / ms:.3f} of it); max abs err {err:.3g}")
+    assert tmpl == "mma", f"kernel 3 took the {tmpl} template at {what}"
+    assert err <= 1e-3, f"kernel 3 off by {err} (tolerance 1e-3)"
+    return dict(err=err, ms=ms, plain_ms=plain, bound=bnd, library_ms=lib,
+                template=tmpl)
 
 
 def check_float_two_phase(mips, dev, gen, recs):
@@ -257,9 +362,11 @@ def check_float_two_phase(mips, dev, gen, recs):
     n_valid = N_F - 1000
     idxb = torch.randn(N_F, D, device=dev, generator=gen).to(torch.bfloat16)
     qb = torch.randn(B_F, D, device=dev, generator=gen).to(torch.bfloat16)
+    ROUTES.pop("chunk_max", None)
     kout = mips.chunk_max(qb, idxb, C_F, n_valid)
     pout = mips.chunk_max_plain(qb, idxb, C_F, n_valid)
     torch.cuda.synchronize()
+    tmpl = template("chunk_max")
     err = (kout - pout).abs().max().item()
     assert err <= 1e-3, f"kernel 6 off by {err} (tolerance 1e-3)"
     ms = cuda_ms(lambda: mips.chunk_max(qb, idxb, C_F, n_valid), 10)
@@ -268,7 +375,7 @@ def check_float_two_phase(mips, dev, gen, recs):
     bnd = bound_ms(N_F * D * 2 + B_F * D * 2 + B_F * (N_F // C_F) * 4,
                    2 * B_F * N_F * D, "bf16")
     recs["chunk_max"] = dict(err=err, ms=ms, plain_ms=plain, bound=bnd,
-                             library_ms=lib)
+                             library_ms=lib, template=tmpl)
 
     # kernel 5 at its two shapes: two-phase phase 2 (20 chunks of 2048
     # rows, the record in the kernels line) and the PCA rescan (16 chunks
@@ -295,8 +402,8 @@ def check_float_two_phase(mips, dev, gen, recs):
         say(f"  kernel 5 at C={cand}, kc={kc}: {ms:.4f} ms (plain "
             f"{plain:.4f} ms, bound {bnd[0]:.4f} ms by {bnd[1]}, "
             f"{uniq} distinct chunks)")
-    recs["rescan"] = dict(rescans[0],
-                          err=max(r["err"] for r in rescans))
+    recs["rescan"] = dict(rescans[0], err=max(r["err"] for r in rescans),
+                          template=template("rescan"))
 
 
 def attention_inputs(dev, gen, b, wq, w, dtype):
@@ -346,8 +453,6 @@ def check_attention(dev, gen, recs):
     timed).  The port never calls it.  At the corpus shape it also times
     the encoder's attention step (the three projections, attention and the
     head layout) with attention_impl "fused" and "xla"."""
-    import importlib
-
     import torch.nn.functional as F
 
     fa = importlib.import_module(
@@ -355,9 +460,11 @@ def check_attention(dev, gen, recs):
     dh = D // NH
     for i, (what, b, wq, w, dt) in enumerate(ATTN_CASES):
         q, k, v, mask = attention_inputs(dev, gen, b, wq, w, dt)
+        ROUTES.pop("fused_attention", None)
         got = fa.fused_attention(q, k, v, mask, NH)
         exp = fa.fused_attention_plain(q, k, v, mask, NH)
         torch.cuda.synchronize()
+        tmpl = template("fused_attention")
         err, ulps, beyond = attention_error(fa, got, exp, q, k, v, mask)
         del got, exp
         ms = cuda_ms(lambda: fa.fused_attention(q, k, v, mask, NH), 10)
@@ -378,7 +485,8 @@ def check_attention(dev, gen, recs):
             f"{ulps:.3g} bf16 ulps, {beyond:.3g} of outputs beyond 2 ulps")
         if i == 0:
             recs["fused_attention"] = dict(err=err, ms=ms, plain_ms=plain,
-                                           bound=bnd, library_ms=lib)
+                                           bound=bnd, library_ms=lib,
+                                           template=tmpl)
             time_attention_step(dev, gen, mask)
         del q, k, v, qt, kt, vt
 
@@ -533,6 +641,8 @@ def check_bf16_path(out, seen, index, mips):
         kv, ki = mips.mips_scan(q, index.vectors, 1)
         pv, pi = mips.mips_scan_plain(q, index.vectors, 1)
         rel = ((kv - pv).abs() / pv.abs().clamp(min=1e-30)).max().item()
+        say(f"  bf16 path {key}: kernel 2 vs plain, max relative score "
+            f"difference {rel:.3g}")
         assert rel <= 1e-5, f"kernel 2 ({key}) off by {rel} relative"
         qb = q.to(torch.bfloat16).float()
         alt = (qb * index.vectors[ki[:, 0].long()].float()).sum(1)
@@ -611,7 +721,7 @@ def run_main_path(port, mips, dev, gen, smi, table_path=None, iters=50):
     torch.cuda.synchronize()
     mips.reset_launch_counts()
     out, secs = timed_batches(engine, q_inputs, q_raw, q_lens, iters)
-    launches = {"int8": dict(mips.LAUNCHES)}
+    launches = {"int8": leg_counts(mips)}
     seen = record_queries(engine)
     checked = engine.search(dict(q_inputs), q_raw, q_lens)
     for key, val in out.items():
@@ -660,7 +770,7 @@ def run_main_path(port, mips, dev, gen, smi, table_path=None, iters=50):
     seen = record_queries(bf16_engine)
     mips.reset_launch_counts()
     out_bf16, secs = timed_batches(bf16_engine, q_inputs, q_raw, q_lens, 5)
-    launches["bf16"] = dict(mips.LAUNCHES)
+    launches["bf16"] = leg_counts(mips)
     hit_bf16 = (out_bf16["hop1_ids"][:, 0] == planted_small).mean()
     assert hit_bf16 == 1.0, f"bf16 engine self-retrieval: hit rate {hit_bf16}"
     rel = check_bf16_path(out_bf16, seen, bf16_index, mips)
@@ -670,8 +780,8 @@ def run_main_path(port, mips, dev, gen, smi, table_path=None, iters=50):
         f"at both hops: max relative score difference {rel:.3g} [{smi}]")
     say(f"  bf16 path launches over 5 batches: {json.dumps(launches['bf16'])}")
     assert launches["bf16"]["mips_scan"] > 0, "bf16 scan not launched"
-    assert sum(launches["bf16"].values()) == launches["bf16"]["mips_scan"], \
-        "int8 kernels ran on the bf16 path"
+    assert sum(launches["bf16"][k] for k in mips.LAUNCHES) == \
+        launches["bf16"]["mips_scan"], "int8 kernels ran on the bf16 path"
     del bf16_engine, bf16_index, text_ids, text_lens, empty
 
     launches.update(run_fever_cli(port, model, mips, dev, gen, smi))
@@ -702,7 +812,7 @@ def run_fused_serving(engine, model, models, search, q_inputs, q_raw, q_lens,
     torch.cuda.synchronize()
     mips.reset_launch_counts()
     out, secs = timed_batches(eng, q_inputs, q_raw, q_lens, 5)
-    launches = dict(mips.LAUNCHES)
+    launches = leg_counts(mips)
     seen = record_queries(eng)
     checked = eng.search(dict(q_inputs), q_raw, q_lens)
     for key, val in out.items():
@@ -775,8 +885,6 @@ def run_corpus_encoding(port, state, mips, dev, smi):
     vector's cosine >= 0.999 and no entry off by more than 0.1 (entries
     are ~1).  The fused and xla vectors are compared by cosine (reported:
     the xla encoder rounds its scores to bf16, the kernel keeps fp32)."""
-    import importlib
-
     from multihop_dense_retrieval_tpu_torch.cli import common
     from multihop_dense_retrieval_tpu_torch.cli import encode_corpus as cli
     from multihop_dense_retrieval_tpu_torch.index import build
@@ -825,7 +933,7 @@ def run_corpus_encoding(port, state, mips, dev, smi):
         finally:
             build.encode_corpus = encode
         e1 = time.perf_counter() - t1
-        out["corpus_e1"] = dict(mips.LAUNCHES)
+        out["corpus_e1"] = leg_counts(mips)
         n_batches = -(-N_DOCS // C_BATCH)
         assert index.n_docs == N_DOCS and index.vectors.dtype == torch.int8
         assert bool(torch.isfinite(index.scales).all())
@@ -848,7 +956,7 @@ def run_corpus_encoding(port, state, mips, dev, smi):
                   str(R)])
         torch.cuda.synchronize()
         e2 = time.perf_counter() - t2
-        out["corpus_e2"] = dict(mips.LAUNCHES)
+        out["corpus_e2"] = leg_counts(mips)
         index = index_mod.DenseIndex.load(f"{tmp}/e2/index.npz", device=dev)
         tc2 = data.TokenizedCorpus.load(f"{tmp}/e2/tokens.npz")
         with open(f"{tmp}/e2/id2doc.json") as f:
@@ -922,7 +1030,7 @@ def run_int8_two_phase(engine, scfg, q_inputs, q_raw, q_lens, mips, search,
     seen = record_queries(eng, outputs=True)
     mips.reset_launch_counts()
     out, secs = timed_batches(eng, q_inputs, q_raw, q_lens, 5)
-    launches = dict(mips.LAUNCHES)
+    launches = leg_counts(mips)
     q2, k, (vals, docs, _) = seen[-1]
     assert q2.shape == (B_I8, D) and k == K_F, (q2.shape, k)
     vecs, dsc = eng.index.vectors, eng.index.scales
@@ -1008,18 +1116,22 @@ def hold_to_exact_scan(q, vals, docs, vecs, mips, rows=None):
     vectors: values within rtol 1e-5 (fp32 sums of exact bf16 products in
     another order), ids equal apart from near-ties (a differing id's plain
     score is within that tolerance of the plain score at its rank).
-    `rows` limits the check to those queries."""
+    `rows` limits the check to those queries.  Returns (queries held, the
+    largest relative value difference)."""
     k = vals.shape[1]
     pv, pi = mips.mips_scan_plain(q, vecs, k)
     if rows is not None:
         q, vals, docs, pv, pi = (t[rows] for t in (q, vals, docs, pv, pi))
     tol = 1e-5 * pv.abs().clamp(min=1e-30)
-    assert bool(((vals - pv).abs() <= tol).all()), "values beyond rtol 1e-5"
+    rel = ((vals - pv).abs() / pv.abs().clamp(min=1e-30)).max().item() \
+        if vals.numel() else 0.0
+    assert bool(((vals - pv).abs() <= tol).all()), \
+        f"values beyond rtol 1e-5: {rel}"
     alt = (q.to(vecs.dtype).float()[:, None, :]
            * vecs[docs.long()].float()).sum(-1)
     assert bool(((docs == pi.long()) | ((alt - pv).abs() <= tol)).all()), \
         "ids differ from the exact scan beyond near-ties"
-    return int(q.shape[0])
+    return int(q.shape[0]), rel
 
 
 class _Lines(logging.Handler):
@@ -1087,7 +1199,7 @@ def run_fever_cli(port, model, mips, dev, gen, smi):
                 search.BeamSearcher._mips = orig
                 search.BeamSearcher.search = orig_search
                 logger.removeHandler(lines)
-            out[leg] = dict(mips.LAUNCHES)
+            out[leg] = leg_counts(mips)
             assert len(rows) == N_CLAIMS and all(
                 len(r["candidate_chains"]) == K_F for r in rows)
             hop1 = [c for c in calls if c[2] == 2]
@@ -1097,13 +1209,16 @@ def run_fever_cli(port, model, mips, dev, gen, smi):
             cand = torch.cat([c[3][1] for c in hop1]).cpu().numpy()
             hit = (cand == planted[:, None]).any(1).mean()
             assert hit == 1.0, f"{leg}: planted hop-1 hit rate {hit}"
-            checked, cert = 0, []
-            for vecs, q, k, (vals, docs, c) in hop1 + hop2:
+            checked, cert, rel = 0, [], {1: 0.0, 2: 0.0}
+            for hop, (vecs, q, k, (vals, docs, c)) in \
+                    [(1, x) for x in hop1] + [(2, x) for x in hop2]:
                 assert bool(torch.isfinite(vals).all()), leg
                 if c is not None:
                     cert.append(c)
-                checked += hold_to_exact_scan(q, vals, docs, vecs, mips,
-                                              None if c is None else c)
+                n_q, r = hold_to_exact_scan(q, vals, docs, vecs, mips,
+                                            None if c is None else c)
+                checked += n_q
+                rel[hop] = max(rel[hop], r)
             qps = [x for x in lines.lines if "q/s" in x]
             note = "every hop-2 query = exact scan"
             if extra:
@@ -1113,7 +1228,9 @@ def run_fever_cli(port, model, mips, dev, gen, smi):
                         f"exact scan")
             say(f"  {leg} ({' '.join(extra) or 'exact'}): CLI says "
                 f"\"{qps[-1]}\"; planted hop-1 hit rate {hit:.3f}; {note}; "
-                f"{checked} MIPS queries held to the exact scan [{smi}]")
+                f"{checked} MIPS queries held to the exact scan, max relative "
+                f"difference hop 1 (kernel 2) {rel[1]:.3g}, hop 2 {rel[2]:.3g} "
+                f"[{smi}]")
             say(f"  {leg} launches: {json.dumps(out[leg])}")
             for name in ("mips_scan_int8", "chunk_max_int8",
                          "pca_rescan_int8"):
@@ -1183,8 +1300,8 @@ TPU = "multihop_dense_retrieval_tpu/ops/mips.py:"
 # kernel: (source, TPU kernel it replaces, main path whose counts it reports)
 REPLACES = {
     "mips_scan_int8": (CU + "mips_scan.cu", TPU + "316", "int8"),
-    "mips_scan": (CU + "mips_scan.cu", TPU + "220", "bf16"),
-    "pca_chunk_max": (CU + "two_phase.cu", TPU + "868", "int8"),
+    "mips_scan": (CU + "mips_scan_mma.cu", TPU + "220", "bf16"),
+    "pca_chunk_max": (CU + "chunk_max_mma.cu", TPU + "868", "int8"),
     "pca_rescan_int8": (CU + "two_phase.cu", TPU + "554", "int8"),
     "rescan": (CU + "two_phase.cu", TPU + "532", "fever_c1"),
     "chunk_max": (CU + "chunk_max_mma.cu", TPU + "489", "fever_c1"),
@@ -1195,9 +1312,11 @@ REPLACES = {
 }
 
 
-# sources of the tensor-core templates (kernels 6 and 8), whose ptxas lines
-# are printed under their kernels' names
-TENSOR_CORE_SOURCES = ("chunk_max_mma", "fused_attention")
+# sources of the tensor-core templates (kernels 2, 3, 6 and 8), whose ptxas
+# lines are printed under their kernels' names
+TENSOR_CORE_SOURCES = ("mips_scan_mma", "chunk_max_mma", "fused_attention")
+# the legs that launch kernels 2 and 3, which must take the tensor cores
+MMA_LEGS = ("int8", "fused_serving", "bf16", "fever_c1", "fever_c2")
 
 
 def main():
@@ -1213,6 +1332,8 @@ def main():
     from multihop_dense_retrieval_tpu_torch import search
     from multihop_dense_retrieval_tpu_torch.ops import _build, mips
 
+    track_routes(mips, importlib.import_module(
+        "multihop_dense_retrieval_tpu_torch.ops.fused_attention"))
     smi = nvidia_smi()
     dev = torch.device("cuda", 0)
     say(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -1232,7 +1353,8 @@ def main():
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
     recs = check_kernels(mips, dev, gen)
-    say("kernels: " + json.dumps({k: {"ok": True, "max_abs_err": r["err"],
+    say("kernels: " + json.dumps({k: {"ok": True, "template": r["template"],
+                                      "max_abs_err": r["err"],
                                       "ms": r["ms"], "plain_ms": r["plain_ms"],
                                       "library_ms": r["library_ms"],
                                       "bound_ms": r["bound"][0],
@@ -1242,13 +1364,19 @@ def main():
     launches = run_main_path(
         (core.config, data, index, models, search), mips, dev, gen, smi,
         args.profile_out)
+    for leg in MMA_LEGS:
+        for name in ("mips_scan", "pca_chunk_max"):
+            taken = launches[leg]["routes"].get(name, [])
+            assert launches[leg][name] == 0 or taken == ["mma"], \
+                f"{name} took {taken} on leg {leg}"
     say(f"main path: ok [{smi}]")
 
     kernels = []
     for name, r in recs.items():
         src, rep, path = REPLACES[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "name": name, "route": "cuda", "template": r["template"],
+            "source": src, "replaces": rep,
             "path": path, "launches": launches[path][name],
             "max_abs_err": r["err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],

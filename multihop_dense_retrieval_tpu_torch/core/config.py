@@ -41,7 +41,7 @@ class EncoderConfig:
     dtype: str = "bfloat16"
     # "xla": plain torch ops; "fused": kernel 8 (ops/fused_attention.py),
     # fp32 scores and softmax whatever attention_scores_dtype says; "flash"
-    # (JAX's stock TPU kernel) raises NotImplementedError
+    # (JAX's stock TPU kernel) runs the xla path, as JAX does off a TPU
     attention_impl: str = "xla"
     attention_scores_dtype: str = "float32"
 

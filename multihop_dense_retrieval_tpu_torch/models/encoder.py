@@ -25,8 +25,9 @@ step, so a checkpoint gives the same vectors in both:
     JAX encoder does: fp32 scores times fp32(1/√d) plus an fp32 0 / -1e9
     bias from the mask (``attention_scores_dtype`` is ignored), a one-pass
     fp32 softmax, the probabilities rounded to the compute dtype, and an
-    fp32 product with v; ``"flash"`` (JAX's stock TPU kernel) is not
-    ported;
+    fp32 product with v; ``"flash"`` runs the xla path, as the JAX
+    encoder does on every backend but a TPU (its stock TPU flash kernel
+    is not a kernel of this repository);
   * ``cls_only`` runs the last layer's queries and FFN for position 0;
     ``return_all_hiddens`` returns every layer's output (embeddings first)
     for the layerwise multi-vector encoder, and then runs the last layer
@@ -210,10 +211,10 @@ class TransformerEncoder(nn.Module):
     def __init__(self, config: EncoderConfig, cls_only: bool = False,
                  return_all_hiddens: bool = False):
         super().__init__()
-        if config.attention_impl not in ("xla", "fused"):
+        if config.attention_impl not in ("xla", "fused", "flash"):
             raise NotImplementedError(
                 f"attention_impl={config.attention_impl!r} is not ported; "
-                "use 'xla' (plain attention) or 'fused' (kernel 8)")
+                "use 'xla' or 'flash' (plain attention) or 'fused' (kernel 8)")
         self.config = config
         self.cls_only = cls_only
         self.return_all_hiddens = return_all_hiddens

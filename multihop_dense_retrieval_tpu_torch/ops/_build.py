@@ -26,25 +26,29 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("mips_scan", "two_phase", "chunk_max_mma", "fused_attention")
+SOURCES = ("mips_scan", "mips_scan_mma", "two_phase", "chunk_max_mma",
+           "fused_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-P, I, LL, SZ = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_size_t
+P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 F = ctypes.c_float
 # argtypes of every C entry point: pointers and streams are c_void_p
 SIGNATURES = {
     "mips_scan": {
         "mips_scan_topk": ([P, P, P, P, I, I, LL, LL, I, I, LL, I, I,
                             P, P, P, P, P], I),
-        "mips_scan_smem_bytes": ([I], SZ),
     },
     "two_phase": {
         "chunk_max": ([I, P, P, P, I, LL, LL, I, I, I, P, P], I),
         "rescan": ([I, P, P, P, P, I, I, I, I, LL, P, P], I),
     },
+    "mips_scan_mma": {
+        "mips_scan_mma": ([P, P, I, LL, LL, I, I, I, I, LL, I, LL, P, P, P,
+                           P, P], I),
+    },
     "chunk_max_mma": {
-        "chunk_max_mma": ([P, P, I, LL, LL, I, I, I, LL, P, P], I),
+        "chunk_max_mma": ([P, P, I, LL, LL, I, I, I, LL, I, I, P, P], I),
     },
     "fused_attention": {
         "fused_attention": ([I, I, I, P, P, P, P, I, I, I, I, I, F, LL, P,

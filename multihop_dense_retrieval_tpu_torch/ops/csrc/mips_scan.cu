@@ -22,31 +22,16 @@
 //
 // Bound on an H100 SXM (B=192, D=768, N=1,048,576): 0.805 GB of int8 rows
 // at 3.35 TB/s, 0.24 ms; 0.30 T int8 ops at 1979 TOP/s, 0.15 ms.  This
-// first version runs on the CUDA cores (__dp4a / fp32 FMA), so it is bound
-// by their rate, not by memory; a tensor-core (mma / wgmma) version is
-// later work.
+// template runs on the CUDA cores (__dp4a / fp32 FMA), so it is bound by
+// their rate, not by memory.  It serves int8 rows (kernel 1), fp32 rows,
+// and bf16 rows whose width is not a multiple of 64; the other bf16 rows
+// take the tensor-core template of mips_scan_mma.cu.
 #include "tile_dot.cuh"
+#include "topk.cuh"
 
 namespace mdrt {
 
-__device__ __forceinline__ bool better(float av, int ai, float bv, int bi) {
-  return av > bv || (av == bv && ai < bi);
-}
-
-template <int KMAX>
-__device__ __forceinline__ void insert(float (&tv)[KMAX], int (&ti)[KMAX],
-                                       float v, int id) {
-  if (!better(v, id, tv[KMAX - 1], ti[KMAX - 1])) return;
-  tv[KMAX - 1] = v;
-  ti[KMAX - 1] = id;
-#pragma unroll
-  for (int s = KMAX - 1; s > 0; --s) {
-    if (better(tv[s], ti[s], tv[s - 1], ti[s - 1])) {
-      float fv = tv[s]; tv[s] = tv[s - 1]; tv[s - 1] = fv;
-      int fi = ti[s]; ti[s] = ti[s - 1]; ti[s - 1] = fi;
-    }
-  }
-}
+using mdrt_topk::insert;
 
 template <typename T, int KMAX>
 __global__ void __launch_bounds__(NTHREADS)
@@ -226,8 +211,4 @@ extern "C" int mips_scan_topk(const void* q, const void* q_scale,
                                        pv, pi, ov, oi, s));
     default: return int(cudaErrorInvalidValue);
   }
-}
-
-extern "C" size_t mips_scan_smem_bytes(int w) {
-  return mdrt::tile_smem_bytes(w);
 }

@@ -1,5 +1,6 @@
 // Tensor-core and asynchronous-copy building blocks for the port's Hopper
-// kernels (chunk_max_mma.cu, fused_attention.cu), as inline PTX:
+// kernels (mips_scan_mma.cu, chunk_max_mma.cu, fused_attention.cu), as
+// inline PTX:
 //   * cp.async.cg 16-byte copies from device memory to shared memory (L2
 //     only), with a source size of 0 giving a zero-filled destination;
 //   * ldmatrix (plain and .trans) loading 8x8 bf16 tiles into the register

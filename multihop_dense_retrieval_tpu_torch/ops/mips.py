@@ -7,8 +7,12 @@ launches the kernel for a CUDA tensor and takes the plain version only for
 a tensor on the CPU (a CUDA tensor the kernel does not take raises):
 
   1. ``mips_scan_int8``  — int8 scan + fused top-k       (csrc/mips_scan.cu)
-  2. ``mips_scan``       — bf16/fp32 scan + fused top-k   (csrc/mips_scan.cu)
-  3. ``pca_chunk_max``   — PCA phase 1, chunk maxima      (csrc/two_phase.cu)
+  2. ``mips_scan``       — bf16/fp32 scan + fused top-k   (csrc/mips_scan_mma.cu
+                           for bf16, on the tensor cores; csrc/mips_scan.cu
+                           for fp32)
+  3. ``pca_chunk_max``   — PCA phase 1, chunk maxima      (csrc/chunk_max_mma.cu,
+                           on the tensor cores; csrc/two_phase.cu for
+                           widths off a multiple of 64)
   4. ``pca_rescan_int8`` — phase 2, int8 rescan           (csrc/two_phase.cu)
   5. ``rescan``          — phase 2, bf16/fp32 rescan      (csrc/two_phase.cu)
   6. ``chunk_max``       — two-phase phase 1, bf16/fp32   (csrc/chunk_max_mma.cu
@@ -68,6 +72,10 @@ def topk_lower_index(x: torch.Tensor, k: int):
 
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _on_cuda(*tensors) -> bool:
@@ -155,37 +163,95 @@ def _kmax(k: int) -> int:
     raise NotImplementedError(f"k={k}: the scan kernel keeps at most 8")
 
 
+# the tensor-core templates of kernels 2, 3 and 6 (csrc/mips_scan_mma.cu,
+# csrc/chunk_max_mma.cu): index rows a tile, bf16 columns a pipeline stage,
+# stages, and the widest query tile of the chunk maxima
+_MMA_ROWS, _MMA_KS, _MMA_STAGES, _MMA_QMAX = 128, 64, 4, 256
+
+# kernel 2's tensor-core template (csrc/mips_scan_mma.cu): the widest query
+# tile for each top-k list length (its lists cost 4 * NW * KMAX registers a
+# thread beside the 16 * NW accumulators of a 32 * NW-query tile)
+_SCAN_QMAX = {1: 192, 2: 192, 4: 128, 8: 64}
+
+
+def _splits(n: int, want: int) -> tuple:
+    """(rows per split, splits) for at most `want` splits of n rows, each a
+    whole number of 128-row tiles, the longest as short as `want` splits
+    allow (so rounding may leave a few of the `want` unused)."""
+    rows = -(-max(128, -(-n // max(1, want))) // 128) * 128
+    return rows, -(-n // rows)
+
+
+def scan_plan(b: int, n: int, d: int, dtype, k: int, sms: int = 132) -> dict:
+    """Route and launch plan of the scan kernels 1 and 2.  bf16 rows of a
+    width that is a multiple of 64 take the tensor-core template: query
+    tiles as wide as ``_SCAN_QMAX`` allows for the list length ``kmax``
+    (a multiple of 32, zero rows past B), a grid of row splits x query
+    tiles that is one wave at one block an SM (``_splits``), and ``smem`` =
+    4 stages of (128 index rows + the query tile) x 72 bf16 plus the two
+    row warps' lists.  int8 rows (kernel 1), fp32 rows (a tensor-core
+    product of fp32 would be TF32) and narrower bf16 rows take the SIMT
+    template: 64-query tiles, 4 blocks an SM, the shared memory of
+    csrc/tile_dot.cuh's ``tile_smem_bytes``.  The C entry point of the
+    tensor-core template checks ``q_tile``, the splits and ``smem`` against
+    its own count."""
+    kmax = _kmax(k)
+    if dtype != torch.bfloat16 or d % _MMA_KS:
+        q_tiles = -(-b // 64)
+        rows, splits = _splits(n, (4 * sms) // q_tiles)
+        return dict(route="simt", kmax=kmax, block=256, q_tile=64,
+                    q_pad=64 * q_tiles, rows_per_split=rows, splits=splits,
+                    grid=(q_tiles, splits, 1),
+                    smem=4 * (64 * (d * dtype.itemsize // 4 + 4) + 128 * 20))
+    q_tiles = -(-b // _SCAN_QMAX[kmax])
+    q_tile = -(-(-(-b // q_tiles)) // 32) * 32
+    q_tiles = -(-b // q_tile)
+    rows, splits = _splits(n, sms // q_tiles)
+    smem = (_MMA_STAGES * (_MMA_ROWS + q_tile) * (_MMA_KS + 8) * 2
+            + 2 * q_tile * kmax * 8)
+    return dict(route="mma", kmax=kmax, block=256, q_tile=q_tile,
+                q_pad=q_tile * q_tiles, rows_per_split=rows, splits=splits,
+                grid=(splits, q_tiles, 1), smem=smem)
+
+
 def _launch_scan(dtype_code, q, q_scale, index, d_scale, k, n_valid):
     from . import _build
 
     b, d = q.shape
     n = index.shape[0]
     w = d * index.element_size() // 4
+    plan = scan_plan(b, n, d, index.dtype, k, _sms(q.device))
+    nv = n if n_valid is None else n_valid
+    out_v = torch.empty((b, k), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=q.device)
+    part_v = torch.empty((b, plan["splits"], plan["kmax"]),
+                         dtype=torch.float32, device=q.device)
+    part_i = torch.empty((b, plan["splits"], plan["kmax"]), dtype=torch.int32,
+                         device=q.device)
+    if plan["route"] == "mma":
+        for t in (q, index):
+            _require(t.is_contiguous() and t.data_ptr() % 16 == 0,
+                     "inputs must be contiguous and 16-byte aligned")
+        lib = _build.load("mips_scan_mma")
+        _build.check(lib.mips_scan_mma(
+            q.data_ptr(), index.data_ptr(), b, n, nv, d, k, plan["kmax"],
+            plan["q_tile"], plan["rows_per_split"], plan["splits"],
+            plan["smem"], part_v.data_ptr(), part_i.data_ptr(),
+            out_v.data_ptr(), out_i.data_ptr(), _stream()), "mips_scan_mma")
+        return out_v, out_i
     _require(d * index.element_size() % 64 == 0,
              f"row bytes {d * index.element_size()} must be a multiple of 64")
     for t in (q, index, q_scale, d_scale):
         _require(t is None or t.is_contiguous(), "inputs must be contiguous")
-    lib = _build.load("mips_scan")
-    _require(lib.mips_scan_smem_bytes(w) <= SMEM_LIMIT,
+    _require(plan["smem"] <= SMEM_LIMIT,
              f"D={d} needs more shared memory than a block has")
-    kmax = _kmax(k)
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    q_tiles = -(-b // 64)
-    rows_per_split = max(128, -(-n // max(1, (4 * sms) // q_tiles)))
-    rows_per_split = -(-rows_per_split // 128) * 128
-    n_splits = -(-n // rows_per_split)
-    part_v = torch.empty((b, n_splits, kmax), dtype=torch.float32,
-                         device=q.device)
-    part_i = torch.empty((b, n_splits, kmax), dtype=torch.int32,
-                         device=q.device)
-    out_v = torch.empty((b, k), dtype=torch.float32, device=q.device)
-    out_i = torch.empty((b, k), dtype=torch.int32, device=q.device)
+    lib = _build.load("mips_scan")
     _build.check(lib.mips_scan_topk(
         q.data_ptr(), None if q_scale is None else q_scale.data_ptr(),
         index.data_ptr(), None if d_scale is None else d_scale.data_ptr(),
-        dtype_code, b, n, n if n_valid is None else n_valid, w, n_splits,
-        rows_per_split, k, kmax, part_v.data_ptr(), part_i.data_ptr(),
-        out_v.data_ptr(), out_i.data_ptr(), _stream()), "mips_scan_topk")
+        dtype_code, b, n, nv, w, plan["splits"], plan["rows_per_split"], k,
+        plan["kmax"], part_v.data_ptr(), part_i.data_ptr(), out_v.data_ptr(),
+        out_i.data_ptr(), _stream()), "mips_scan_topk")
     return out_v, out_i
 
 
@@ -204,7 +270,10 @@ def mips_scan_int8(q_int8, q_scale, index, d_scale, k: int,
 
 
 def mips_scan(queries, index, k: int, n_valid: Optional[int] = None):
-    """Kernel 2: exact bf16/fp32 MIPS top-k (k < 8), fp32 accumulation."""
+    """Kernel 2: exact bf16/fp32 MIPS top-k (k <= 8), fp32 accumulation.
+    Routed as ``scan_plan`` says: bf16 (widths a multiple of 64) on the
+    tensor cores, whose scores are the kept rows rescored in fp32; the
+    rest on SIMT."""
     if not _on_cuda(queries, index):
         return mips_scan_plain(queries, index, k, n_valid)
     _require(index.dtype in _FLOAT_CODES,
@@ -249,11 +318,6 @@ def chunk_max_plain(q, rows, chunk_rows: int, n_valid: Optional[int] = None,
     return torch.cat(outs, dim=1)
 
 
-# kernel 6's tensor-core template (csrc/chunk_max_mma.cu): index rows a
-# tile, bf16 columns a pipeline stage, stages, and the widest query tile
-_MMA_ROWS, _MMA_KS, _MMA_STAGES, _MMA_QMAX = 128, 64, 4, 256
-
-
 def simt_chunk_max_plan(b: int, n: int, row_bytes: int, chunk_rows: int,
                         sms: int = 132) -> dict:
     """Launch plan of the SIMT chunk-max template (csrc/two_phase.cu; kernels
@@ -272,24 +336,35 @@ def simt_chunk_max_plan(b: int, n: int, row_bytes: int, chunk_rows: int,
 
 def chunk_max_plan(b: int, n: int, d: int, chunk_rows: int, dtype,
                    sms: int = 132) -> dict:
-    """Route and launch plan of kernel 6.  bf16 rows of a width that is a
-    multiple of 64 take the tensor-core template: one block a chunk, all
-    queries of a query tile (at most 256, a multiple of 32, zero rows past
-    B) as the mma's N side, ``smem`` = 4 stages of (128 index rows + the
-    query tile) x 72 bf16, plus the row-warp maxima.  fp32 rows (a
-    tensor-core product of fp32 would be TF32) and narrower bf16 rows take
-    the SIMT template.  The C entry point checks ``q_tile`` and ``smem``
-    against its own count."""
+    """Route and launch plan of kernels 6 and 3.  bf16 rows of a width that
+    is a multiple of 64 take a tensor-core template, with all queries of a
+    query tile (at most 256, a multiple of 32, zero rows past B) as the
+    mma's N side.  Where the query tile fits beside the ring
+    (``q_resident``) the resident template keeps it in shared memory and
+    walks ``per_block`` consecutive chunks a block, about one block an SM:
+    ``smem`` = 4 stages of 128 index rows x 72 bf16 + the tile x (d + 8)
+    bf16.  Otherwise (kernel 6 at D=768, B > 96) one block a chunk streams
+    the query tile with the index rows: ``smem`` = 4 stages of (128 index
+    rows + the query tile) x 72 bf16.  Both add the row-warp maxima.  fp32
+    rows (a tensor-core product of fp32 would be TF32) and narrower bf16
+    rows take the SIMT template.  The C entry point checks ``q_tile`` and
+    ``smem`` against its own count."""
     if dtype != torch.bfloat16 or d % _MMA_KS:
         return simt_chunk_max_plan(
             b, n, d * (2 if dtype == torch.bfloat16 else 4), chunk_rows, sms)
     q_tiles = -(-b // _MMA_QMAX)
     q_tile = -(-(-(-b // q_tiles)) // 32) * 32
     q_tiles = -(-b // q_tile)
-    smem = (_MMA_STAGES * (_MMA_ROWS + q_tile) * (_MMA_KS + 8) * 2
-            + 2 * q_tile * 4)
+    num_chunks = n // chunk_rows
+    ring = _MMA_STAGES * _MMA_ROWS * (_MMA_KS + 8) * 2
+    smem = ring + q_tile * (d + 8) * 2 + 2 * q_tile * 4
+    resident = smem <= SMEM_LIMIT
+    per_block = -(-num_chunks // max(1, sms // q_tiles)) if resident else 1
+    if not resident:
+        smem = ring + _MMA_STAGES * q_tile * (_MMA_KS + 8) * 2 + 2 * q_tile * 4
     return dict(route="mma", block=256, q_tile=q_tile, q_pad=q_tile * q_tiles,
-                grid=(n // chunk_rows, q_tiles, 1), smem=smem)
+                per_block=per_block, q_resident=resident,
+                grid=(-(-num_chunks // per_block), q_tiles, 1), smem=smem)
 
 
 def _check_chunks(n: int, chunk_rows: int) -> None:
@@ -309,8 +384,7 @@ def _launch_chunk_max(code, q, rows, d_scale, chunk_rows, n_valid):
     _check_chunks(n, chunk_rows)
     for t in (q, rows, d_scale):
         _require(t is None or t.is_contiguous(), "inputs must be contiguous")
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    plan = simt_chunk_max_plan(b, n, row_bytes, chunk_rows, sms)
+    plan = simt_chunk_max_plan(b, n, row_bytes, chunk_rows, _sms(q.device))
     out = torch.empty((b, n // chunk_rows), dtype=torch.float32,
                       device=q.device)
     lib = _build.load("two_phase")
@@ -337,8 +411,20 @@ def _launch_chunk_max_mma(q, rows, chunk_rows, n_valid, plan):
     _build.check(lib.chunk_max_mma(
         q.data_ptr(), rows.data_ptr(), b, n,
         n if n_valid is None else n_valid, d, chunk_rows, plan["q_tile"],
-        plan["smem"], out.data_ptr(), _stream()), "chunk_max_mma")
+        plan["smem"], plan["per_block"], int(plan["q_resident"]),
+        out.data_ptr(), _stream()), "chunk_max_mma")
     return out
+
+
+def _routed_chunk_max(q, rows, chunk_rows, n_valid):
+    """Kernels 3 and 6 over bf16/fp32 rows, on the template that
+    ``chunk_max_plan`` picks."""
+    plan = chunk_max_plan(q.shape[0], *rows.shape, chunk_rows, rows.dtype,
+                          _sms(q.device))
+    if plan["route"] == "mma":
+        return _launch_chunk_max_mma(q, rows, chunk_rows, n_valid, plan)
+    return _launch_chunk_max(_FLOAT_CODES[rows.dtype], q, rows, None,
+                             chunk_rows, n_valid)
 
 
 def chunk_max(q, index, chunk_rows: int, n_valid: Optional[int] = None):
@@ -350,13 +436,8 @@ def chunk_max(q, index, chunk_rows: int, n_valid: Optional[int] = None):
         return chunk_max_plain(q, index, chunk_rows, n_valid)
     _require(index.dtype in _FLOAT_CODES,
              f"unsupported index dtype {index.dtype}")
-    qc = q.to(index.dtype).contiguous()
-    plan = chunk_max_plan(qc.shape[0], *index.shape, chunk_rows, index.dtype)
-    if plan["route"] == "mma":
-        out = _launch_chunk_max_mma(qc, index, chunk_rows, n_valid, plan)
-    else:
-        out = _launch_chunk_max(_FLOAT_CODES[index.dtype], qc, index, None,
-                                chunk_rows, n_valid)
+    out = _routed_chunk_max(q.to(index.dtype).contiguous(), index, chunk_rows,
+                            n_valid)
     LAUNCHES["chunk_max"] += 1
     return out
 
@@ -547,14 +628,16 @@ def mips_topk(index, queries, k: int, *, chunk_rows: int = 4096,
 
 
 def pca_chunk_max(qp, proj, cand_rows: int, n_valid: Optional[int] = None):
-    """Kernel 3: PCA phase 1 chunk maxima, (B, num_cand) fp32."""
+    """Kernel 3: PCA phase 1 chunk maxima, (B, num_cand) fp32.  Routed as
+    ``chunk_max_plan`` says: widths a multiple of 64 on the tensor cores,
+    the other multiples of 32 on SIMT."""
     if not _on_cuda(qp, proj):
         return chunk_max_plain(qp, proj, cand_rows, n_valid)
     _require(qp.dtype == proj.dtype == torch.bfloat16, "bf16 inputs expected")
     _require(qp.shape[1] % 32 == 0,
              f"projection width {qp.shape[1]} must be a multiple of 32")
-    out = _launch_chunk_max(1, qp.contiguous(), proj.contiguous(), None,
-                            cand_rows, n_valid)
+    out = _routed_chunk_max(qp.contiguous(), proj.contiguous(), cand_rows,
+                            n_valid)
     LAUNCHES["pca_chunk_max"] += 1
     return out
 

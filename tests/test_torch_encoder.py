@@ -96,6 +96,27 @@ def test_encode_seq_matches_jax(dtype, scores, roberta, cls_only):
     _close(got, exp, dtype)
 
 
+@pytest.mark.parametrize("dtype,scores", [("float32", "float32"),
+                                          ("bfloat16", "bfloat16")])
+@pytest.mark.parametrize("cls_only", [False, True])
+def test_flash_attention_impl_matches_jax(dtype, scores, cls_only):
+    """attention_impl="flash": the JAX encoder takes its stock TPU kernel only
+    on a TPU, and its xla path elsewhere; the port runs the xla path on
+    every device.  Same weights (converted), same tolerances as above."""
+    kw = dict(_cfg_kwargs(dtype, scores, True), attention_impl="flash")
+    jmodel, params = _jax_model(kw, seed=9)
+    cfg = EncoderConfig.tiny(**kw)
+    ids, mask, tt = _inputs(np.random.RandomState(13), 5, 24,
+                            cfg.pad_token_id, True)
+    exp = _jax_encode(jmodel, params, ids, mask, tt)
+    model = MhopRetriever(cfg, cls_only=cls_only)
+    model.load_state_dict(retriever_state_dict_from_jax(
+        jax.device_get(params)))
+    got = _torch_encode(model, ids, mask, tt)
+    assert got.dtype == np.float32 and got.shape == exp.shape
+    _close(got, exp, dtype)
+
+
 def test_cls_only_is_bit_identical_to_full_last_layer():
     kw = _cfg_kwargs("float32", "float32", True)
     _, params = _jax_model(kw, seed=5)

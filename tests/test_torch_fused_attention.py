@@ -210,5 +210,5 @@ def test_fused_encoder_on_cpu_launches_nothing():
 
 
 def test_unported_attention_impl_raises():
-    with pytest.raises(NotImplementedError, match="flash"):
-        TransformerEncoder(EncoderConfig.tiny(attention_impl="flash"))
+    with pytest.raises(NotImplementedError, match="sdpa"):
+        TransformerEncoder(EncoderConfig.tiny(attention_impl="sdpa"))

@@ -1,8 +1,9 @@
-"""Launch plans of kernels 6 and 8, on the CPU.
+"""Launch plans of kernels 2, 3, 6 and 8, on the CPU.
 
 Each wrapper decides its template (tensor cores, one warp a row, or SIMT),
 grid, padding and dynamic shared memory in a plain Python function
-(``mips.chunk_max_plan``, ``fused_attention.attention_plan``), and the C
+(``mips.scan_plan``, ``mips.chunk_max_plan``,
+``fused_attention.attention_plan``), and the C
 entry point refuses a plan that disagrees with its own count.  These tests
 walk every shape the wrappers accept, so that a plan the card would refuse
 (too much shared memory, a grid dimension too large, a misaligned stage)
@@ -37,6 +38,12 @@ def _constexpr(source: str, name: str) -> int:
 
 
 @pytest.mark.parametrize("source,name,value", [
+    ("mips_scan_mma.cu", "MT", mips._MMA_ROWS),
+    ("mips_scan_mma.cu", "KS", mips._MMA_KS),
+    ("mips_scan_mma.cu", "STAGES", mips._MMA_STAGES),
+    ("mips_scan_mma.cu", "QN_K2", mips._SCAN_QMAX[2]),
+    ("mips_scan_mma.cu", "QN_K4", mips._SCAN_QMAX[4]),
+    ("mips_scan_mma.cu", "QN_K8", mips._SCAN_QMAX[8]),
     ("chunk_max_mma.cu", "MT", mips._MMA_ROWS),
     ("chunk_max_mma.cu", "KS", mips._MMA_KS),
     ("chunk_max_mma.cu", "STAGES", mips._MMA_STAGES),
@@ -122,7 +129,86 @@ def test_attention_mma_plan_at_the_widest_shapes():
     assert corpus["warps"] == 8 and corpus["grid"] == (3, 12, 256)
 
 
-# ---- kernel 6 ---------------------------------------------------------------
+# ---- kernel 2 ---------------------------------------------------------------
+
+
+def _check_splits(plan, n, want):
+    """The splits cover the n rows in whole 128-row tiles, none empty, the
+    longest as short as `want` splits allow, and at most `want` of them."""
+    rows, splits = plan["rows_per_split"], plan["splits"]
+    assert rows % 128 == 0 and splits * rows >= n > (splits - 1) * rows
+    tiles = -(-n // 128)
+    assert rows == 128 * -(-tiles // max(1, want))
+    assert splits <= max(1, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [64, 128, 768, 1024])
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+def test_scan_plan_fits_every_batch(k, d, dtype):
+    """B from 1 to 512 over 1M rows: bf16 rows take the tensor-core plan
+    (query tiles of 32 up to the widest for the list length, as few tiles
+    as that allows, each padded by fewer than 32 zero rows; one wave of
+    blocks at one block an SM); fp32 rows take the SIMT plan (64-query
+    tiles, about 4 blocks an SM).  Shared memory fits a block, except the
+    SIMT plan at fp32 D = 1024, which the wrapper refuses."""
+    n, sms = 1 << 20, 132
+    kmax = mips._kmax(k)
+    for b in range(1, 513):
+        plan = mips.scan_plan(b, n, d, dtype, k, sms)
+        assert plan["kmax"] == kmax
+        assert plan["grid"][0] < 2 ** 31 and plan["grid"][1] <= GRID_YZ
+        if dtype == torch.float32:
+            assert plan["route"] == "simt" and plan["q_tile"] == 64
+            tiles = -(-b // 64)
+            assert plan["grid"] == (tiles, plan["splits"], 1)
+            _check_splits(plan, n, 4 * sms // tiles)
+            assert plan["smem"] == 4 * (64 * (d + 4) + 128 * 20)
+            assert (plan["smem"] <= SMEM_LIMIT) == (d < 1024)
+            continue
+        qmax = mips._SCAN_QMAX[kmax]
+        tiles = plan["grid"][1]
+        assert plan["route"] == "mma"
+        assert plan["q_tile"] % 32 == 0 and 32 <= plan["q_tile"] <= qmax
+        assert tiles == -(-b // qmax)
+        assert plan["q_pad"] == plan["q_tile"] * tiles
+        assert b <= plan["q_pad"] < b + 32 * tiles
+        assert plan["grid"] == (plan["splits"], tiles, 1)
+        _check_splits(plan, n, sms // tiles)
+        assert plan["splits"] * tiles <= sms
+        assert plan["smem"] == (4 * (128 + plan["q_tile"]) * 72 * 2
+                                + 2 * plan["q_tile"] * kmax * 8)
+        assert plan["smem"] <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("d,dtype,route", [
+    (768, torch.bfloat16, "mma"), (64, torch.bfloat16, "mma"),
+    (96, torch.bfloat16, "simt"), (32, torch.bfloat16, "simt"),
+    (768, torch.float32, "simt"), (768, torch.int8, "simt")])
+def test_scan_routes_by_dtype_and_width(d, dtype, route):
+    """bf16 rows of a width that is not a multiple of the 64-column stage,
+    fp32 rows (TF32 on the tensor cores) and int8 rows (kernel 1) stay on
+    the SIMT template."""
+    assert mips.scan_plan(100, 1 << 16, d, dtype, 2)["route"] == route
+
+
+def test_scan_plan_at_the_path_shapes():
+    """The record shape (B = 192, N = 1M, k = 1): one 192-wide query tile,
+    131 splits of 63 tiles; the FEVER CLI's hop 1 (B = 100 over 262,144
+    rows, k = 2): one 128-wide tile, 128 splits of 16 tiles; k = 8 narrows
+    the tile to 64."""
+    rec = mips.scan_plan(192, 1 << 20, 768, torch.bfloat16, 1)
+    assert rec["q_tile"] == 192 and rec["grid"] == (131, 1, 1)
+    assert rec["rows_per_split"] == 63 * 128
+    assert rec["smem"] == 4 * 320 * 144 + 2 * 192 * 8 == 187392
+    fever = mips.scan_plan(100, 1 << 18, 768, torch.bfloat16, 2)
+    assert fever["q_tile"] == 128 and fever["grid"] == (128, 1, 1)
+    assert fever["kmax"] == 2 and fever["rows_per_split"] == 2048
+    wide = mips.scan_plan(192, 1 << 20, 768, torch.bfloat16, 8)
+    assert wide["q_tile"] == 64 and wide["grid"] == (44, 3, 1)
+
+
+# ---- kernels 6 and 3 ----------------------------------------------------------
 
 
 @pytest.mark.parametrize("chunk_rows", [512, 2048, 8192])
@@ -142,6 +228,16 @@ def test_chunk_max_plan_fits_every_batch(chunk_rows):
         assert b <= plan["q_pad"] < b + 32 * tiles
         assert plan["grid"] == (n // chunk_rows, tiles, 1)
         assert plan["smem"] <= SMEM_LIMIT
+        # the query tile stays resident where it fits beside the ring (at
+        # D = 768 up to 96 queries)
+        resident = 4 * 128 * 72 * 2 + plan["q_tile"] * 776 * 2 \
+            + 2 * plan["q_tile"] * 4
+        assert plan["q_resident"] == (resident <= SMEM_LIMIT)
+        assert plan["q_resident"] == (plan["q_tile"] <= 96)
+        if plan["q_resident"]:
+            assert plan["smem"] == resident
+        else:        # the streamed template: one block a chunk
+            assert plan["per_block"] == 1
         for d in (64, 768):
             simt = mips.chunk_max_plan(b, n, d, chunk_rows, torch.float32)
             assert simt["route"] == "simt" and simt["q_tile"] == 64
@@ -153,13 +249,54 @@ def test_chunk_max_plan_fits_every_batch(chunk_rows):
 
 def test_chunk_max_plan_at_the_fever_shape():
     """B = 200 (hop 2 of batch 100 x beam 2): one 224-wide query tile, one
-    block a 2048-row chunk of the 262,144-row index."""
+    block a 2048-row chunk of the 262,144-row index, the queries streamed;
+    also over 1M rows (512 chunks, one a block)."""
     plan = mips.chunk_max_plan(200, 1 << 18, 768, 2048, torch.bfloat16)
     assert plan["q_tile"] == 224 and plan["grid"] == (128, 1, 1)
+    assert plan["per_block"] == 1 and not plan["q_resident"]
+    assert mips.chunk_max_plan(200, 1 << 20, 768, 2048, torch.bfloat16
+                               )["grid"] == (512, 1, 1)
     assert plan["smem"] == 4 * (128 + 224) * 72 * 2 + 2 * 224 * 4
     # the widest query tile still fits a block
     assert mips.chunk_max_plan(256, 1 << 18, 768, 2048,
                                torch.bfloat16)["smem"] == 223232
+
+
+@pytest.mark.parametrize("r", [64, 96, 128, 256])
+def test_pca_chunk_max_plan_fits_every_batch(r):
+    """Kernel 3 over a 1M-row projection in 512-row chunks, B from 1 to
+    512: widths that are a multiple of 64 take the tensor-core plan with
+    the query tile resident in shared memory (it fits up to R = 256 at the
+    widest tile) and consecutive chunks a block, one wave at one block an
+    SM, every chunk covered once; R = 96 takes the SIMT plan."""
+    n, chunk, sms = 1 << 20, 512, 132
+    for b in range(1, 513):
+        plan = mips.chunk_max_plan(b, n, r, chunk, torch.bfloat16, sms)
+        if r % 64:
+            assert plan["route"] == "simt" and plan["q_tile"] == 64
+            continue
+        tiles = plan["grid"][1]
+        assert plan["route"] == "mma" and plan["q_resident"]
+        assert tiles == -(-b // 256)
+        per = plan["per_block"]
+        assert per == -(-(n // chunk) // (sms // tiles))
+        assert plan["grid"][0] * per >= n // chunk > (plan["grid"][0] - 1) * per
+        assert plan["grid"][0] * tiles <= sms
+        assert plan["smem"] == (4 * 128 * 72 * 2 + plan["q_tile"] * (r + 8) * 2
+                                + 2 * plan["q_tile"] * 4) <= SMEM_LIMIT
+
+
+def test_pca_chunk_max_plan_at_the_path_shapes():
+    """The record shape (B = 192, N = 1M, R = 128, 512-row chunks): 16
+    chunks a block, 128 blocks, the 192 x 136 bf16 query tile resident;
+    leg c2's hop 2 (B = 200 over 262,144 rows): a 224-wide tile, 4 chunks
+    a block."""
+    rec = mips.chunk_max_plan(192, 1 << 20, 128, 512, torch.bfloat16)
+    assert rec["per_block"] == 16 and rec["grid"] == (128, 1, 1)
+    assert rec["q_resident"] and rec["smem"] == 73728 + 52224 + 1536
+    c2 = mips.chunk_max_plan(200, 1 << 18, 128, 512, torch.bfloat16)
+    assert c2["q_tile"] == 224 and c2["per_block"] == 4
+    assert c2["grid"] == (128, 1, 1)
 
 
 @pytest.mark.parametrize("d,route", [(768, "mma"), (64, "mma"), (96, "simt"),
@@ -204,6 +341,7 @@ def fake_card(monkeypatch):
     for mod in (mips, fa):
         monkeypatch.setattr(mod, "_on_cuda", lambda *t: True)
         monkeypatch.setattr(mod, "_stream", lambda: 0)
+    monkeypatch.setattr(mips, "_sms", lambda device: 132)
     monkeypatch.setattr(_build, "load", lambda name: lib)
     mips.reset_launch_counts()
     yield lib
@@ -238,3 +376,54 @@ def test_chunk_max_routes_bf16_to_the_tensor_cores(fake_card):
     assert args[2:9] == (200, 8192, 7000, 768, 2048, plan["q_tile"],
                          plan["smem"])
     assert mips.LAUNCHES["chunk_max"] == 1
+
+
+def test_pca_chunk_max_routes_to_the_tensor_cores(fake_card):
+    qp = torch.zeros(200, 128, dtype=torch.bfloat16)
+    proj = torch.zeros(8192, 128, dtype=torch.bfloat16)
+    mips.pca_chunk_max(qp, proj, 512, 8000)
+    plan = mips.chunk_max_plan(200, 8192, 128, 512, torch.bfloat16)
+    (fn, args), = fake_card.calls
+    assert fn == "chunk_max_mma"
+    assert args[2:11] == (200, 8192, 8000, 128, 512, plan["q_tile"],
+                          plan["smem"], plan["per_block"], 1)
+    assert mips.LAUNCHES["pca_chunk_max"] == 1
+
+
+def test_pca_chunk_max_keeps_narrow_widths_on_simt(fake_card):
+    qp = torch.zeros(3, 96, dtype=torch.bfloat16)
+    mips.pca_chunk_max(qp, torch.zeros(1024, 96, dtype=torch.bfloat16), 512)
+    (fn, args), = fake_card.calls
+    assert fn == "chunk_max" and args[0] == 1
+    assert mips.LAUNCHES["pca_chunk_max"] == 1
+
+
+@pytest.mark.parametrize("k", [1, 2, 8])
+def test_mips_scan_routes_bf16_to_the_tensor_cores(fake_card, k):
+    q = torch.zeros(100, 768)
+    index = torch.zeros(8192, 768, dtype=torch.bfloat16)
+    out = mips.mips_scan(q, index, k, 8000)
+    plan = mips.scan_plan(100, 8192, 768, torch.bfloat16, k)
+    (fn, args), = fake_card.calls
+    assert fn == "mips_scan_mma"
+    assert args[2:12] == (100, 8192, 8000, 768, k, plan["kmax"],
+                          plan["q_tile"], plan["rows_per_split"],
+                          plan["splits"], plan["smem"])
+    assert [tuple(t.shape) for t in out] == [(100, k), (100, k)]
+    assert mips.LAUNCHES["mips_scan"] == 1
+
+
+def test_mips_scan_keeps_fp32_on_simt(fake_card):
+    q = torch.zeros(70, 128)
+    mips.mips_scan(q, torch.zeros(4096, 128), 3)
+    plan = mips.scan_plan(70, 4096, 128, torch.float32, 3)
+    (fn, args), = fake_card.calls
+    assert fn == "mips_scan_topk" and args[4] == 2
+    assert args[9:13] == (plan["splits"], plan["rows_per_split"], 3, 4)
+    assert mips.LAUNCHES["mips_scan"] == 1
+
+
+def test_mips_scan_refuses_fp32_rows_too_wide_for_a_block(fake_card):
+    with pytest.raises(ValueError, match="shared memory"):
+        mips.mips_scan(torch.zeros(4, 1024), torch.zeros(512, 1024), 1)
+    assert not fake_card.calls and mips.LAUNCHES["mips_scan"] == 0

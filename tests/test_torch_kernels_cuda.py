@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at edge shapes the serving path does not reach (ragged query tiles, every
-k, masked tails, fp32 rows, one chunk, k = the number of chunks).  These
+k, masked tails, fp32 rows, one chunk, k = the number of chunks, exact
+ties across the tensor-core templates' lanes, warps and splits).  These
 need a GPU and skip without one; run them there with
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
@@ -67,6 +68,102 @@ def test_float_scan_matches_plain(dev, dtype, b, n, k):
     assert torch.equal(kv, pv) and torch.equal(ki, pi)
 
 
+# kernel 2 on the tensor cores: 20,480 rows make 80 splits of 256 rows
+# (two 128-row tiles each) at any query tile; copies of the best row sit in
+# another lane (3, 4), the same thread's other half (11), the other row
+# warp (70), the next tile (131), the next split (261), far on (5000) and
+# at the last valid row; one more past n_valid must never enter
+_TIE_ROWS = (3, 4, 11, 70, 131, 261, 5000)
+
+
+@pytest.mark.parametrize("k", range(1, 9))
+@pytest.mark.parametrize("b", [1, 33, 100, 192, 257])
+def test_bf16_scan_on_the_tensor_cores_matches_plain(dev, b, k):
+    """Kernel 2's tensor-core template against its plain version, bit for
+    bit: queries of 0..8 and rows of -8..8 (every product and sum an exact
+    integer, whatever the order), and a best row of 8s planted at
+    _TIE_ROWS, at the last valid row and past it, so that the top ranks
+    are exact ties that must come back in row order across lanes, warps,
+    tiles and splits; n_valid cuts inside a row tile and a split; B off
+    the query tiles (33, 100, 257) and k at every list length."""
+    g = _gen(dev, 100 * b + k)
+    n, d, n_valid = 20480, 128, 20000
+    assert mips.scan_plan(b, n, d, torch.bfloat16, k)["route"] == "mma"
+    idx = torch.randint(-8, 9, (n, d), device=dev, generator=g).to(
+        torch.bfloat16)
+    idx[list(_TIE_ROWS) + [n_valid - 1, n_valid]] = 8
+    q = torch.randint(0, 9, (b, d), device=dev, generator=g).float()
+    mips.reset_launch_counts()
+    kv, ki = mips.mips_scan(q, idx, k, n_valid)
+    pv, pi = mips.mips_scan_plain(q, idx, k, n_valid)
+    torch.cuda.synchronize()
+    assert mips.LAUNCHES["mips_scan"] == 1
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+    # 8 * sum(q) is every query's best score, reached only by the copies
+    want = list(_TIE_ROWS) + [n_valid - 1]
+    assert ki.tolist() == [want[:k]] * b
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+def test_bf16_scan_with_fewer_valid_rows_than_k(dev, k):
+    """Two valid rows: the tensor-core scan returns them, then (NEG_INF, 0)
+    fillers, as the plain version and the JAX merge do."""
+    g = _gen(dev, k)
+    idx = torch.randint(-8, 9, (1024, 64), device=dev, generator=g).to(
+        torch.bfloat16)
+    q = torch.randint(-8, 9, (40, 64), device=dev, generator=g).float()
+    kv, ki = mips.mips_scan(q, idx, k, 2)
+    pv, pi = mips.mips_scan_plain(q, idx, k, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+    assert bool((ki[:, 2:] == 0).all()) and bool((kv[:, 2:] == -3.0e38).all())
+
+
+@pytest.mark.parametrize("b,n,k", [(192, 65536, 1), (100, 1 << 18, 2),
+                                   (64, 20000, 8)])
+def test_bf16_scan_values_within_rtol(dev, b, n, k):
+    """N(0, 1) data at D = 768 (the paths' width): the tensor-core scan
+    chooses rows by its own sums and returns them rescored in fp32, so
+    values are within rtol 1e-5 of the plain scan's (fp32 sums in another
+    order) and ids equal apart from near-ties within that tolerance."""
+    g = _gen(dev, n + k)
+    idx = torch.randn(n, 768, device=dev, generator=g).to(torch.bfloat16)
+    q = torch.randn(b, 768, device=dev, generator=g)
+    kv, ki = mips.mips_scan(q, idx, k, n - 5)
+    pv, pi = mips.mips_scan_plain(q, idx, k, n - 5)
+    torch.cuda.synchronize()
+    tol = 1e-5 * pv.abs()
+    assert bool(((kv - pv).abs() <= tol).all())
+    alt = (q.to(torch.bfloat16).float()[:, None, :]
+           * idx[ki.long()].float()).sum(-1)
+    assert bool(((ki == pi) | ((alt - pv).abs() <= tol)).all())
+
+
+@pytest.mark.parametrize("r", [64, 96, 128, 256])
+@pytest.mark.parametrize("b", [7, 200, 300])
+def test_pca_chunk_max_on_each_route_matches_plain(dev, b, r):
+    """Kernel 3 at R = 64, 128, 256 (tensor cores, query tile resident,
+    2-4 of the 256 chunks a block) and R = 96 (SIMT), bit for bit on small
+    integers, with n_valid inside a chunk and a last chunk that has no
+    valid row (NEG_INF)."""
+    g = _gen(dev, b + r)
+    n, cand = 1 << 17, 512
+    n_valid = n - cand - 100
+    plan = mips.chunk_max_plan(b, n, r, cand, torch.bfloat16, mips._sms(dev))
+    assert plan["route"] == "simt" or plan["per_block"] > 1
+    proj = torch.randint(-8, 9, (n, r), device=dev, generator=g).to(
+        torch.bfloat16)
+    qp = torch.randint(-8, 9, (b, r), device=dev, generator=g).to(
+        torch.bfloat16)
+    mips.reset_launch_counts()
+    got = mips.pca_chunk_max(qp, proj, cand, n_valid)
+    exp = mips.chunk_max_plain(qp, proj, cand, n_valid)
+    torch.cuda.synchronize()
+    assert mips.LAUNCHES["pca_chunk_max"] == 1
+    assert torch.equal(got, exp)
+    assert bool((got[:, -1] == -3.0e38).all())
+
+
 @pytest.mark.parametrize("b,n,r,n_valid", [(3, 1024, 32, None),
                                            (70, 8192, 128, 8000)])
 def test_pca_chunk_max_matches_plain(dev, b, n, r, n_valid):
@@ -112,12 +209,15 @@ DTYPES = [torch.int8, torch.bfloat16, torch.float32]
 @pytest.mark.parametrize("b,n,chunk,n_valid,d", [
     (1, 2048, 2048, None, 64), (7, 4096, 512, 3000, 64),
     (8, 3072, 1024, 1100, 768), (70, 8192, 512, 8000, 64),
-    (200, 16384, 2048, 14000, 768), (257, 8192, 2048, 5000, 64)])
+    (200, 16384, 2048, 14000, 768), (257, 8192, 2048, 5000, 64),
+    (70, 1 << 17, 512, (1 << 17) - 700, 64)])
 def test_chunk_max_matches_plain(dev, dtype, b, n, chunk, n_valid, d):
     """Kernels 6 and 7: one chunk, ragged query tiles (bf16 rows: query
     tiles of 32 to 256, two tiles at B=257), D = 768 (24 pipeline stages a
     row tile), n_valid cutting inside a chunk with whole chunks after it
-    that hold no valid row (NEG_INF)."""
+    that hold no valid row (NEG_INF); bf16 rows take the resident template
+    where the query tile fits (two of 256 chunks a block in the last case)
+    and the streamed one at B=200, D=768."""
     g = _gen(dev, b + n)
     idx = _rows(dev, g, n, d, dtype)
     q = _rows(dev, g, b, d, dtype)
