@@ -4,10 +4,11 @@ encoding paths on one GPU.  Run from the repository root:  python3 chip_smoke.py
 Phases (each prints a line and flushes; any failure exits non-zero):
   1. build   — nvcc compiles every kernel from ops/csrc (one process each).
   2. kernels — each of the eight kernels against its plain PyTorch version
-               at its path's shapes (bf16 kernels 2, 3, 6 and 8 on their
-               tensor-core templates, which each record names and must
-               have taken): kernels 1-4 at B=192, D=768,
-               N=1,048,576, R=128, kc=8 (kernel 2 also at the FEVER
+               at its path's shapes (kernels 1, 2, 3, 6, 7 and 8 on their
+               tensor-core templates, int8 for 1 and 7, which each record
+               names and must have taken): kernels 1-4 at B=192, D=768,
+               N=1,048,576, R=128, kc=8 (kernel 1 at k = 1, 2 and 4;
+               kernel 2 also at the FEVER
                CLI's hop 1, B=100 over 262,144 rows, k=2, and kernel 3 at
                its hop 2, B=200 over 262,144 rows); kernel 7 at B=384, 2048-row
                chunks of that int8 index; kernels 6 and 5 at B=200 over a
@@ -26,9 +27,9 @@ Phases (each prints a line and flushes; any failure exits non-zero):
                random weights; the questions' or claims' own vectors are
                planted as index rows, and hop 1 must return them.  Each
                path's launch counts are zeroed just before it and read
-               just after it, and each must launch its kernels; kernels 2
-               and 3 must have taken their tensor-core templates on every
-               path that launches them (a, b, c1, c2, f).
+               just after it, and each must launch its kernels; kernels 1,
+               2, 3 and 7 must have taken their tensor-core templates on
+               every path that launches them (a, b, c1, c2, d, f).
                a. int8: a 1,048,576-row int8 DenseIndex with a PCA
                   prefilter (R=128, 512-row chunks) and a 300-wide token
                   store; BeamSearcher at beam 1 / batch 192 / bf16 scores
@@ -137,12 +138,12 @@ def bound_ms(n_bytes, n_ops, kind):
 
 # the templates the planned wrappers took since the launch counts were last
 # reset: while such a wrapper runs, its plan function is wrapped to note
-# the route it returns (track_routes); kernels 4, 5 and 7 have one template
+# the route it returns (track_routes); kernels 4 and 5 have one template
 ROUTES = {}
 PLANNED = (("mips_scan_int8", "scan_plan"), ("mips_scan", "scan_plan"),
-           ("chunk_max", "chunk_max_plan"), ("pca_chunk_max", "chunk_max_plan"))
-FIXED_TEMPLATE = {"pca_rescan_int8": "simt", "rescan": "simt",
-                  "chunk_max_int8": "simt"}
+           ("chunk_max", "chunk_max_plan"), ("pca_chunk_max", "chunk_max_plan"),
+           ("chunk_max_int8", "chunk_max_plan"))
+FIXED_TEMPLATE = {"pca_rescan_int8": "simt", "rescan": "simt"}
 
 
 def track_routes(mips, fa):
@@ -213,7 +214,8 @@ def check_kernels(mips, dev, gen):
     q32 = torch.randn(B, D, device=dev, generator=gen)
     n_valid = N - 1000
 
-    # kernel 1: int8 scan + top-1 (and a k=4 case for the merge)
+    # kernel 1: int8 scan + top-1 (leg a's hop 1, the record), top-2 (leg
+    # d's) and a k=4 case for the merge
     idx8 = torch.randint(-127, 128, (N, D), device=dev, generator=gen,
                          dtype=torch.int8)
     dsc = torch.rand(N, device=dev, generator=gen) * 0.02 + 1e-3
@@ -221,28 +223,35 @@ def check_kernels(mips, dev, gen):
     dsc[777] = dsc[5]
     qi, qs = mips.quantize_rows(q32)
     ROUTES.clear()
-    for k in (1, 4):
+    for k in (1, 2, 4):
         kv, ki = mips.mips_scan_int8(qi, qs, idx8, dsc, k, n_valid)
         pv, pi = mips.mips_scan_int8_plain(qi, qs, idx8, dsc, k, n_valid)
         torch.cuda.synchronize()
         assert torch.equal(kv, pv) and torch.equal(ki, pi), \
             f"kernel 1 (k={k}) disagrees with its plain version"
     tmpl = template("mips_scan_int8")
+    assert tmpl == "mma", f"kernel 1 took the {tmpl} template"
     ms = cuda_ms(lambda: mips.mips_scan_int8(qi, qs, idx8, dsc, 1, n_valid), 20)
     plain = cuda_ms(
         lambda: mips.mips_scan_int8_plain(qi, qs, idx8, dsc, 1, n_valid), 2)
     lib = _library(lambda: torch.topk(
         torch._int_mm(qi, idx8.t()).float() * qs[:, None] * dsc[None, :], 1))
     bnd = bound_ms(N * D + N * 4 + B * D + B * 4 + B * 8, 2 * B * N * D, "int8")
+    say(f"  kernel 1 record (B={B}, N={N}, k=1, {tmpl}): {ms:.4f} ms (plain "
+        f"{plain:.4f} ms, _int_mm + topk {lib:.4f} ms, bound {bnd[0]:.4f} ms "
+        f"by {bnd[1]}, {bnd[0] / ms:.3f} of it); k = 1, 2, 4 bit-equal")
     recs["mips_scan_int8"] = dict(err=0.0, ms=ms, plain_ms=plain, bound=bnd,
                                   library_ms=lib, template=tmpl)
 
     # kernel 7: two-phase chunk maxima over the int8 index (leg d's shape)
     q8, _ = mips.quantize_rows(torch.randn(B_I8, D, device=dev, generator=gen))
+    ROUTES.pop("chunk_max_int8", None)
     kout = mips.chunk_max_int8(q8, idx8, dsc, C_I8, n_valid)
     pout = mips.chunk_max_plain(q8, idx8, C_I8, n_valid, dsc)
     torch.cuda.synchronize()
     assert torch.equal(kout, pout), "kernel 7 disagrees with its plain version"
+    tmpl = template("chunk_max_int8")
+    assert tmpl == "mma", f"kernel 7 took the {tmpl} template"
     ms = cuda_ms(lambda: mips.chunk_max_int8(q8, idx8, dsc, C_I8, n_valid), 10)
     plain = cuda_ms(lambda: mips.chunk_max_plain(q8, idx8, C_I8, n_valid, dsc),
                     2)
@@ -250,9 +259,11 @@ def check_kernels(mips, dev, gen):
                             * dsc[None, :]).view(B_I8, -1, C_I8).amax(-1))
     bnd = bound_ms(N * D + N * 4 + B_I8 * D + B_I8 * (N // C_I8) * 4,
                    2 * B_I8 * N * D, "int8")
+    say(f"  kernel 7 record (B={B_I8}, N={N}, C={C_I8}, {tmpl}): {ms:.4f} ms "
+        f"(plain {plain:.4f} ms, _int_mm + amax {lib:.4f} ms, bound "
+        f"{bnd[0]:.4f} ms by {bnd[1]}, {bnd[0] / ms:.3f} of it); bit-equal")
     recs["chunk_max_int8"] = dict(err=0.0, ms=ms, plain_ms=plain, bound=bnd,
-                                  library_ms=lib,
-                                  template=template("chunk_max_int8"))
+                                  library_ms=lib, template=tmpl)
     del idx8, q8
 
     # kernel 2: bf16 scan + top-1 (the record), and the FEVER CLI's hop 1
@@ -1299,24 +1310,29 @@ CU = "multihop_dense_retrieval_tpu_torch/ops/csrc/"
 TPU = "multihop_dense_retrieval_tpu/ops/mips.py:"
 # kernel: (source, TPU kernel it replaces, main path whose counts it reports)
 REPLACES = {
-    "mips_scan_int8": (CU + "mips_scan.cu", TPU + "316", "int8"),
+    "mips_scan_int8": (CU + "mips_scan_i8.cu", TPU + "316", "int8"),
     "mips_scan": (CU + "mips_scan_mma.cu", TPU + "220", "bf16"),
     "pca_chunk_max": (CU + "chunk_max_mma.cu", TPU + "868", "int8"),
     "pca_rescan_int8": (CU + "two_phase.cu", TPU + "554", "int8"),
     "rescan": (CU + "two_phase.cu", TPU + "532", "fever_c1"),
     "chunk_max": (CU + "chunk_max_mma.cu", TPU + "489", "fever_c1"),
-    "chunk_max_int8": (CU + "two_phase.cu", TPU + "506", "int8_two_phase"),
+    "chunk_max_int8": (CU + "chunk_max_i8.cu", TPU + "506", "int8_two_phase"),
     "fused_attention": (CU + "fused_attention.cu",
                         "multihop_dense_retrieval_tpu/ops/fused_attention.py:61",
                         "corpus_e1"),
 }
 
 
-# sources of the tensor-core templates (kernels 2, 3, 6 and 8), whose ptxas
-# lines are printed under their kernels' names
-TENSOR_CORE_SOURCES = ("mips_scan_mma", "chunk_max_mma", "fused_attention")
-# the legs that launch kernels 2 and 3, which must take the tensor cores
-MMA_LEGS = ("int8", "fused_serving", "bf16", "fever_c1", "fever_c2")
+# sources of the tensor-core templates (kernels 1, 2, 3, 6, 7 and 8), whose
+# ptxas lines are printed under their kernels' names
+TENSOR_CORE_SOURCES = ("mips_scan_mma", "mips_scan_i8", "chunk_max_mma",
+                       "chunk_max_i8", "fused_attention")
+# the legs that launch kernels 1, 2, 3 and 7, and those kernels, which must
+# take the tensor cores wherever they run
+MMA_LEGS = ("int8", "int8_two_phase", "fused_serving", "bf16", "fever_c1",
+            "fever_c2")
+MMA_KERNELS = ("mips_scan_int8", "mips_scan", "pca_chunk_max",
+               "chunk_max_int8")
 
 
 def main():
@@ -1365,7 +1381,7 @@ def main():
         (core.config, data, index, models, search), mips, dev, gen, smi,
         args.profile_out)
     for leg in MMA_LEGS:
-        for name in ("mips_scan", "pca_chunk_max"):
+        for name in MMA_KERNELS:
             taken = launches[leg]["routes"].get(name, [])
             assert launches[leg][name] == 0 or taken == ["mma"], \
                 f"{name} took {taken} on leg {leg}"

@@ -26,8 +26,8 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("mips_scan", "mips_scan_mma", "two_phase", "chunk_max_mma",
-           "fused_attention")
+SOURCES = ("mips_scan", "mips_scan_mma", "mips_scan_i8", "two_phase",
+           "chunk_max_mma", "chunk_max_i8", "fused_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -47,8 +47,15 @@ SIGNATURES = {
         "mips_scan_mma": ([P, P, I, LL, LL, I, I, I, I, LL, I, LL, P, P, P,
                            P, P], I),
     },
+    "mips_scan_i8": {
+        "mips_scan_i8": ([P, P, P, P, I, LL, LL, I, I, I, I, LL, I, LL, P,
+                          P, P, P, P], I),
+    },
     "chunk_max_mma": {
         "chunk_max_mma": ([P, P, I, LL, LL, I, I, I, LL, I, I, P, P], I),
+    },
+    "chunk_max_i8": {
+        "chunk_max_i8": ([P, P, P, I, LL, LL, I, I, I, LL, I, I, P, P], I),
     },
     "fused_attention": {
         "fused_attention": ([I, I, I, P, P, P, P, I, I, I, I, I, F, LL, P,

@@ -34,9 +34,11 @@
 // registers beside the 16 * NW accumulators, so the query tile narrows as
 // KMAX grows (QN_K2, QN_K4, QN_K8 below).  At the block's end the lists
 // merge across the 8 row lanes (shuffles) and the 2 row warps (shared
-// memory) and are written as (B, splits, KMAX) partials.
+// memory) and are written as (B, splits, KMAX) partials (topk.cuh's
+// store_partials, which kernel 1 shares).
 //
-// Pass 2 (scan_merge_kernel): a warp per query merges its partials, then
+// Pass 2 (scan_merge_kernel): a warp per query merges its partials
+// (topk.cuh's warp_merge, which kernel 1's merge shares), then
 // rescores each kept row in fp32 on the CUDA cores (each lane a sequential
 // FMA sum of 8-element pieces, then a shuffle tree) and restores the order.
 // The tensor cores add a k16 step's products in their own order and
@@ -53,7 +55,10 @@ namespace mdrt_scan {
 using namespace mdrt_mma;
 using bf16 = __nv_bfloat16;
 using mdrt_topk::better;
-using mdrt_topk::insert;
+using mdrt_topk::push;
+using mdrt_topk::store_partials;
+using mdrt_topk::store_list;
+using mdrt_topk::warp_merge;
 
 constexpr float NEG_INF = -3.0e38f;  // the JAX package's mask value
 constexpr int MT = 128;              // index rows a tile
@@ -77,23 +82,6 @@ inline size_t smem_bytes(int qn, int kmax) {
          size_t(2) * qn * kmax * (sizeof(float) + sizeof(int));
 }
 
-// Rows reach a thread's list in ascending order, so a value equal to one
-// already kept loses: ties go to the lower row without comparing ids.
-template <int KMAX>
-__device__ __forceinline__ void push(float (&tv)[KMAX], int (&ti)[KMAX],
-                                     float v, int id) {
-  if (!(v > tv[KMAX - 1])) return;
-  tv[KMAX - 1] = v;
-  ti[KMAX - 1] = id;
-#pragma unroll
-  for (int s = KMAX - 1; s > 0; --s) {
-    if (tv[s] > tv[s - 1]) {
-      float fv = tv[s]; tv[s] = tv[s - 1]; tv[s - 1] = fv;
-      int fi = ti[s]; ti[s] = ti[s - 1]; ti[s - 1] = fi;
-    }
-  }
-}
-
 template <int NW, int KMAX>
 __global__ void __launch_bounds__(NT, 1)
 mips_scan_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ index,
@@ -109,7 +97,7 @@ mips_scan_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ index,
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int wm = warp / 4, wn = warp % 4;
-  const int g = lane / 4, t = lane % 4;
+  const int g = lane / 4;
   const int split = blockIdx.x, n_splits = gridDim.x;
   const int q0 = blockIdx.y * QN;
   const long long r_begin = (long long)split * rows_per_split;
@@ -222,53 +210,9 @@ mips_scan_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ index,
     }
   }
 
-  // the split's lists: over the 8 row lanes of a warp, then its 2 row warps
-#pragma unroll
-  for (int j = 0; j < NW; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {
-        float ov[KMAX];
-        int oi[KMAX];
-#pragma unroll
-        for (int s = 0; s < KMAX; ++s) {
-          ov[s] = __shfl_xor_sync(0xffffffffu, tv[j][e][s], off);
-          oi[s] = __shfl_xor_sync(0xffffffffu, ti[j][e][s], off);
-        }
-#pragma unroll
-        for (int s = 0; s < KMAX; ++s)
-          insert<KMAX>(tv[j][e], ti[j][e], ov[s], oi[s]);
-      }
-      if (g == 0) {
-        const int col = wn * 8 * NW + j * 8 + 2 * t + e;
-#pragma unroll
-        for (int s = 0; s < KMAX; ++s) {
-          red_v[(wm * QN + col) * KMAX + s] = tv[j][e][s];
-          red_i[(wm * QN + col) * KMAX + s] = ti[j][e][s];
-        }
-      }
-    }
-  __syncthreads();
-  if (tid < QN && q0 + tid < b) {
-    float mv[KMAX];
-    int mi[KMAX];
-#pragma unroll
-    for (int s = 0; s < KMAX; ++s) {
-      mv[s] = red_v[tid * KMAX + s];
-      mi[s] = red_i[tid * KMAX + s];
-    }
-#pragma unroll
-    for (int s = 0; s < KMAX; ++s)
-      insert<KMAX>(mv, mi, red_v[(QN + tid) * KMAX + s],
-                   red_i[(QN + tid) * KMAX + s]);
-    const size_t base = (size_t(q0 + tid) * n_splits + split) * KMAX;
-#pragma unroll
-    for (int s = 0; s < KMAX; ++s) {
-      part_v[base + s] = mv[s];
-      part_i[base + s] = mi[s];
-    }
-  }
+  // the split's lists
+  store_partials<NW, KMAX>(tv, ti, red_v, red_i, q0, b, split, n_splits,
+                           part_v, part_i);
 }
 
 // fp32 dot of one bf16 query row and one bf16 index row (d a multiple of 8)
@@ -308,26 +252,7 @@ scan_merge_kernel(const float* __restrict__ part_v,
   if (qi >= b) return;  // the whole warp
   float tv[KMAX];
   int ti[KMAX];
-#pragma unroll
-  for (int s = 0; s < KMAX; ++s) {
-    tv[s] = NEG_INF;
-    ti[s] = 0;
-  }
-  const size_t base = size_t(qi) * n_splits * KMAX;
-  for (int p = lane; p < n_splits * KMAX; p += 32)
-    insert<KMAX>(tv, ti, part_v[base + p], part_i[base + p]);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    float ov[KMAX];
-    int oi[KMAX];
-#pragma unroll
-    for (int s = 0; s < KMAX; ++s) {
-      ov[s] = __shfl_xor_sync(0xffffffffu, tv[s], off);
-      oi[s] = __shfl_xor_sync(0xffffffffu, ti[s], off);
-    }
-#pragma unroll
-    for (int s = 0; s < KMAX; ++s) insert<KMAX>(tv, ti, ov[s], oi[s]);
-  }
+  warp_merge<KMAX>(part_v, part_i, qi, n_splits, lane, tv, ti);
   if (RESCORE) {
     // every lane holds the same list; lane 0's entries are taken all the
     // same, so that the branch is warp-uniform whatever the data
@@ -348,14 +273,7 @@ scan_merge_kernel(const float* __restrict__ part_v,
           int fi = ti[u]; ti[u] = ti[u - 1]; ti[u - 1] = fi;
         }
   }
-  if (lane == 0) {
-#pragma unroll
-    for (int s = 0; s < KMAX; ++s)
-      if (s < k) {
-        out_v[size_t(qi) * k + s] = tv[s];
-        out_i[size_t(qi) * k + s] = ti[s];
-      }
-  }
+  if (lane == 0) store_list<KMAX>(tv, ti, qi, k, out_v, out_i);
 }
 
 struct Args {

@@ -6,7 +6,9 @@ plain PyTorch version here with the same arithmetic, and a wrapper that
 launches the kernel for a CUDA tensor and takes the plain version only for
 a tensor on the CPU (a CUDA tensor the kernel does not take raises):
 
-  1. ``mips_scan_int8``  — int8 scan + fused top-k       (csrc/mips_scan.cu)
+  1. ``mips_scan_int8``  — int8 scan + fused top-k       (csrc/mips_scan_i8.cu,
+                           on the int8 tensor cores; csrc/mips_scan.cu for
+                           widths off a multiple of 128)
   2. ``mips_scan``       — bf16/fp32 scan + fused top-k   (csrc/mips_scan_mma.cu
                            for bf16, on the tensor cores; csrc/mips_scan.cu
                            for fp32)
@@ -18,7 +20,9 @@ a tensor on the CPU (a CUDA tensor the kernel does not take raises):
   6. ``chunk_max``       — two-phase phase 1, bf16/fp32   (csrc/chunk_max_mma.cu
                            for bf16, on the tensor cores; csrc/two_phase.cu
                            for fp32)
-  7. ``chunk_max_int8``  — two-phase phase 1, int8        (csrc/two_phase.cu)
+  7. ``chunk_max_int8``  — two-phase phase 1, int8        (csrc/chunk_max_i8.cu,
+                           on the int8 tensor cores; csrc/two_phase.cu for
+                           widths off a multiple of 128)
 
 Kernels 1-2 serve ``mips_topk`` for small k, kernels 6-7 then 4-5 its
 exact two-phase search for large k (``mips_topk_two_phase``), and kernels
@@ -168,10 +172,39 @@ def _kmax(k: int) -> int:
 # stages, and the widest query tile of the chunk maxima
 _MMA_ROWS, _MMA_KS, _MMA_STAGES, _MMA_QMAX = 128, 64, 4, 256
 
-# kernel 2's tensor-core template (csrc/mips_scan_mma.cu): the widest query
-# tile for each top-k list length (its lists cost 4 * NW * KMAX registers a
-# thread beside the 16 * NW accumulators of a 32 * NW-query tile)
+# kernel 2's tensor-core template (csrc/mips_scan_mma.cu) and kernel 1's
+# (csrc/mips_scan_i8.cu): the widest query tile for each top-k list length
+# (the lists cost 4 * NW * KMAX registers a thread beside the 16 * NW
+# accumulators of a 32 * NW-query tile)
 _SCAN_QMAX = {1: 192, 2: 192, 4: 128, 8: 64}
+
+# the int8 tensor-core templates of kernels 1 and 7 (csrc/mips_scan_i8.cu,
+# csrc/chunk_max_i8.cu): int8 columns (bytes) a stage.  Their shared-memory
+# rows are the bf16 templates' 144 bytes, and a resident query tile's rows
+# are d + 16 bytes.
+_I8_KS = 128
+
+
+def _query_tiles(b: int, qmax: int) -> tuple:
+    """(query tile, tiles): as few tiles of at most ``qmax`` queries as
+    cover b, each the same multiple of 32, padded with fewer than 32 zero
+    rows a tile."""
+    q_tiles = -(-b // qmax)
+    q_tile = -(-(-(-b // q_tiles)) // 32) * 32
+    return q_tile, -(-b // q_tile)
+
+
+def _i8_smem(q_tile: int, d: int, resident: bool, maxima: bool) -> int:
+    """Dynamic shared memory of the int8 tensor-core templates: the ring of
+    4 stages of 144-byte rows (128 index rows, plus the query slices when
+    the query tile is streamed), a slot of 128 fp32 row scales per stage,
+    the resident query tile ([q_tile][d + 16] bytes) and, for the chunk
+    maxima, the two row warps' maxima (the scan's lists reuse the ring)."""
+    ring = _MMA_STAGES * (_MMA_ROWS + (0 if resident else q_tile)) \
+        * (_I8_KS + 16)
+    return (ring + _MMA_STAGES * _MMA_ROWS * 4
+            + (q_tile * (d + 16) if resident else 0)
+            + (2 * q_tile * 4 if maxima else 0))
 
 
 def _splits(n: int, want: int) -> tuple:
@@ -184,34 +217,48 @@ def _splits(n: int, want: int) -> tuple:
 
 def scan_plan(b: int, n: int, d: int, dtype, k: int, sms: int = 132) -> dict:
     """Route and launch plan of the scan kernels 1 and 2.  bf16 rows of a
-    width that is a multiple of 64 take the tensor-core template: query
-    tiles as wide as ``_SCAN_QMAX`` allows for the list length ``kmax``
-    (a multiple of 32, zero rows past B), a grid of row splits x query
-    tiles that is one wave at one block an SM (``_splits``), and ``smem`` =
-    4 stages of (128 index rows + the query tile) x 72 bf16 plus the two
-    row warps' lists.  int8 rows (kernel 1), fp32 rows (a tensor-core
-    product of fp32 would be TF32) and narrower bf16 rows take the SIMT
+    width that is a multiple of 64 (kernel 2) and int8 rows of a width that
+    is a multiple of 128 (kernel 1) take a tensor-core template: query
+    tiles as wide as ``_SCAN_QMAX`` allows for the list length ``kmax`` (a
+    multiple of 32, zero rows past B), and a grid of row splits x query
+    tiles that is one wave at one block an SM (``_splits``).  bf16:
+    ``smem`` = 4 stages of (128 index rows + the query tile) x 72 bf16
+    plus the two row warps' lists.  int8: the query tile stays resident in
+    shared memory, the widest tile narrowed in steps of 32 until it fits
+    beside the ring (128 queries at D = 1024), and ``smem`` is
+    ``_i8_smem``'s.  fp32 rows (a tensor-core product of fp32 would be
+    TF32), narrower bf16 rows and narrower int8 rows take the SIMT
     template: 64-query tiles, 4 blocks an SM, the shared memory of
-    csrc/tile_dot.cuh's ``tile_smem_bytes``.  The C entry point of the
-    tensor-core template checks ``q_tile``, the splits and ``smem`` against
-    its own count."""
+    csrc/tile_dot.cuh's ``tile_smem_bytes``.  The C entry points of the
+    tensor-core templates check the plan against their own count."""
     kmax = _kmax(k)
-    if dtype != torch.bfloat16 or d % _MMA_KS:
+    int8_mma = dtype == torch.int8 and d % _I8_KS == 0
+    if not int8_mma and (dtype != torch.bfloat16 or d % _MMA_KS):
         q_tiles = -(-b // 64)
         rows, splits = _splits(n, (4 * sms) // q_tiles)
         return dict(route="simt", kmax=kmax, block=256, q_tile=64,
                     q_pad=64 * q_tiles, rows_per_split=rows, splits=splits,
                     grid=(q_tiles, splits, 1),
                     smem=4 * (64 * (d * dtype.itemsize // 4 + 4) + 128 * 20))
-    q_tiles = -(-b // _SCAN_QMAX[kmax])
-    q_tile = -(-(-(-b // q_tiles)) // 32) * 32
-    q_tiles = -(-b // q_tile)
+    qmax = _SCAN_QMAX[kmax]
+    while (int8_mma and qmax > 32
+           and _i8_smem(qmax, d, True, False) > SMEM_LIMIT):
+        qmax -= 32
+    q_tile, q_tiles = _query_tiles(b, qmax)
     rows, splits = _splits(n, sms // q_tiles)
-    smem = (_MMA_STAGES * (_MMA_ROWS + q_tile) * (_MMA_KS + 8) * 2
-            + 2 * q_tile * kmax * 8)
-    return dict(route="mma", kmax=kmax, block=256, q_tile=q_tile,
+    plan = dict(route="mma", kmax=kmax, block=256, q_tile=q_tile,
                 q_pad=q_tile * q_tiles, rows_per_split=rows, splits=splits,
-                grid=(splits, q_tiles, 1), smem=smem)
+                grid=(splits, q_tiles, 1))
+    if int8_mma:
+        return dict(plan, smem=_i8_smem(q_tile, d, True, False))
+    return dict(plan, smem=_MMA_STAGES * (_MMA_ROWS + q_tile) * (_MMA_KS + 8)
+                * 2 + 2 * q_tile * kmax * 8)
+
+
+def _aligned(*tensors) -> None:
+    for t in tensors:
+        _require(t.is_contiguous() and t.data_ptr() % 16 == 0,
+                 "inputs must be contiguous and 16-byte aligned")
 
 
 def _launch_scan(dtype_code, q, q_scale, index, d_scale, k, n_valid):
@@ -228,10 +275,22 @@ def _launch_scan(dtype_code, q, q_scale, index, d_scale, k, n_valid):
                          dtype=torch.float32, device=q.device)
     part_i = torch.empty((b, plan["splits"], plan["kmax"]), dtype=torch.int32,
                          device=q.device)
+    for t in (q_scale, d_scale):
+        _require(t is None or t.is_contiguous(), "inputs must be contiguous")
+    if plan["route"] == "mma" and dtype_code == 0:
+        _aligned(q, index)
+        _require(plan["smem"] <= SMEM_LIMIT,
+                 f"D={d} needs more shared memory than a block has")
+        lib = _build.load("mips_scan_i8")
+        _build.check(lib.mips_scan_i8(
+            q.data_ptr(), q_scale.data_ptr(), index.data_ptr(),
+            d_scale.data_ptr(), b, n, nv, d, k, plan["kmax"], plan["q_tile"],
+            plan["rows_per_split"], plan["splits"], plan["smem"],
+            part_v.data_ptr(), part_i.data_ptr(), out_v.data_ptr(),
+            out_i.data_ptr(), _stream()), "mips_scan_i8")
+        return out_v, out_i
     if plan["route"] == "mma":
-        for t in (q, index):
-            _require(t.is_contiguous() and t.data_ptr() % 16 == 0,
-                     "inputs must be contiguous and 16-byte aligned")
+        _aligned(q, index)
         lib = _build.load("mips_scan_mma")
         _build.check(lib.mips_scan_mma(
             q.data_ptr(), index.data_ptr(), b, n, nv, d, k, plan["kmax"],
@@ -241,8 +300,8 @@ def _launch_scan(dtype_code, q, q_scale, index, d_scale, k, n_valid):
         return out_v, out_i
     _require(d * index.element_size() % 64 == 0,
              f"row bytes {d * index.element_size()} must be a multiple of 64")
-    for t in (q, index, q_scale, d_scale):
-        _require(t is None or t.is_contiguous(), "inputs must be contiguous")
+    for t in (q, index):
+        _require(t.is_contiguous(), "inputs must be contiguous")
     _require(plan["smem"] <= SMEM_LIMIT,
              f"D={d} needs more shared memory than a block has")
     lib = _build.load("mips_scan")
@@ -257,8 +316,10 @@ def _launch_scan(dtype_code, q, q_scale, index, d_scale, k, n_valid):
 
 def mips_scan_int8(q_int8, q_scale, index, d_scale, k: int,
                    n_valid: Optional[int] = None):
-    """Kernel 1: exact int8 MIPS top-k (k < 8).  (B, k) fp32 scores and
-    int32 row ids, bit-equal to the JAX package's int8 tiers."""
+    """Kernel 1: exact int8 MIPS top-k (k <= 8).  (B, k) fp32 scores and
+    int32 row ids, bit-equal to the JAX package's int8 tiers.  Routed as
+    ``scan_plan`` says: widths a multiple of 128 on the int8 tensor cores,
+    the rest on SIMT."""
     if not _on_cuda(q_int8, q_scale, index, d_scale):
         return mips_scan_int8_plain(q_int8, q_scale, index, d_scale, k, n_valid)
     _require(q_int8.dtype == index.dtype == torch.int8, "int8 inputs expected")
@@ -321,7 +382,8 @@ def chunk_max_plain(q, rows, chunk_rows: int, n_valid: Optional[int] = None,
 def simt_chunk_max_plan(b: int, n: int, row_bytes: int, chunk_rows: int,
                         sms: int = 132) -> dict:
     """Launch plan of the SIMT chunk-max template (csrc/two_phase.cu; kernels
-    3 and 7, and kernel 6 over fp32 rows): 64-query tiles (queries padded
+    3, 6 and 7 over the rows no tensor-core template takes: fp32, and bf16
+    or int8 widths off their stage): 64-query tiles (queries padded
     with zero rows to a multiple of 64), ``per_block`` chunks a block, and
     the shared memory of csrc/tile_dot.cuh's ``tile_smem_bytes``."""
     num_chunks = n // chunk_rows
@@ -336,32 +398,36 @@ def simt_chunk_max_plan(b: int, n: int, row_bytes: int, chunk_rows: int,
 
 def chunk_max_plan(b: int, n: int, d: int, chunk_rows: int, dtype,
                    sms: int = 132) -> dict:
-    """Route and launch plan of kernels 6 and 3.  bf16 rows of a width that
-    is a multiple of 64 take a tensor-core template, with all queries of a
-    query tile (at most 256, a multiple of 32, zero rows past B) as the
-    mma's N side.  Where the query tile fits beside the ring
+    """Route and launch plan of kernels 3, 6 and 7.  bf16 rows of a width
+    that is a multiple of 64 (kernels 3, 6) and int8 rows of a width that
+    is a multiple of 128 (kernel 7) take a tensor-core template, with all
+    queries of a query tile (at most 256, a multiple of 32, zero rows past
+    B) as the mma's N side.  Where the query tile fits beside the ring
     (``q_resident``) the resident template keeps it in shared memory and
-    walks ``per_block`` consecutive chunks a block, about one block an SM:
-    ``smem`` = 4 stages of 128 index rows x 72 bf16 + the tile x (d + 8)
-    bf16.  Otherwise (kernel 6 at D=768, B > 96) one block a chunk streams
-    the query tile with the index rows: ``smem`` = 4 stages of (128 index
-    rows + the query tile) x 72 bf16.  Both add the row-warp maxima.  fp32
-    rows (a tensor-core product of fp32 would be TF32) and narrower bf16
-    rows take the SIMT template.  The C entry point checks ``q_tile`` and
-    ``smem`` against its own count."""
-    if dtype != torch.bfloat16 or d % _MMA_KS:
-        return simt_chunk_max_plan(
-            b, n, d * (2 if dtype == torch.bfloat16 else 4), chunk_rows, sms)
-    q_tiles = -(-b // _MMA_QMAX)
-    q_tile = -(-(-(-b // q_tiles)) // 32) * 32
-    q_tiles = -(-b // q_tile)
+    walks ``per_block`` consecutive chunks a block, about one block an SM;
+    otherwise (kernel 6 at D=768, B > 96) one block a chunk streams the
+    query tile with the index rows.  bf16 ``smem``: 4 stages of 128 index
+    rows x 72 bf16 (+ the query tile's slices when streamed), the resident
+    tile x (d + 8) bf16, and the row-warp maxima; int8: ``_i8_smem``'s.
+    fp32 rows (a tensor-core product of fp32 would be TF32) and narrower
+    bf16 or int8 rows take the SIMT template.  The C entry points check
+    ``q_tile`` and ``smem`` against their own count."""
+    int8_mma = dtype == torch.int8 and d % _I8_KS == 0
+    if not int8_mma and (dtype != torch.bfloat16 or d % _MMA_KS):
+        return simt_chunk_max_plan(b, n, d * dtype.itemsize, chunk_rows, sms)
+    q_tile, q_tiles = _query_tiles(b, _MMA_QMAX)
     num_chunks = n // chunk_rows
-    ring = _MMA_STAGES * _MMA_ROWS * (_MMA_KS + 8) * 2
-    smem = ring + q_tile * (d + 8) * 2 + 2 * q_tile * 4
-    resident = smem <= SMEM_LIMIT
+    if int8_mma:
+        resident = _i8_smem(q_tile, d, True, True) <= SMEM_LIMIT
+        smem = _i8_smem(q_tile, d, resident, True)
+    else:
+        ring = _MMA_STAGES * _MMA_ROWS * (_MMA_KS + 8) * 2
+        smem = ring + q_tile * (d + 8) * 2 + 2 * q_tile * 4
+        resident = smem <= SMEM_LIMIT
+        if not resident:
+            smem = (ring + _MMA_STAGES * q_tile * (_MMA_KS + 8) * 2
+                    + 2 * q_tile * 4)
     per_block = -(-num_chunks // max(1, sms // q_tiles)) if resident else 1
-    if not resident:
-        smem = ring + _MMA_STAGES * q_tile * (_MMA_KS + 8) * 2 + 2 * q_tile * 4
     return dict(route="mma", block=256, q_tile=q_tile, q_pad=q_tile * q_tiles,
                 per_block=per_block, q_resident=resident,
                 grid=(-(-num_chunks // per_block), q_tiles, 1), smem=smem)
@@ -396,35 +462,43 @@ def _launch_chunk_max(code, q, rows, d_scale, chunk_rows, n_valid):
     return out
 
 
-def _launch_chunk_max_mma(q, rows, chunk_rows, n_valid, plan):
+def _launch_chunk_max_mma(q, rows, d_scale, chunk_rows, n_valid, plan):
     from . import _build
 
     b, d = q.shape
     n = rows.shape[0]
     _check_chunks(n, chunk_rows)
-    for t in (q, rows):
-        _require(t.is_contiguous() and t.data_ptr() % 16 == 0,
-                 "inputs must be contiguous and 16-byte aligned")
+    _aligned(q, rows)
     out = torch.empty((b, n // chunk_rows), dtype=torch.float32,
                       device=q.device)
+    nv = n if n_valid is None else n_valid
+    if rows.dtype == torch.int8:
+        _require(d_scale.is_contiguous(), "inputs must be contiguous")
+        lib = _build.load("chunk_max_i8")
+        _build.check(lib.chunk_max_i8(
+            q.data_ptr(), rows.data_ptr(), d_scale.data_ptr(), b, n, nv, d,
+            chunk_rows, plan["q_tile"], plan["smem"], plan["per_block"],
+            int(plan["q_resident"]), out.data_ptr(), _stream()),
+            "chunk_max_i8")
+        return out
     lib = _build.load("chunk_max_mma")
     _build.check(lib.chunk_max_mma(
-        q.data_ptr(), rows.data_ptr(), b, n,
-        n if n_valid is None else n_valid, d, chunk_rows, plan["q_tile"],
-        plan["smem"], plan["per_block"], int(plan["q_resident"]),
-        out.data_ptr(), _stream()), "chunk_max_mma")
+        q.data_ptr(), rows.data_ptr(), b, n, nv, d, chunk_rows,
+        plan["q_tile"], plan["smem"], plan["per_block"],
+        int(plan["q_resident"]), out.data_ptr(), _stream()), "chunk_max_mma")
     return out
 
 
-def _routed_chunk_max(q, rows, chunk_rows, n_valid):
-    """Kernels 3 and 6 over bf16/fp32 rows, on the template that
-    ``chunk_max_plan`` picks."""
+def _routed_chunk_max(q, rows, chunk_rows, n_valid, d_scale=None):
+    """Kernels 3, 6 and 7 (``d_scale`` with int8 rows), on the template
+    that ``chunk_max_plan`` picks."""
     plan = chunk_max_plan(q.shape[0], *rows.shape, chunk_rows, rows.dtype,
                           _sms(q.device))
     if plan["route"] == "mma":
-        return _launch_chunk_max_mma(q, rows, chunk_rows, n_valid, plan)
-    return _launch_chunk_max(_FLOAT_CODES[rows.dtype], q, rows, None,
-                             chunk_rows, n_valid)
+        return _launch_chunk_max_mma(q, rows, d_scale, chunk_rows, n_valid,
+                                     plan)
+    code = 0 if rows.dtype == torch.int8 else _FLOAT_CODES[rows.dtype]
+    return _launch_chunk_max(code, q, rows, d_scale, chunk_rows, n_valid)
 
 
 def chunk_max(q, index, chunk_rows: int, n_valid: Optional[int] = None):
@@ -445,12 +519,14 @@ def chunk_max(q, index, chunk_rows: int, n_valid: Optional[int] = None):
 def chunk_max_int8(q_int8, index, d_scale, chunk_rows: int,
                    n_valid: Optional[int] = None):
     """Kernel 7: two-phase phase 1 over an int8 index, maxima of
-    float(raw) * d_scale[row], bit-equal to the JAX kernel."""
+    float(raw) * d_scale[row], bit-equal to the JAX kernel.  Routed as
+    ``chunk_max_plan`` says: widths a multiple of 128 on the int8 tensor
+    cores, the rest on SIMT."""
     if not _on_cuda(q_int8, index, d_scale):
         return chunk_max_plain(q_int8, index, chunk_rows, n_valid, d_scale)
     _require(q_int8.dtype == index.dtype == torch.int8, "int8 inputs expected")
     _require(d_scale.dtype == torch.float32, "fp32 scales expected")
-    out = _launch_chunk_max(0, q_int8, index, d_scale, chunk_rows, n_valid)
+    out = _routed_chunk_max(q_int8, index, chunk_rows, n_valid, d_scale)
     LAUNCHES["chunk_max_int8"] += 1
     return out
 

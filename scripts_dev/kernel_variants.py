@@ -1,9 +1,11 @@
-"""Where the H100 port's tensor-core kernels 2, 3, 6 and 8 spend their time.
+"""Where the H100 port's tensor-core kernels 1, 2, 3, 6, 7 and 8 spend their
+time.
 
 Builds variants of ``ops/csrc/fused_attention.cu``,
-``ops/csrc/chunk_max_mma.cu`` and ``ops/csrc/mips_scan_mma.cu`` by text
-substitution, and times each against the source as it stands, in one
-process on one card (CUDA events, best of two runs of 20 launches).
+``ops/csrc/chunk_max_mma.cu``, ``ops/csrc/mips_scan_mma.cu`` and
+``ops/csrc/mips_scan_i8.cu`` by text substitution, and times each against
+the source as it stands, in one process on one card (CUDA events, best of
+two runs of 20 launches).
 Sections (all by default; name some on the command line to run those):
 
 attention: kernel 8's tensor-core template at (B, W) =
@@ -16,10 +18,7 @@ attention: kernel 8's tensor-core template at (B, W) =
 each with 8 and 4 warps a block; variants whose output differs from the
 tree's say so.
 chunk: kernel 6 at B = 100, 200, 384 over a 262,144 x 768 bf16 index in
-2048-row chunks, KS x STAGES in (32, 4), (64, 3), (64, 4); with --parent
-DIR also DIR's own ops/csrc/chunk_max_mma.cu (an unpacked earlier commit
-whose entry point takes no chunks_per_block or qres), timed in turns with
-the tree (parent, tree, tree, parent).
+2048-row chunks, KS x STAGES in (32, 4), (64, 3), (64, 4).
 scan: kernel 2 at (B, N, k) = (192, 1M, 1), (192, 1M, 8) and (100, 262,144,
 2), D = 768: the tree, "raw" (the tensor-core sums returned without the
 fp32 rescoring: its time, and its largest relative difference from the
@@ -29,10 +28,23 @@ pca: kernel 3 at (B, N) = (192, 1M) and (200, 262,144), R = 128, 512-row
 chunks: the plan (resident queries, several chunks a block), resident
 queries one chunk a block, and the streamed template (kernel 6's) one
 chunk a block (launch arguments of the tree).
+int8: kernel 1 at (B, N, k) = (192, 1M, 1) and (192, 1M, 2), D = 768: the
+tree and "nofold" (no top-k fold: the main loop alone, wrong output);
+kernel 7 at (384, 1M, 768,
+2048-row chunks): the plan (resident queries, 8 chunks a block), resident
+queries one chunk a block, streamed queries one chunk a block, and
+"nofold" (no max fold, wrong output).  Every variant that should be right
+is held bit-equal to the plain twin.
+parent (with --parent DIR, an unpacked earlier commit whose kernels 2, 3
+and 6 have the tree's entry points): DIR's mips_scan_mma.cu and
+chunk_max_mma.cu, built against DIR's headers, against the tree's, in
+turns (parent, tree, tree, parent), at kernel 2's record shape (192, 1M,
+768, k=1), kernel 3's (192, 1M, R=128, 512-row chunks) and kernel 6's
+(200, 262,144, 768, 2048-row chunks).
 
 Needs a GPU and nvcc; run from the repository root:
     python3 scripts_dev/kernel_variants.py [attention] [chunk] [scan] [pca]
-        [--parent DIR]
+        [int8] [parent --parent DIR]
 """
 
 import argparse
@@ -56,6 +68,8 @@ NH, D, NF, CHUNK = 12, 768, 1 << 18, 2048
 ATTN_SRC = (_build.CSRC / "fused_attention.cu").read_text()
 CMAX_SRC = (_build.CSRC / "chunk_max_mma.cu").read_text()
 SCAN_SRC = (_build.CSRC / "mips_scan_mma.cu").read_text()
+I8_SCAN_SRC = (_build.CSRC / "mips_scan_i8.cu").read_text()
+I8_CMAX_SRC = (_build.CSRC / "chunk_max_i8.cu").read_text()
 DIV = re.compile(r"div_rn\(expf\(([^()]*)\), (l[01]), r[01]\)")
 
 
@@ -94,23 +108,25 @@ def scan_variant(name):
     return out
 
 
-# the entry point of kernel 6 before it took chunks_per_block and qres
-PARENT_CMAX_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-                    ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                    ctypes.c_void_p, ctypes.c_void_p]
+def nofold(src):
+    """`src` with its per-tile fold (the one `if (ok)`) switched off (wrong
+    output: the cost of the main loop alone)."""
+    assert src.count("if (ok)") == 1
+    return src.replace("if (ok)", "if (false)")
 
 
 def build_all(sources, tmp):
-    """{name: CDLL}, one nvcc per variant, all started together."""
+    """{name: CDLL}, one nvcc per variant, all started together; a source
+    is (text, entry point[, its header directory])."""
     procs = []
-    for name, (src, entry) in sources.items():
+    for name, (src, entry, *inc) in sources.items():
         path = os.path.join(tmp, f"{name}.cu")
         with open(path, "w") as f:
             f.write(src)
         lib = os.path.join(tmp, f"lib{name}.so")
+        hdrs = inc[0] if inc else str(_build.CSRC)
         procs.append((name, entry, lib, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", hdrs, "-o",
              lib, path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
     libs = {}
@@ -121,8 +137,6 @@ def build_all(sources, tmp):
         libs[name] = ctypes.CDLL(lib)
         fn = getattr(libs[name], entry)
         fn.argtypes, fn.restype = _build.SIGNATURES[entry][entry]
-        if name == "cmax_parent":
-            fn.argtypes = PARENT_CMAX_ARGS
     return libs
 
 
@@ -137,7 +151,7 @@ def best_ms(fn):
 ATTN_NAMES = ("tree", "ieee", "mul", "noexp3", "nop2")
 CHUNK_CFGS = ((32, 4), (64, 3), (64, 4))
 SCAN_NAMES = ("tree", "raw", "nofold")
-SECTIONS = ("attention", "chunk", "scan", "pca")
+SECTIONS = ("attention", "chunk", "scan", "pca", "int8", "parent")
 
 
 def main():
@@ -147,9 +161,12 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("sections", nargs="*", choices=SECTIONS)
     ap.add_argument("--parent", help="an unpacked earlier commit whose "
-                    "kernel 6 is timed beside the tree's")
+                    "kernels 2, 3 and 6 are timed beside the tree's")
     args = ap.parse_args()
-    run = set(args.sections) or set(SECTIONS)
+    run = set(args.sections) or set(SECTIONS) - {"parent"}
+    if args.parent:
+        run.add("parent")
+    assert "parent" not in run or args.parent, "parent needs --parent DIR"
     print(cs.nvidia_smi(), flush=True)
     sources = {}
     if "attention" in run:
@@ -159,15 +176,26 @@ def main():
         sources.update({f"cmax_{ks}_{st}": (chunk_variant(ks, st),
                                             "chunk_max_mma")
                         for ks, st in CHUNK_CFGS})
-        if args.parent:
-            sources["cmax_parent"] = (open(os.path.join(
-                args.parent, "multihop_dense_retrieval_tpu_torch/ops/csrc/"
-                "chunk_max_mma.cu")).read(), "chunk_max_mma")
     if "scan" in run:
         sources.update({f"scan_{n}": (scan_variant(n), "mips_scan_mma")
                         for n in SCAN_NAMES})
-    if "pca" in run:
+    if "pca" in run or "parent" in run:
         sources["cmax_tree"] = (CMAX_SRC, "chunk_max_mma")
+    if "int8" in run:
+        sources["i8scan_tree"] = (I8_SCAN_SRC, "mips_scan_i8")
+        sources["i8scan_nofold"] = (nofold(I8_SCAN_SRC),
+                                    "mips_scan_i8")
+        sources["i8cmax_tree"] = (I8_CMAX_SRC, "chunk_max_i8")
+        sources["i8cmax_nofold"] = (nofold(I8_CMAX_SRC),
+                                    "chunk_max_i8")
+    if "parent" in run:
+        csrc = os.path.join(args.parent,
+                            "multihop_dense_retrieval_tpu_torch/ops/csrc")
+        sources["scan_tree"] = (SCAN_SRC, "mips_scan_mma")
+        for name, entry in (("scan", "mips_scan_mma"),
+                            ("cmax", "chunk_max_mma")):
+            with open(os.path.join(csrc, f"{entry}.cu")) as f:
+                sources[f"{name}_parent"] = (f.read(), entry, csrc)
     with tempfile.TemporaryDirectory() as tmp:
         libs = build_all(sources, tmp)
         dev = torch.device("cuda", 0)
@@ -181,6 +209,10 @@ def main():
             time_scan(libs, dev, gen)
         if "pca" in run:
             time_pca(libs, dev, gen)
+        if "int8" in run:
+            time_int8(libs, dev, gen)
+        if "parent" in run:
+            time_parent(libs, dev, gen)
     return 0
 
 
@@ -223,28 +255,6 @@ def time_chunk_max(libs, dev, gen):
         assert not plan["q_resident"]
         ref = mips.chunk_max(qb, idx, CHUNK, NF - 1000)
         row = []
-        if "cmax_parent" in libs:
-            smem = 4 * (128 + qn) * 72 * 2 + 2 * qn * 4
-            outs = {n: torch.empty(b, NF // CHUNK, device=dev)
-                    for n in ("parent", "tree")}
-            calls = {
-                "parent": lambda: libs["cmax_parent"].chunk_max_mma(
-                    qb.data_ptr(), idx.data_ptr(), b, NF, NF - 1000, D, CHUNK,
-                    qn, smem, outs["parent"].data_ptr(), stream()),
-                "tree": lambda: libs["cmax_64_4"].chunk_max_mma(
-                    qb.data_ptr(), idx.data_ptr(), b, NF, NF - 1000, D, CHUNK,
-                    qn, smem, plan["per_block"], 0, outs["tree"].data_ptr(),
-                    stream())}
-            times = {"parent": [], "tree": []}
-            for name in ("parent", "tree", "tree", "parent"):
-                assert calls[name]() == 0, name
-                times[name].append(best_ms(calls[name]))
-            torch.cuda.synchronize()
-            same = "" if torch.equal(outs["parent"], outs["tree"]) else \
-                " (outputs differ)"
-            row.append(f"parent {times['parent'][0]:.4f}/"
-                       f"{times['parent'][1]:.4f}, tree in turns "
-                       f"{times['tree'][0]:.4f}/{times['tree'][1]:.4f}{same}")
         for ks, st in CHUNK_CFGS:
             out = torch.empty(b, NF // CHUNK, device=dev)
             smem = st * (128 + qn) * (ks + 8) * 2 + 2 * qn * 4
@@ -327,6 +337,128 @@ def time_pca(libs, dev, gen):
                        f"{best_ms(call):.4f}{same}")
         print(f"kernel 3 B={b} N={n} (plan: q_tile {qn}, {plan['per_block']} "
               f"chunks a block), ms: " + ", ".join(row), flush=True)
+
+
+def time_int8(libs, dev, gen):
+    n, sms = 1 << 20, mips._sms(dev)
+    idx = torch.randint(-127, 128, (n, D), device=dev, generator=gen,
+                        dtype=torch.int8)
+    dsc = torch.rand(n, device=dev, generator=gen) * 0.02 + 1e-3
+    nv = n - 1000
+    for k in (1, 2):
+        qi, qs = mips.quantize_rows(torch.randn(192, D, device=dev,
+                                                generator=gen))
+        pv, pi = mips.mips_scan_int8_plain(qi, qs, idx, dsc, k, nv)
+        plan = mips.scan_plan(192, n, D, torch.int8, k, sms)
+        kmax, qn, splits = plan["kmax"], plan["q_tile"], plan["splits"]
+        row = []
+        for name in ("tree", "nofold"):
+            part_v = torch.empty(192, splits, kmax, device=dev)
+            part_i = torch.empty(192, splits, kmax, device=dev,
+                                 dtype=torch.int32)
+            ov = torch.empty(192, k, device=dev)
+            oi = torch.empty(192, k, device=dev, dtype=torch.int32)
+
+            def call():
+                rc = libs[f"i8scan_{name}"].mips_scan_i8(
+                    qi.data_ptr(), qs.data_ptr(), idx.data_ptr(),
+                    dsc.data_ptr(), 192, n, nv, D, k, kmax, qn,
+                    plan["rows_per_split"], splits, plan["smem"],
+                    part_v.data_ptr(), part_i.data_ptr(), ov.data_ptr(),
+                    oi.data_ptr(), stream())
+                assert rc == 0, (name, rc)
+            call()
+            torch.cuda.synchronize()
+            same = torch.equal(ov, pv) and torch.equal(oi, pi)
+            assert same or name == "nofold", name
+            row.append(f"{name} {best_ms(call):.4f}"
+                       f"{'' if same else ' (wrong)'}")
+        print(f"kernel 1 B=192 N={n} k={k} (plan: q_tile {qn}, {splits} "
+              f"splits), ms: " + ", ".join(row), flush=True)
+    q8, _ = mips.quantize_rows(torch.randn(384, D, device=dev, generator=gen))
+    ref = mips.chunk_max_plain(q8, idx, CHUNK, nv, dsc)
+    plan = mips.chunk_max_plan(384, n, D, CHUNK, torch.int8, sms)
+    qn, row = plan["q_tile"], []
+    for name, per_block, res in (("tree", plan["per_block"], 1),
+                                 ("tree", 1, 1), ("tree", 1, 0),
+                                 ("nofold", plan["per_block"], 1)):
+        out = torch.empty(384, n // CHUNK, device=dev)
+
+        def call():
+            rc = libs[f"i8cmax_{name}"].chunk_max_i8(
+                q8.data_ptr(), idx.data_ptr(), dsc.data_ptr(), 384, n, nv, D,
+                CHUNK, qn, mips._i8_smem(qn, D, bool(res), True), per_block,
+                res, out.data_ptr(), stream())
+            assert rc == 0, (name, per_block, res, rc)
+        call()
+        torch.cuda.synchronize()
+        same = torch.equal(out, ref)
+        assert same or name == "nofold", (name, per_block, res)
+        row.append(f"{name}/{per_block} chunks a block/"
+                   f"{'resident' if res else 'streamed'} {best_ms(call):.4f}"
+                   f"{'' if same else ' (wrong)'}")
+    print(f"kernel 7 B=384 N={n} C={CHUNK} (plan: q_tile {qn}, "
+          f"{plan['per_block']} chunks a block), ms: " + ", ".join(row),
+          flush=True)
+
+
+def time_parent(libs, dev, gen):
+    n_big, sms = 1 << 20, mips._sms(dev)
+    bf = torch.bfloat16
+
+    def turns(what, calls, outs):
+        times = {"parent": [], "tree": []}
+        for name in ("parent", "tree", "tree", "parent"):
+            times[name].append(best_ms(calls[name]))
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(outs["parent"],
+                                                     outs["tree"]))
+        print(f"{what}, ms in turns: parent {times['parent'][0]:.4f} / "
+              f"{times['parent'][1]:.4f}, tree {times['tree'][0]:.4f} / "
+              f"{times['tree'][1]:.4f}{'' if same else ' (outputs differ)'}",
+              flush=True)
+
+    idx = torch.randn(n_big, D, device=dev, generator=gen).to(bf)
+    qb = torch.randn(192, D, device=dev, generator=gen).to(bf)
+    plan = mips.scan_plan(192, n_big, D, bf, 1, sms)
+    outs = {w: (torch.empty(192, plan["splits"], 1, device=dev),
+                torch.empty(192, plan["splits"], 1, device=dev,
+                            dtype=torch.int32),
+                torch.empty(192, 1, device=dev),
+                torch.empty(192, 1, device=dev, dtype=torch.int32))
+            for w in ("parent", "tree")}
+
+    def scan(w):
+        return lambda: libs[f"scan_{w}"].mips_scan_mma(
+            qb.data_ptr(), idx.data_ptr(), 192, n_big, n_big - 1000, D, 1, 1,
+            plan["q_tile"], plan["rows_per_split"], plan["splits"],
+            plan["smem"], *(t.data_ptr() for t in outs[w]), stream())
+    turns("kernel 2 B=192 N=1M k=1", {w: scan(w) for w in outs},
+          {w: outs[w][2:] for w in outs})
+
+    def cmax(w, q, rows, d, chunk, plan, out):
+        return lambda: libs[f"cmax_{w}"].chunk_max_mma(
+            q.data_ptr(), rows.data_ptr(), q.shape[0], rows.shape[0],
+            rows.shape[0] - 1000, d, chunk, plan["q_tile"], plan["smem"],
+            plan["per_block"], int(plan["q_resident"]), out.data_ptr(),
+            stream())
+    proj = torch.randn(n_big, 128, device=dev, generator=gen).to(bf)
+    qp = torch.randn(192, 128, device=dev, generator=gen).to(bf)
+    plan = mips.chunk_max_plan(192, n_big, 128, 512, bf, sms)
+    outs = {w: torch.empty(192, n_big // 512, device=dev)
+            for w in ("parent", "tree")}
+    turns("kernel 3 B=192 N=1M R=128",
+          {w: cmax(w, qp, proj, 128, 512, plan, outs[w]) for w in outs},
+          {w: [outs[w]] for w in outs})
+    del proj
+    q6 = torch.randn(200, D, device=dev, generator=gen).to(bf)
+    rows = idx[:NF]
+    plan = mips.chunk_max_plan(200, NF, D, CHUNK, bf, sms)
+    outs = {w: torch.empty(200, NF // CHUNK, device=dev)
+            for w in ("parent", "tree")}
+    turns("kernel 6 B=200 N=262,144",
+          {w: cmax(w, q6, rows, D, CHUNK, plan, outs[w]) for w in outs},
+          {w: [outs[w]] for w in outs})
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""Launch plans of kernels 2, 3, 6 and 8, on the CPU.
+"""Launch plans of kernels 1, 2, 3, 6, 7 and 8, on the CPU.
 
 Each wrapper decides its template (tensor cores, one warp a row, or SIMT),
 grid, padding and dynamic shared memory in a plain Python function
@@ -47,6 +47,12 @@ def _constexpr(source: str, name: str) -> int:
     ("chunk_max_mma.cu", "MT", mips._MMA_ROWS),
     ("chunk_max_mma.cu", "KS", mips._MMA_KS),
     ("chunk_max_mma.cu", "STAGES", mips._MMA_STAGES),
+    ("i8_stage.cuh", "MT", mips._MMA_ROWS),
+    ("i8_stage.cuh", "KS", mips._I8_KS),
+    ("i8_stage.cuh", "STAGES", mips._MMA_STAGES),
+    ("mips_scan_i8.cu", "QN_K2", mips._SCAN_QMAX[2]),
+    ("mips_scan_i8.cu", "QN_K4", mips._SCAN_QMAX[4]),
+    ("mips_scan_i8.cu", "QN_K8", mips._SCAN_QMAX[8]),
     ("fused_attention.cu", "KSTRIP", fa._KSTRIP),
     ("fused_attention.cu", "ROW_WARPS", fa._ROW_WARPS),
 ])
@@ -129,7 +135,21 @@ def test_attention_mma_plan_at_the_widest_shapes():
     assert corpus["warps"] == 8 and corpus["grid"] == (3, 12, 256)
 
 
-# ---- kernel 2 ---------------------------------------------------------------
+# ---- kernels 1 and 2 ------------------------------------------------------------
+
+# the int8 templates' shared memory, counted here apart from the plan: the
+# ring of 144-byte rows, 4 slots of 128 fp32 row scales, and the resident
+# query tile in rows of d + 16 bytes
+I8_RING = 4 * 128 * 144
+I8_SCALES = 4 * 128 * 4
+
+
+def _i8_resident_smem(q_tile, d):
+    return I8_RING + I8_SCALES + q_tile * (d + 16)
+
+
+def _i8_streamed_smem(q_tile):
+    return 4 * (128 + q_tile) * 144 + I8_SCALES
 
 
 def _check_splits(plan, n, want):
@@ -142,31 +162,39 @@ def _check_splits(plan, n, want):
     assert splits <= max(1, want)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.int8])
 @pytest.mark.parametrize("d", [64, 128, 768, 1024])
 @pytest.mark.parametrize("k", [1, 2, 4, 8])
 def test_scan_plan_fits_every_batch(k, d, dtype):
-    """B from 1 to 512 over 1M rows: bf16 rows take the tensor-core plan
-    (query tiles of 32 up to the widest for the list length, as few tiles
-    as that allows, each padded by fewer than 32 zero rows; one wave of
-    blocks at one block an SM); fp32 rows take the SIMT plan (64-query
-    tiles, about 4 blocks an SM).  Shared memory fits a block, except the
-    SIMT plan at fp32 D = 1024, which the wrapper refuses."""
+    """B from 1 to 512 over 1M rows: bf16 rows and int8 rows of a width
+    that is a multiple of 128 take the tensor-core plan (query tiles of 32
+    up to the widest for the list length, as few tiles as that allows,
+    each padded by fewer than 32 zero rows; one wave of blocks at one block
+    an SM; int8 keeps the query tile resident, narrowed in steps of 32
+    until it fits beside the ring, and its lists fit the ring they reuse);
+    fp32 rows and int8 rows
+    of 64 take the SIMT plan (64-query tiles, about 4 blocks an SM).
+    Shared memory fits a block, except the SIMT plan at fp32 D = 1024,
+    which the wrapper refuses."""
     n, sms = 1 << 20, 132
     kmax = mips._kmax(k)
     for b in range(1, 513):
         plan = mips.scan_plan(b, n, d, dtype, k, sms)
         assert plan["kmax"] == kmax
         assert plan["grid"][0] < 2 ** 31 and plan["grid"][1] <= GRID_YZ
-        if dtype == torch.float32:
+        if dtype == torch.float32 or (dtype == torch.int8 and d % 128):
             assert plan["route"] == "simt" and plan["q_tile"] == 64
             tiles = -(-b // 64)
             assert plan["grid"] == (tiles, plan["splits"], 1)
             _check_splits(plan, n, 4 * sms // tiles)
-            assert plan["smem"] == 4 * (64 * (d + 4) + 128 * 20)
-            assert (plan["smem"] <= SMEM_LIMIT) == (d < 1024)
+            words = d * dtype.itemsize // 4
+            assert plan["smem"] == 4 * (64 * (words + 4) + 128 * 20)
+            assert (plan["smem"] <= SMEM_LIMIT) == (words < 1024)
             continue
         qmax = mips._SCAN_QMAX[kmax]
+        while dtype == torch.int8 and _i8_resident_smem(qmax, d) > SMEM_LIMIT:
+            qmax -= 32
         tiles = plan["grid"][1]
         assert plan["route"] == "mma"
         assert plan["q_tile"] % 32 == 0 and 32 <= plan["q_tile"] <= qmax
@@ -176,20 +204,53 @@ def test_scan_plan_fits_every_batch(k, d, dtype):
         assert plan["grid"] == (plan["splits"], tiles, 1)
         _check_splits(plan, n, sms // tiles)
         assert plan["splits"] * tiles <= sms
-        assert plan["smem"] == (4 * (128 + plan["q_tile"]) * 72 * 2
-                                + 2 * plan["q_tile"] * kmax * 8)
+        q_tile = plan["q_tile"]
+        if dtype == torch.int8:
+            assert plan["smem"] == _i8_resident_smem(q_tile, d)
+            assert 2 * q_tile * kmax * 8 <= I8_RING
+        else:
+            assert plan["smem"] == (4 * (128 + q_tile) * 72 * 2
+                                    + 2 * q_tile * kmax * 8)
         assert plan["smem"] <= SMEM_LIMIT
 
 
 @pytest.mark.parametrize("d,dtype,route", [
     (768, torch.bfloat16, "mma"), (64, torch.bfloat16, "mma"),
     (96, torch.bfloat16, "simt"), (32, torch.bfloat16, "simt"),
-    (768, torch.float32, "simt"), (768, torch.int8, "simt")])
+    (768, torch.float32, "simt"), (768, torch.int8, "mma"),
+    (64, torch.int8, "simt"), (192, torch.int8, "simt")])
 def test_scan_routes_by_dtype_and_width(d, dtype, route):
     """bf16 rows of a width that is not a multiple of the 64-column stage,
-    fp32 rows (TF32 on the tensor cores) and int8 rows (kernel 1) stay on
-    the SIMT template."""
+    fp32 rows (TF32 on the tensor cores) and int8 rows of a width that is
+    not a multiple of the 128-byte stage stay on the SIMT template; D = 768
+    int8 rows (kernel 1 on the serving path) take the tensor cores."""
     assert mips.scan_plan(100, 1 << 16, d, dtype, 2)["route"] == route
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_int8_scan_plan_at_the_record_shape(k):
+    """Kernel 1 at B = 192 over 1M x 768 int8 rows (leg a's hop 1 at k = 1,
+    leg d's at k = 2): one 192-wide query tile kept resident (192 x 784
+    bytes beside the 72 KiB ring and the 2 KiB of row scales), 131 splits
+    of 63 tiles, one wave."""
+    plan = mips.scan_plan(192, 1 << 20, 768, torch.int8, k)
+    assert plan["route"] == "mma"
+    assert plan["q_tile"] == 192 and plan["grid"] == (131, 1, 1)
+    assert plan["rows_per_split"] == 63 * 128 and plan["kmax"] == k
+    assert plan["smem"] == 73728 + 2048 + 150528 == 226304
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_int8_scan_plan_narrows_the_query_tile_to_fit(k):
+    """At D = 1024 a 192- or 160-wide query tile does not fit beside the
+    ring (192 x 1040 bytes): the plan narrows it to 128, and B = 192 takes
+    two tiles of 96 (the fewest tiles of at most 128)."""
+    plan = mips.scan_plan(192, 1 << 20, 1024, torch.int8, k)
+    assert _i8_resident_smem(160, 1024) > SMEM_LIMIT
+    assert plan["route"] == "mma" and plan["q_tile"] == 96
+    assert plan["grid"] == (66, 2, 1)
+    assert plan["smem"] == 73728 + 2048 + 96 * 1040
+    assert mips.scan_plan(128, 1 << 20, 1024, torch.int8, k)["q_tile"] == 128
 
 
 def test_scan_plan_at_the_path_shapes():
@@ -245,6 +306,55 @@ def test_chunk_max_plan_fits_every_batch(chunk_rows):
             assert simt["smem"] <= SMEM_LIMIT
             assert simt["grid"][0] == simt["q_pad"] // 64
             assert simt["grid"][1] * simt["per_block"] >= n // chunk_rows
+        for d in (64, 128, 768, 1024):
+            _check_int8_chunk_max_plan(b, n, d, chunk_rows)
+
+
+def _check_int8_chunk_max_plan(b, n, d, chunk_rows, sms=132):
+    """Kernel 7's plan: int8 rows of a width that is a multiple of 128 take
+    the int8 tensor-core plan (query tiles as kernel 6's), the query tile
+    resident where it fits beside the ring, scales and maxima, with
+    consecutive chunks a block in one wave, and streamed otherwise, one
+    block a chunk; narrower rows take the SIMT plan."""
+    plan = mips.chunk_max_plan(b, n, d, chunk_rows, torch.int8, sms)
+    num_chunks = n // chunk_rows
+    if d % 128:
+        assert plan["route"] == "simt" and plan["q_tile"] == 64
+        assert plan["smem"] == 4 * (64 * (d // 4 + 4) + 128 * 20)
+        return
+    tiles, q_tile = plan["grid"][1], plan["q_tile"]
+    assert plan["route"] == "mma"
+    assert q_tile % 32 == 0 and 32 <= q_tile <= 256
+    assert tiles == -(-b // 256) and plan["q_pad"] == q_tile * tiles
+    assert b <= plan["q_pad"] < b + 32 * tiles
+    maxima = 2 * q_tile * 4
+    resident = _i8_resident_smem(q_tile, d) + maxima
+    assert plan["q_resident"] == (resident <= SMEM_LIMIT)
+    if plan["q_resident"]:
+        assert plan["smem"] == resident
+        per = plan["per_block"]
+        assert per == -(-num_chunks // (sms // tiles))
+        assert plan["grid"][0] * per >= num_chunks > (plan["grid"][0] - 1) * per
+        assert plan["grid"][0] * tiles <= sms
+    else:
+        assert plan["smem"] == _i8_streamed_smem(q_tile) + maxima
+        assert plan["per_block"] == 1
+        assert plan["grid"] == (num_chunks, tiles, 1)
+    assert plan["smem"] <= SMEM_LIMIT
+
+
+def test_int8_chunk_max_plan_at_leg_d():
+    """Kernel 7 at leg d's hop 2 (B = 384 over 1M x 768 int8 rows, 2048-row
+    chunks): two 192-wide query tiles kept resident (ring, scales, the tile
+    and the maxima in 227,840 bytes), 8 of the 512 chunks a block, 64 x 2
+    blocks; at B = 256 the one 256-wide tile is streamed, a block a chunk."""
+    plan = mips.chunk_max_plan(384, 1 << 20, 768, 2048, torch.int8)
+    assert plan["route"] == "mma" and plan["q_resident"]
+    assert plan["q_tile"] == 192 and plan["per_block"] == 8
+    assert plan["grid"] == (64, 2, 1)
+    assert plan["smem"] == 73728 + 2048 + 150528 + 1536 == 227840
+    wide = mips.chunk_max_plan(256, 1 << 20, 768, 2048, torch.int8)
+    assert not wide["q_resident"] and wide["grid"] == (512, 1, 1)
 
 
 def test_chunk_max_plan_at_the_fever_shape():
@@ -411,6 +521,71 @@ def test_mips_scan_routes_bf16_to_the_tensor_cores(fake_card, k):
                           plan["splits"], plan["smem"])
     assert [tuple(t.shape) for t in out] == [(100, k), (100, k)]
     assert mips.LAUNCHES["mips_scan"] == 1
+
+
+@pytest.mark.parametrize("b,k", [(192, 1), (192, 2), (100, 4), (70, 8)])
+def test_mips_scan_int8_routes_to_the_int8_tensor_cores(fake_card, b, k):
+    qi = torch.zeros(b, 768, dtype=torch.int8)
+    qs = torch.ones(b)
+    index = torch.zeros(8192, 768, dtype=torch.int8)
+    out = mips.mips_scan_int8(qi, qs, index, torch.ones(8192), k, 8000)
+    plan = mips.scan_plan(b, 8192, 768, torch.int8, k)
+    (fn, args), = fake_card.calls
+    assert fn == "mips_scan_i8"
+    assert args[4:14] == (b, 8192, 8000, 768, k, plan["kmax"],
+                          plan["q_tile"], plan["rows_per_split"],
+                          plan["splits"], plan["smem"])
+    assert [tuple(t.shape) for t in out] == [(b, k), (b, k)]
+    assert mips.LAUNCHES["mips_scan_int8"] == 1
+
+
+def test_mips_scan_int8_keeps_narrow_rows_on_simt(fake_card):
+    qi = torch.zeros(5, 64, dtype=torch.int8)
+    mips.mips_scan_int8(qi, torch.ones(5), torch.zeros(4096, 64,
+                        dtype=torch.int8), torch.ones(4096), 3)
+    plan = mips.scan_plan(5, 4096, 64, torch.int8, 3)
+    (fn, args), = fake_card.calls
+    assert fn == "mips_scan_topk" and args[4] == 0
+    assert args[9:13] == (plan["splits"], plan["rows_per_split"], 3, 4)
+    assert mips.LAUNCHES["mips_scan_int8"] == 1
+
+
+@pytest.mark.parametrize("b,resident", [(384, 1), (256, 0)])
+def test_chunk_max_int8_routes_to_the_int8_tensor_cores(fake_card, b,
+                                                        resident):
+    qi = torch.zeros(b, 768, dtype=torch.int8)
+    index = torch.zeros(8192, 768, dtype=torch.int8)
+    mips.chunk_max_int8(qi, index, torch.ones(8192), 2048, 7000)
+    plan = mips.chunk_max_plan(b, 8192, 768, 2048, torch.int8)
+    (fn, args), = fake_card.calls
+    assert fn == "chunk_max_i8"
+    assert args[3:12] == (b, 8192, 7000, 768, 2048, plan["q_tile"],
+                          plan["smem"], plan["per_block"], resident)
+    assert mips.LAUNCHES["chunk_max_int8"] == 1
+
+
+def test_chunk_max_int8_keeps_narrow_rows_on_simt(fake_card):
+    qi = torch.zeros(3, 64, dtype=torch.int8)
+    mips.chunk_max_int8(qi, torch.zeros(4096, 64, dtype=torch.int8),
+                        torch.ones(4096), 1024)
+    (fn, args), = fake_card.calls
+    assert fn == "chunk_max" and args[0] == 0
+    assert mips.LAUNCHES["chunk_max_int8"] == 1
+
+
+def test_int8_kernels_refuse_misaligned_rows(fake_card):
+    """The int8 templates copy 16-byte pieces: rows that start off a
+    16-byte boundary raise, and nothing is launched or counted."""
+    flat = torch.zeros(4096 * 768 + 8, dtype=torch.int8)
+    index = flat[8:].view(4096, 768)
+    assert index.data_ptr() % 16 == 8
+    qi = torch.zeros(4, 768, dtype=torch.int8)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        mips.mips_scan_int8(qi, torch.ones(4), index, torch.ones(4096), 1)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        mips.chunk_max_int8(qi, index, torch.ones(4096), 2048)
+    assert not fake_card.calls
+    assert mips.LAUNCHES["mips_scan_int8"] == mips.LAUNCHES["chunk_max_int8"] == 0
 
 
 def test_mips_scan_keeps_fp32_on_simt(fake_card):

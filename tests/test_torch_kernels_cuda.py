@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at edge shapes the serving path does not reach (ragged query tiles, every
 k, masked tails, fp32 rows, one chunk, k = the number of chunks, exact
-ties across the tensor-core templates' lanes, warps and splits).  These
+ties across the tensor-core templates' lanes, warps and splits, the int8
+extremes).  These
 need a GPU and skip without one; run them there with
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
@@ -21,6 +22,13 @@ import torch
 from multihop_dense_retrieval_tpu_torch.ops import mips
 
 pytestmark = pytest.mark.cuda
+
+# kernels 1 and 2 on the tensor cores: 20,480 rows make 80 splits of 256
+# rows (two 128-row tiles each) at one query tile; copies of the best row
+# sit in another lane (3, 4), the same thread's other half (11), the other
+# row warp (70), the next tile (131), the next split (261), far on (5000)
+# and at the last valid row; one more past n_valid must never enter
+_TIE_ROWS = (3, 4, 11, 70, 131, 261, 5000)
 
 
 @pytest.fixture
@@ -54,6 +62,124 @@ def test_int8_scan_matches_plain(dev, b, n, k, n_valid):
     assert torch.equal(kv, pv) and torch.equal(ki, pi)
 
 
+def _int8_planted(dev, g, b, n, d, n_valid, rows):
+    """Index rows over the whole int8 range (-128 included) with scales in
+    [0.5, 1), queries of 0..127 with their own scales, and a best row of
+    127s with scale 1 planted at `rows` and once more at n_valid (past the
+    valid rows): every query's best score, 127 * sum(q) before the scales,
+    is reached by the copies alone, as exact ties."""
+    idx = torch.randint(-128, 128, (n, d), device=dev, generator=g,
+                        dtype=torch.int8)
+    dsc = torch.rand(n, device=dev, generator=g) * 0.5 + 0.5
+    planted = list(rows) + [n_valid]
+    idx[planted] = 127
+    dsc[planted] = 1.0
+    q = torch.randint(0, 128, (b, d), device=dev, generator=g,
+                      dtype=torch.int8)
+    qs = torch.rand(b, device=dev, generator=g) * 0.01 + 1e-3
+    return idx, dsc, q, qs
+
+
+# kernel 1 on the int8 tensor cores: 20,480 rows make splits of 256 to 1,024
+# rows (two to eight 128-row tiles) as the query tiles narrow with k; the
+# copies of the best row sit as kernel 2's do (_TIE_ROWS below)
+@pytest.mark.parametrize("d", [128, 768, 1024])
+@pytest.mark.parametrize("k", [1, 2, 4, 7, 8])
+@pytest.mark.parametrize("b", [1, 70, 192, 200, 384])
+def test_int8_scan_on_the_tensor_cores_matches_plain(dev, b, k, d):
+    """Kernel 1's int8 tensor-core template against its plain version, bit
+    for bit: eight copies of the best row planted across lanes, the two
+    halves of a thread, the row warps, tiles and splits, and a ninth past
+    n_valid, which cuts inside a row tile; they must come back in row
+    order.  The query tile stays in shared memory: at D = 1024 and k <= 2
+    the plan narrows it to 128 (192 does not fit beside the ring); B = 192
+    to 384 take two to six query tiles."""
+    g = _gen(dev, 1000 * b + 10 * k + d)
+    n, n_valid = 20480, 20000
+    plan = mips.scan_plan(b, n, d, torch.int8, k, mips._sms(dev))
+    assert plan["route"] == "mma"
+    want = list(_TIE_ROWS) + [n_valid - 1]
+    idx, dsc, q, qs = _int8_planted(dev, g, b, n, d, n_valid, want)
+    mips.reset_launch_counts()
+    kv, ki = mips.mips_scan_int8(q, qs, idx, dsc, k, n_valid)
+    pv, pi = mips.mips_scan_int8_plain(q, qs, idx, dsc, k, n_valid)
+    torch.cuda.synchronize()
+    assert mips.LAUNCHES["mips_scan_int8"] == 1
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+    assert ki.tolist() == [want[:k]] * b
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+def test_int8_scan_with_fewer_valid_rows_than_k(dev, k):
+    """Two valid rows: the int8 tensor-core scan returns them, then
+    (NEG_INF, 0) fillers, as the plain version and the JAX merge do."""
+    g = _gen(dev, 30 + k)
+    idx = torch.randint(-128, 128, (1024, 128), device=dev, generator=g,
+                        dtype=torch.int8)
+    dsc = torch.rand(1024, device=dev, generator=g) + 0.01
+    qi, qs = mips.quantize_rows(torch.randn(40, 128, device=dev, generator=g))
+    kv, ki = mips.mips_scan_int8(qi, qs, idx, dsc, k, 2)
+    pv, pi = mips.mips_scan_int8_plain(qi, qs, idx, dsc, k, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+    assert bool((ki[:, 2:] == 0).all()) and bool((kv[:, 2:] == -3.0e38).all())
+
+
+@pytest.mark.parametrize("d", [128, 768, 1024])
+def test_int8_extremes_match_plain(dev, d):
+    """Queries of +-127 only, index rows of -128 only and of 127 only
+    beside the whole int8 range: the largest raw dots (127 * 128 * 1024 <
+    2^24, exact in the plain fp32 sums too) through kernels 1 (k = 8) and
+    7, bit-equal to their plain versions."""
+    g = _gen(dev, d + 5)
+    n, b = 8192, 70
+    idx = torch.randint(-128, 128, (n, d), device=dev, generator=g,
+                        dtype=torch.int8)
+    idx[:10] = -128
+    idx[4000:4010] = 127
+    dsc = torch.rand(n, device=dev, generator=g) + 0.01
+    sign = torch.randint(0, 2, (b, d), device=dev, generator=g) * 2 - 1
+    q = (127 * sign).to(torch.int8)
+    qs = torch.rand(b, device=dev, generator=g) + 0.01
+    kv, ki = mips.mips_scan_int8(q, qs, idx, dsc, 8, n - 3)
+    pv, pi = mips.mips_scan_int8_plain(q, qs, idx, dsc, 8, n - 3)
+    got = mips.chunk_max_int8(q, idx, dsc, 512, n - 3)
+    exp = mips.chunk_max_plain(q, idx, 512, n - 3, dsc)
+    torch.cuda.synchronize()
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+    assert torch.equal(got, exp)
+
+
+@pytest.mark.parametrize("d", [128, 768, 1024])
+@pytest.mark.parametrize("b", [1, 70, 192, 200, 384])
+def test_int8_chunk_max_on_the_tensor_cores_matches_plain(dev, b, d):
+    """Kernel 7's int8 tensor-core template against its plain version, bit
+    for bit, over 256 chunks of 512 rows: resident query tiles walk
+    several chunks a block, streamed ones (D = 1024 at 192 queries a tile,
+    B = 200 at D = 768) one; n_valid cuts chunk 254 mid-way and leaves
+    chunk 255 with no valid row (NEG_INF).  Eight copies of the best row
+    (in two lanes, two halves and two row warps of chunk 0, and chunks 1,
+    9, 128 and 254) give their chunks the best score exactly; a ninth past
+    n_valid must not count."""
+    g = _gen(dev, 7 * b + d)
+    n, chunk = 1 << 17, 512
+    n_valid = n - chunk - 100
+    plan = mips.chunk_max_plan(b, n, d, chunk, torch.int8, mips._sms(dev))
+    assert plan["route"] == "mma"
+    rows = (3, 4, 11, 70, 600, 5000, 66000, n_valid - 1)
+    idx, dsc, q, _ = _int8_planted(dev, g, b, n, d, n_valid, rows)
+    mips.reset_launch_counts()
+    got = mips.chunk_max_int8(q, idx, dsc, chunk, n_valid)
+    exp = mips.chunk_max_plain(q, idx, chunk, n_valid, dsc)
+    torch.cuda.synchronize()
+    assert mips.LAUNCHES["chunk_max_int8"] == 1
+    assert torch.equal(got, exp)
+    assert bool((got[:, -1] == -3.0e38).all())
+    best = 127 * q.float().sum(1)
+    for r in rows:
+        assert torch.equal(got[:, r // chunk], best), r
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,n,k", [(5, 1000, 1), (64, 4096, 4), (100, 3000, 7)])
 def test_float_scan_matches_plain(dev, dtype, b, n, k):
@@ -68,12 +194,6 @@ def test_float_scan_matches_plain(dev, dtype, b, n, k):
     assert torch.equal(kv, pv) and torch.equal(ki, pi)
 
 
-# kernel 2 on the tensor cores: 20,480 rows make 80 splits of 256 rows
-# (two 128-row tiles each) at any query tile; copies of the best row sit in
-# another lane (3, 4), the same thread's other half (11), the other row
-# warp (70), the next tile (131), the next split (261), far on (5000) and
-# at the last valid row; one more past n_valid must never enter
-_TIE_ROWS = (3, 4, 11, 70, 131, 261, 5000)
 
 
 @pytest.mark.parametrize("k", range(1, 9))
