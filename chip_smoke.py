@@ -4,11 +4,12 @@ encoding paths on one GPU.  Run from the repository root:  python3 chip_smoke.py
 Phases (each prints a line and flushes; any failure exits non-zero):
   1. build   — nvcc compiles every kernel from ops/csrc (one process each).
   2. kernels — each of the eight kernels against its plain PyTorch version
-               at its path's shapes (kernels 1, 2, 3, 6, 7 and 8 on their
-               tensor-core templates, int8 for 1 and 7, which each record
-               names and must have taken): kernels 1-4 at B=192, D=768,
+               at its path's shapes (every kernel on its tensor-core
+               template, int8 for 1, 4 and 7, which each record names and
+               must have taken): kernels 1-4 at B=192, D=768,
                N=1,048,576, R=128, kc=8 (kernel 1 at k = 1, 2 and 4;
-               kernel 2 also at the FEVER
+               kernel 4 also at leg d's hop 2, B=384, kc=20, 2048-row
+               chunks; kernel 2 also at the FEVER
                CLI's hop 1, B=100 over 262,144 rows, k=2, and kernel 3 at
                its hop 2, B=200 over 262,144 rows); kernel 7 at B=384, 2048-row
                chunks of that int8 index; kernels 6 and 5 at B=200 over a
@@ -28,8 +29,8 @@ Phases (each prints a line and flushes; any failure exits non-zero):
                planted as index rows, and hop 1 must return them.  Each
                path's launch counts are zeroed just before it and read
                just after it, and each must launch its kernels; kernels 1,
-               2, 3 and 7 must have taken their tensor-core templates on
-               every path that launches them (a, b, c1, c2, d, f).
+               2, 3, 4, 5 and 7 must have taken their tensor-core templates
+               on every path that launches them (a, b, c1, c2, d, f).
                a. int8: a 1,048,576-row int8 DenseIndex with a PCA
                   prefilter (R=128, 512-row chunks) and a 300-wide token
                   store; BeamSearcher at beam 1 / batch 192 / bf16 scores
@@ -138,12 +139,12 @@ def bound_ms(n_bytes, n_ops, kind):
 
 # the templates the planned wrappers took since the launch counts were last
 # reset: while such a wrapper runs, its plan function is wrapped to note
-# the route it returns (track_routes); kernels 4 and 5 have one template
+# the route it returns (track_routes)
 ROUTES = {}
 PLANNED = (("mips_scan_int8", "scan_plan"), ("mips_scan", "scan_plan"),
            ("chunk_max", "chunk_max_plan"), ("pca_chunk_max", "chunk_max_plan"),
-           ("chunk_max_int8", "chunk_max_plan"))
-FIXED_TEMPLATE = {"pca_rescan_int8": "simt", "rescan": "simt"}
+           ("chunk_max_int8", "chunk_max_plan"),
+           ("pca_rescan_int8", "rescan_plan"), ("rescan", "rescan_plan"))
 
 
 def track_routes(mips, fa):
@@ -179,8 +180,6 @@ def track_routes(mips, fa):
 def template(name):
     """The one template `name` took since its routes were last read or
     dropped (each check drops them just before its call)."""
-    if name in FIXED_TEMPLATE:
-        return FIXED_TEMPLATE[name]
     taken = ROUTES.pop(name, set())
     assert len(taken) == 1, f"{name} took templates {sorted(taken)}"
     return next(iter(taken))
@@ -281,30 +280,79 @@ def check_kernels(mips, dev, gen):
     check_pca_chunk_max(mips, qp, proj[:N_F], N_F - 1000, "leg c2's hop 2")
     del proj
 
-    # kernel 4: int8 rescan of 8 selected chunks per query
+    # kernel 4: int8 rescan of 8 selected chunks per query (leg a's hop 2,
+    # the record), and of 20 chunks of 2048 rows at B=384 (leg d's)
     idx8 = torch.randint(-127, 128, (N, D), device=dev, generator=gen,
                          dtype=torch.int8)
-    ids = torch.stack([torch.randperm(N // CAND, device=dev, generator=gen)[:KC]
-                       for _ in range(B)]).to(torch.int32)
-    ids[0, 0] = N // CAND - 1                      # the chunk with pad rows
-    kout = mips.pca_rescan_int8(ids, qi, idx8, dsc, CAND, n_valid)
-    pout = mips.rescan_plain(ids, qi, idx8, dsc, CAND, n_valid)
-    torch.cuda.synchronize()
-    assert torch.equal(kout, pout), "kernel 4 disagrees with its plain version"
-    ms = cuda_ms(lambda: mips.pca_rescan_int8(ids, qi, idx8, dsc, CAND,
-                                              n_valid), 20)
-    plain = cuda_ms(lambda: mips.rescan_plain(ids, qi, idx8, dsc, CAND,
-                                                  n_valid), 3)
-    uniq = int(torch.unique(ids).numel())          # chunks this data reads
-    bnd = bound_ms(uniq * CAND * (D + 4) + B * D + B * KC * 4
-                   + B * KC * CAND * 4, 2 * B * KC * CAND * D, "int8")
-    recs["pca_rescan_int8"] = dict(err=0.0, ms=ms, plain_ms=plain, bound=bnd,
-                                   library_ms=None,
-                                   template=template("pca_rescan_int8"))
-    del idx8
+    q8, _ = mips.quantize_rows(torch.randn(B_I8, D, device=dev, generator=gen))
+    for q, cand, kc in ((qi, CAND, KC), (q8, C_I8, K_F)):
+        rec = check_rescan(mips, q, idx8, dsc, cand, kc, n_valid, gen)
+        recs.setdefault("pca_rescan_int8", rec)
+    del idx8, q8
     check_float_two_phase(mips, dev, gen, recs)
     check_attention(dev, gen, recs)
     return recs
+
+
+def check_rescan(mips, q, index, dsc, cand, kc, n_valid, gen):
+    """Kernel 4 (``dsc`` given, int8: bit-equal) or 5 (bf16: within 1e-3 at
+    D=768 on N(0,1) data; fp32 sums in the tensor cores' order) over kc
+    distinct chunks of ``cand`` rows a query, the pad rows' chunk among
+    query 0's, on its tensor-core template; timed beside its plain twin
+    and a library yardstick over every chunk (``_int_mm`` with the scales,
+    or a bf16 ``mm``, then a ``gather`` of the selected chunks' columns)."""
+    b, n = q.shape[0], index.shape[0]
+    name = "pca_rescan_int8" if dsc is not None else "rescan"
+    ids = torch.stack([torch.randperm(n // cand, device=q.device,
+                                      generator=gen)[:kc]
+                       for _ in range(b)]).to(torch.int32)
+    ids[0, 0] = n // cand - 1                      # the chunk with pad rows
+    cols = (ids.long()[:, :, None] * cand
+            + torch.arange(cand, device=q.device)[None, None, :]).view(b, -1)
+    if dsc is not None:
+        def kernel():
+            return mips.pca_rescan_int8(ids, q, index, dsc, cand, n_valid)
+
+        def library():
+            return torch.gather(torch._int_mm(q, index.t()).float()
+                                * dsc[None, :], 1, cols)
+    else:
+        def kernel():
+            return mips.rescan(ids, q, index, cand, n_valid)
+
+        def library():
+            return torch.gather(q @ index.t(), 1, cols).float()
+    ROUTES.pop(name, None)
+    kout = kernel()
+    pout = mips.rescan_plain(ids, q, index, dsc, cand, n_valid)
+    torch.cuda.synchronize()
+    tmpl = template(name)
+    assert tmpl == "mma", f"{name} took the {tmpl} template"
+    err = (kout - pout).abs().max().item()
+    if dsc is not None:
+        assert torch.equal(kout, pout), \
+            f"kernel 4 (C={cand}, kc={kc}) disagrees with its plain version"
+    else:
+        assert err <= 1e-3, f"kernel 5 (C={cand}, kc={kc}) off by {err}"
+    ms = cuda_ms(kernel, 20)
+    plain = cuda_ms(lambda: mips.rescan_plain(ids, q, index, dsc, cand,
+                                              n_valid), 2)
+    lib = _library(library)
+    uniq = int(torch.unique(ids).numel())          # chunks this data reads
+    row_bytes = index.shape[1] * index.element_size() + (4 if dsc is not None
+                                                         else 0)
+    bnd = bound_ms(uniq * cand * row_bytes + q.numel() * q.element_size()
+                   + b * kc * 4 + b * kc * cand * 4,
+                   2 * b * kc * cand * index.shape[1],
+                   "int8" if dsc is not None else "bf16")
+    say(f"  kernel {4 if dsc is not None else 5} at B={b}, C={cand}, kc={kc} "
+        f"({tmpl}): {ms:.4f} ms (plain {plain:.4f} ms, "
+        f"{'_int_mm' if dsc is not None else 'mm'} + gather {lib:.4f} ms, "
+        f"bound {bnd[0]:.4f} ms by {bnd[1]}, {bnd[0] / ms:.3f} of it, "
+        f"{uniq} distinct chunks); "
+        + ("bit-equal" if dsc is not None else f"max abs err {err:.3g}"))
+    return dict(err=err, ms=ms, plain_ms=plain, bound=bnd, library_ms=lib,
+                template=tmpl)
 
 
 def check_scan(mips, q32, idxb, k, n_valid, what):
@@ -391,30 +439,9 @@ def check_float_two_phase(mips, dev, gen, recs):
     # kernel 5 at its two shapes: two-phase phase 2 (20 chunks of 2048
     # rows, the record in the kernels line) and the PCA rescan (16 chunks
     # of 512, printed on its own line)
-    rescans = []
-    for cand, kc in ((C_F, K_F), (CAND, KC_PCA_F)):
-        ids = torch.stack([torch.randperm(N_F // cand, device=dev,
-                                          generator=gen)[:kc]
-                           for _ in range(B_F)]).to(torch.int32)
-        ids[0, 0] = N_F // cand - 1                # the chunk with pad rows
-        kout = mips.rescan(ids, qb, idxb, cand, n_valid)
-        pout = mips.rescan_plain(ids, qb, idxb, None, cand, n_valid)
-        torch.cuda.synchronize()
-        err = (kout - pout).abs().max().item()
-        assert err <= 1e-3, f"kernel 5 (C={cand}, kc={kc}) off by {err}"
-        ms = cuda_ms(lambda: mips.rescan(ids, qb, idxb, cand, n_valid), 10)
-        plain = cuda_ms(lambda: mips.rescan_plain(ids, qb, idxb, None, cand,
-                                                  n_valid), 2)
-        uniq = int(torch.unique(ids).numel())      # chunks this data reads
-        bnd = bound_ms(uniq * cand * D * 2 + B_F * D * 2 + B_F * kc * 4
-                       + B_F * kc * cand * 4, 2 * B_F * kc * cand * D, "bf16")
-        rescans.append(dict(err=err, ms=ms, plain_ms=plain, bound=bnd,
-                            library_ms=None))
-        say(f"  kernel 5 at C={cand}, kc={kc}: {ms:.4f} ms (plain "
-            f"{plain:.4f} ms, bound {bnd[0]:.4f} ms by {bnd[1]}, "
-            f"{uniq} distinct chunks)")
-    recs["rescan"] = dict(rescans[0], err=max(r["err"] for r in rescans),
-                          template=template("rescan"))
+    rescans = [check_rescan(mips, qb, idxb, None, cand, kc, n_valid, gen)
+               for cand, kc in ((C_F, K_F), (CAND, KC_PCA_F))]
+    recs["rescan"] = dict(rescans[0], err=max(r["err"] for r in rescans))
 
 
 def attention_inputs(dev, gen, b, wq, w, dtype):
@@ -1313,8 +1340,8 @@ REPLACES = {
     "mips_scan_int8": (CU + "mips_scan_i8.cu", TPU + "316", "int8"),
     "mips_scan": (CU + "mips_scan_mma.cu", TPU + "220", "bf16"),
     "pca_chunk_max": (CU + "chunk_max_mma.cu", TPU + "868", "int8"),
-    "pca_rescan_int8": (CU + "two_phase.cu", TPU + "554", "int8"),
-    "rescan": (CU + "two_phase.cu", TPU + "532", "fever_c1"),
+    "pca_rescan_int8": (CU + "rescan_mma.cu", TPU + "554", "int8"),
+    "rescan": (CU + "rescan_mma.cu", TPU + "532", "fever_c1"),
     "chunk_max": (CU + "chunk_max_mma.cu", TPU + "489", "fever_c1"),
     "chunk_max_int8": (CU + "chunk_max_i8.cu", TPU + "506", "int8_two_phase"),
     "fused_attention": (CU + "fused_attention.cu",
@@ -1323,16 +1350,16 @@ REPLACES = {
 }
 
 
-# sources of the tensor-core templates (kernels 1, 2, 3, 6, 7 and 8), whose
-# ptxas lines are printed under their kernels' names
+# sources of the tensor-core templates (every kernel), whose ptxas lines are
+# printed under their kernels' names
 TENSOR_CORE_SOURCES = ("mips_scan_mma", "mips_scan_i8", "chunk_max_mma",
-                       "chunk_max_i8", "fused_attention")
-# the legs that launch kernels 1, 2, 3 and 7, and those kernels, which must
-# take the tensor cores wherever they run
+                       "chunk_max_i8", "rescan_mma", "fused_attention")
+# the legs that launch kernels 1, 2, 3, 4, 5 and 7, and those kernels, which
+# must take the tensor cores wherever they run
 MMA_LEGS = ("int8", "int8_two_phase", "fused_serving", "bf16", "fever_c1",
             "fever_c2")
 MMA_KERNELS = ("mips_scan_int8", "mips_scan", "pca_chunk_max",
-               "chunk_max_int8")
+               "chunk_max_int8", "pca_rescan_int8", "rescan")
 
 
 def main():

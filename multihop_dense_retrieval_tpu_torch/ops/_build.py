@@ -27,7 +27,7 @@ from typing import Dict, List
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("mips_scan", "mips_scan_mma", "mips_scan_i8", "two_phase",
-           "chunk_max_mma", "chunk_max_i8", "fused_attention")
+           "chunk_max_mma", "chunk_max_i8", "rescan_mma", "fused_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -56,6 +56,10 @@ SIGNATURES = {
     },
     "chunk_max_i8": {
         "chunk_max_i8": ([P, P, P, I, LL, LL, I, I, I, LL, I, I, P, P], I),
+    },
+    "rescan_mma": {
+        "rescan_mma": ([I, P, P, P, P, I, I, LL, LL, I, I, I, I, I, I, LL,
+                        P, P], I),
     },
     "fused_attention": {
         "fused_attention": ([I, I, I, P, P, P, P, I, I, I, I, I, F, LL, P,

@@ -1,12 +1,14 @@
-// The int8 tensor-core stage of kernels 1 and 7 (mips_scan_i8.cu,
-// chunk_max_i8.cu).  Index rows are the M side of mma.sync.m16n8k32 s8 x s8
-// -> s32 in tiles of MT=128, the queries of a query tile (QN = 32 * NW) its
-// N side.  A row's k-slice of KS=128 bytes streams through a ring of
-// STAGES=4 shared-memory stages filled by cp.async, rows padded to LDS=144
-// bytes so that ldmatrix is free of bank conflicts (the bf16 templates'
-// rows, byte for byte: mma.cuh).  Each tile's 128 fp32 row scales ride with
-// its last k-slice into a per-stage slot.  A block of NT=256 threads splits
-// a tile 2 (64 rows) x 4 (QN / 4 queries) warps.
+// The byte-wise tensor-core stage of kernels 1 and 7 (mips_scan_i8.cu,
+// chunk_max_i8.cu) and of both rescan instances (rescan_mma.cu, kernels 4
+// and 5).  Index rows are the M side of mma.sync (m16n8k32 s8 x s8 -> s32,
+// or m16n8k16 bf16 x bf16 -> fp32: the same fragments byte for byte, and a
+// k-step of 32 bytes in both, mma.cuh) in tiles of MT=128, the queries of a
+// query tile (QN = 32 * NW) its N side.  A row's k-slice of KS=128 bytes
+// streams through a ring of STAGES=4 shared-memory stages filled by
+// cp.async, rows padded to LDS=144 bytes so that ldmatrix is free of bank
+// conflicts.  Each tile's 128 fp32 row scales (int8) ride with its last
+// k-slice into a per-stage slot.  A block of NT=256 threads splits a tile 2
+// (64 rows) x 4 (QN / 4 queries) warps.
 #pragma once
 
 #include <stdint.h>
@@ -64,18 +66,32 @@ __device__ __forceinline__ void load_rows(int8_t* da, float* sc,
   }
 }
 
+// one 32-byte k-step of mma.sync, chosen by the accumulators' type
+__device__ __forceinline__ void mma_k32(int (&d)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  mma_s8(d, a, b0, b1);
+}
+__device__ __forceinline__ void mma_k32(float (&d)[4],
+                                        const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+  mma_bf16(d, a, b0, b1);
+}
+
 // a stage's products: acc[mt][j] += (the warp's rows mt * 16 .. at ta,
 // [64][LDS]) x (its queries j * 8 .. at tb, rows ldb bytes apart) over KS
-// bytes
-template <int NW>
-__device__ __forceinline__ void mma_stage(int (&acc)[4][NW][4],
+// bytes, for the warp's first `active` query groups j (the others, which
+// hold no query, are skipped; kernels 1 and 7 pass NW)
+template <int NW, typename Acc>
+__device__ __forceinline__ void mma_stage(Acc (&acc)[4][NW][4],
                                           const int8_t* ta, const int8_t* tb,
-                                          int ldb, int lane) {
+                                          int ldb, int lane, int active = NW) {
+  if (active <= 0) return;
 #pragma unroll
   for (int kk = 0; kk < KS; kk += 32) {
     uint32_t bq[NW][2];
 #pragma unroll
     for (int j = 0; j + 1 < NW; j += 2) {
+      if (j >= active) continue;
       uint32_t r[4];
       ldmatrix_x4(r, tb + (j * 8 + (lane / 16) * 8 + lane % 8) * ldb + kk +
                          ((lane / 8) % 2) * 16);
@@ -85,18 +101,21 @@ __device__ __forceinline__ void mma_stage(int (&acc)[4][NW][4],
       bq[j + 1][1] = r[3];
     }
     if constexpr (NW % 2 == 1) {
-      uint32_t r[2];
-      ldmatrix_x2(r, tb + ((NW - 1) * 8 + lane % 8) * ldb + kk +
-                         ((lane / 8) % 2) * 16);
-      bq[NW - 1][0] = r[0];
-      bq[NW - 1][1] = r[1];
+      if (NW - 1 < active) {
+        uint32_t r[2];
+        ldmatrix_x2(r, tb + ((NW - 1) * 8 + lane % 8) * ldb + kk +
+                           ((lane / 8) % 2) * 16);
+        bq[NW - 1][0] = r[0];
+        bq[NW - 1][1] = r[1];
+      }
     }
 #pragma unroll
     for (int mt = 0; mt < 4; ++mt) {
       uint32_t a[4];
       ldmatrix_x4(a, ta + (mt * 16 + lane % 16) * LDS + kk + (lane / 16) * 16);
 #pragma unroll
-      for (int j = 0; j < NW; ++j) mma_s8(acc[mt][j], a, bq[j][0], bq[j][1]);
+      for (int j = 0; j < NW; ++j)
+        if (j < active) mma_k32(acc[mt][j], a, bq[j][0], bq[j][1]);
     }
   }
 }

@@ -1,6 +1,7 @@
 // The two phases shared by the exact two-phase search and the PCA-prefiltered
-// certified search: per-chunk maxima (kernels 3, 6, 7), then a rescan of
-// each query's selected chunks (kernels 4, 5).  Bounds below are for an H100
+// certified search, as SIMT templates for the rows the tensor-core
+// templates do not take: per-chunk maxima (kernels 3, 6, 7), then a rescan
+// of each query's selected chunks (kernels 4, 5).  Bounds below are for an H100
 // SXM (3.35 TB/s; 989 TFLOP/s bf16, 1,979 TOP/s int8 on the tensor cores).
 //
 // chunk_max_kernel<T> replaces three TPU kernels of the JAX package's
@@ -29,8 +30,10 @@
 // the scan it runs on CUDA-core FMAs / __dp4a in this first version.
 //
 // rescan_kernel<T> replaces ops/mips.py::_rescan_kernel_int8 (kernel 4) and
-// ::_rescan_kernel (kernel 5), the two bodies of _sparse_rescan: one block
-// per (query, selected chunk).  The TPU prefetched the chunk ids as scalars
+// ::_rescan_kernel (kernel 5), the two bodies of _sparse_rescan, for the
+// rows the chunk-major tensor-core template of rescan_mma.cu does not take:
+// fp32 rows, int8 rows off a multiple of 128 bytes and bf16 rows off a
+// multiple of 64.  One block per (query, selected chunk).  The TPU prefetched the chunk ids as scalars
 // to drive its DMA; here the block loads its own id.  Each warp walks rows of
 // the chunk; lane l holds query words l, l+32, ... in registers (MAXM words:
 // 8, 16 or 32, picked by the row width, so D <= 1024 fp32 / 2048 bf16 / 4096
@@ -40,11 +43,9 @@
 // scale afterwards, mips.py:988, so the order (raw*dsc)*q_scale is kept).
 // bf16/fp32: the query arrives in the index dtype (the caller casts, as
 // mips.py:942 does) and products accumulate in fp32.  Rows >= n_valid give
-// NEG_INF.  Bound: the distinct selected chunks read once, e.g. kernel 4 at
-// B=192, kc=8, 512-row int8 chunks, D=768: <= 0.60 GB, 0.18 ms; kernel 5 at
-// B=200, kc=20, 2048-row bf16 chunks: <= 0.40 GB (the whole index), 0.12 ms.
-// Every block reads its own chunk, so queries that share a chunk read it
-// again (from L2 when it is still there).
+// NEG_INF.  Bound: the distinct selected chunks read once.  Every block
+// reads its own chunk, so queries that share a chunk read it again (from
+// L2 when it is still there).
 #include "tile_dot.cuh"
 
 namespace mdrt {

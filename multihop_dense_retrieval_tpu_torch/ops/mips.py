@@ -15,8 +15,12 @@ a tensor on the CPU (a CUDA tensor the kernel does not take raises):
   3. ``pca_chunk_max``   — PCA phase 1, chunk maxima      (csrc/chunk_max_mma.cu,
                            on the tensor cores; csrc/two_phase.cu for
                            widths off a multiple of 64)
-  4. ``pca_rescan_int8`` — phase 2, int8 rescan           (csrc/two_phase.cu)
-  5. ``rescan``          — phase 2, bf16/fp32 rescan      (csrc/two_phase.cu)
+  4. ``pca_rescan_int8`` — phase 2, int8 rescan           (csrc/rescan_mma.cu,
+                           on the int8 tensor cores; csrc/two_phase.cu for
+                           widths off a multiple of 128)
+  5. ``rescan``          — phase 2, bf16/fp32 rescan      (csrc/rescan_mma.cu
+                           for bf16, on the tensor cores; csrc/two_phase.cu
+                           for fp32 and widths off a multiple of 64)
   6. ``chunk_max``       — two-phase phase 1, bf16/fp32   (csrc/chunk_max_mma.cu
                            for bf16, on the tensor cores; csrc/two_phase.cu
                            for fp32)
@@ -553,31 +557,118 @@ def rescan_plain(chunk_ids, q_used, index, d_scale, cand_rows: int,
     return torch.cat(outs, dim=1)
 
 
+# the rescan's tensor-core template (csrc/rescan_mma.cu): the most blocks that
+# share the query tiles of one chunk's row range
+_RESCAN_GROUPS = 4
+
+
+def _rescan_smem(q_tile: int, row_bytes: int, int8: bool) -> int:
+    """Dynamic shared memory of the rescan's tensor-core template: the ring
+    of 4 stages of 128 rows x 144 bytes, a slot of 128 fp32 row scales per
+    stage (int8), the gathered query tile ([q_tile][row_bytes + 16] bytes),
+    the tile's slot ids and 64 bytes of the warps' match counts."""
+    return (_MMA_STAGES * _MMA_ROWS * (_I8_KS + 16)
+            + (_MMA_STAGES * _MMA_ROWS * 4 if int8 else 0)
+            + q_tile * (row_bytes + 16) + q_tile * 4 + 64)
+
+
+def rescan_plan(b: int, kc: int, n: int, cand_rows: int, d: int, dtype,
+                sms: int = 132) -> dict:
+    """Route and launch plan of the rescan kernels 4 and 5.  int8 rows of a
+    width that is a multiple of 128 (kernel 4) and bf16 rows of a width
+    that is a multiple of 64 (kernel 5) take the chunk-major tensor-core
+    template: ``grid`` = (N / cand_rows chunks, ``splits`` x ``groups``),
+    block (c, s + splits * g) scoring rows s * ``rows_per_split`` .. of
+    chunk c against the g-th, (g + groups)-th, ... query tile of
+    ``q_tile`` slots among those that selected c.
+      * ``q_tile``: the b * kc slots fall on m = b * kc / min(chunks,
+        b * kc) a chunk on average; the tile is the multiple of 32 that
+        covers m and three standard deviations more (m + 3 sqrt(m) + 1),
+        narrowed until it fits beside the ring.  A wider tile than the
+        chunks need leaves the card fewer blocks (one an SM from 114 KB of
+        shared memory).
+      * ``groups``: a chunk that every query selected holds b slots, ceil(b
+        / q_tile) tiles, each a pass over its rows; up to 4 blocks share
+        them, so that such a chunk does not run long after the others.
+      * ``rows_per_split``: where such a chunk still leaves a block more
+        than one pass, or where the chunks are fewer than half the SMs
+        (then about one block an SM), a chunk's rows are split
+        (``_splits``), in ranges of at most 512 rows in the first case.
+    ``smem`` is ``_rescan_smem``'s.  fp32 rows (a tensor-core product of
+    fp32 would be TF32) and other widths take the SIMT template of
+    csrc/two_phase.cu: one block per (query, selected chunk).  The C entry
+    point of the tensor-core template checks the plan against its own
+    count."""
+    row_bytes = d * dtype.itemsize
+    int8 = dtype == torch.int8
+    if not ((int8 and d % _I8_KS == 0)
+            or (dtype == torch.bfloat16 and d % _MMA_KS == 0)):
+        return dict(route="simt", block=256, grid=(kc, b, 1), smem=0)
+    num_chunks = n // cand_rows
+    chunks = max(1, min(num_chunks, b * kc))
+    m = b * kc / chunks
+    q_tile = min(_MMA_QMAX, -(-int(m + 3 * m ** 0.5 + 1) // 32) * 32)
+    while q_tile > 32 and _rescan_smem(q_tile, row_bytes, int8) > SMEM_LIMIT:
+        q_tile -= 32
+    passes = -(-b // q_tile)
+    groups = min(passes, _RESCAN_GROUPS)
+    want = -(-sms // chunks) if 2 * chunks < sms else 1
+    if passes > groups:
+        want = max(want, -(-cand_rows // 512))
+    rows, splits = _splits(cand_rows, want)
+    return dict(route="mma", block=256, q_tile=q_tile, rows_per_split=rows,
+                splits=splits, groups=groups,
+                grid=(num_chunks, splits * groups, 1),
+                smem=_rescan_smem(q_tile, row_bytes, int8))
+
+
 def _launch_rescan(code, chunk_ids, q, index, d_scale, cand_rows, n_valid):
     from . import _build
 
     b, kc = chunk_ids.shape
-    row_bytes = index.shape[1] * index.element_size()
-    _require(row_bytes % 4 == 0 and row_bytes <= 4096,
-             f"row bytes {row_bytes}: need a multiple of 4, at most 4096")
+    n, d = index.shape
+    _require(tuple(q.shape) == (b, d), f"queries {tuple(q.shape)} do not "
+             f"match ({b}, {d})")
+    row_bytes = d * index.element_size()
     ids = chunk_ids.to(torch.int32).contiguous()
+    if ids.data_ptr() % 16:
+        ids = ids.clone()
     for t in (q, index, d_scale):
         _require(t is None or t.is_contiguous(), "inputs must be contiguous")
+    plan = rescan_plan(b, kc, n, cand_rows, d, index.dtype, _sms(index.device))
     out = torch.empty((b, kc * cand_rows), dtype=torch.float32,
                       device=index.device)
+    nv = n if n_valid is None else n_valid
+    if plan["route"] == "mma":
+        _check_chunks(n, cand_rows)
+        _aligned(q, index)
+        _require(plan["smem"] <= SMEM_LIMIT,
+                 f"D={d} needs more shared memory than a block has")
+        lib = _build.load("rescan_mma")
+        _build.check(lib.rescan_mma(
+            code, ids.data_ptr(), q.data_ptr(), index.data_ptr(),
+            None if d_scale is None else d_scale.data_ptr(), b, kc, n, nv, d,
+            cand_rows, plan["q_tile"], plan["rows_per_split"],
+            plan["splits"], plan["groups"], plan["smem"], out.data_ptr(),
+            _stream()), "rescan_mma")
+        return out
+    _require(row_bytes % 4 == 0 and row_bytes <= 4096,
+             f"row bytes {row_bytes}: need a multiple of 4, at most 4096")
     lib = _build.load("two_phase")
     _build.check(lib.rescan(
         code, ids.data_ptr(), q.data_ptr(), index.data_ptr(),
         None if d_scale is None else d_scale.data_ptr(), b, kc,
-        row_bytes // 4, cand_rows,
-        index.shape[0] if n_valid is None else n_valid, out.data_ptr(),
-        _stream()), "rescan")
+        row_bytes // 4, cand_rows, nv, out.data_ptr(), _stream()), "rescan")
     return out
 
 
 def pca_rescan_int8(chunk_ids, q_int8, index, d_scale, cand_rows: int,
                     n_valid: Optional[int] = None):
-    """Kernel 4: int8 rescan of each query's selected chunks."""
+    """Kernel 4: int8 rescan of each query's selected chunks, (B, kc *
+    cand_rows) fp32 float(raw) * d_scale[row] (the caller multiplies by
+    the query scale), bit-equal to the JAX kernel.  Routed as
+    ``rescan_plan`` says: widths a multiple of 128 on the int8 tensor
+    cores, the rest on SIMT."""
     if not _on_cuda(chunk_ids, q_int8, index, d_scale):
         return rescan_plain(chunk_ids, q_int8, index, d_scale, cand_rows,
                             n_valid)
@@ -590,7 +681,9 @@ def pca_rescan_int8(chunk_ids, q_int8, index, d_scale, cand_rows: int,
 
 def rescan(chunk_ids, q, index, cand_rows: int, n_valid: Optional[int] = None):
     """Kernel 5: bf16/fp32 rescan of each query's selected chunks; ``q`` is
-    cast to the index dtype, products accumulate in fp32."""
+    cast to the index dtype, products accumulate in fp32.  Routed as
+    ``rescan_plan`` says: bf16 (widths a multiple of 64) on the tensor
+    cores, the rest on SIMT."""
     if not _on_cuda(chunk_ids, q, index):
         return rescan_plain(chunk_ids, q, index, None, cand_rows, n_valid)
     _require(index.dtype in _FLOAT_CODES,

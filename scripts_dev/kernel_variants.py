@@ -1,5 +1,4 @@
-"""Where the H100 port's tensor-core kernels 1, 2, 3, 6, 7 and 8 spend their
-time.
+"""Where the H100 port's tensor-core kernels spend their time.
 
 Builds variants of ``ops/csrc/fused_attention.cu``,
 ``ops/csrc/chunk_max_mma.cu``, ``ops/csrc/mips_scan_mma.cu`` and
@@ -35,6 +34,19 @@ kernel 7 at (384, 1M, 768,
 queries one chunk a block, streamed queries one chunk a block, and
 "nofold" (no max fold, wrong output).  Every variant that should be right
 is held bit-equal to the plain twin.
+rescan: kernels 5 and 4 on their tensor-core template (rescan_mma.cu)
+against the SIMT template (two_phase.cu's rescan, the kernel both ran on
+before) on the same inputs, in turns (simt, plan, plan, simt), at leg c1's
+shape (bf16, B=200, 20 of 128 chunks of 2048 rows, D=768), c2's (bf16,
+B=200, 16 of 512 chunks of 512), leg a's (int8, B=192, 8 of 2048 chunks of
+512 over 1M rows) and leg d's (int8, B=384, 20 of 512 chunks of 2048),
+these two once with distinct random chunks and once with every query's
+first chunk the same (as the legs' planted rows make it), and a shape with
+few chunks (bf16, B=200, 8 of 16 chunks of 2048, where the plan splits
+rows); beside them the template with other row splits (one block a chunk,
+512, 256 and 128 rows a block), query tiles of 32, 64 and 96 slots, one,
+two and four blocks sharing a row range's query tiles, and "nostore" (the epilogue's stores off: what they cost, wrong output).  int8
+held bit-equal to the plain twin, bf16 within 1e-3.
 parent (with --parent DIR, an unpacked earlier commit whose kernels 2, 3
 and 6 have the tree's entry points): DIR's mips_scan_mma.cu and
 chunk_max_mma.cu, built against DIR's headers, against the tree's, in
@@ -44,7 +56,7 @@ turns (parent, tree, tree, parent), at kernel 2's record shape (192, 1M,
 
 Needs a GPU and nvcc; run from the repository root:
     python3 scripts_dev/kernel_variants.py [attention] [chunk] [scan] [pca]
-        [int8] [parent --parent DIR]
+        [int8] [rescan] [parent --parent DIR]
 """
 
 import argparse
@@ -70,6 +82,7 @@ CMAX_SRC = (_build.CSRC / "chunk_max_mma.cu").read_text()
 SCAN_SRC = (_build.CSRC / "mips_scan_mma.cu").read_text()
 I8_SCAN_SRC = (_build.CSRC / "mips_scan_i8.cu").read_text()
 I8_CMAX_SRC = (_build.CSRC / "chunk_max_i8.cu").read_text()
+RESCAN_SRC = (_build.CSRC / "rescan_mma.cu").read_text()
 DIV = re.compile(r"div_rn\(expf\(([^()]*)\), (l[01]), r[01]\)")
 
 
@@ -151,7 +164,7 @@ def best_ms(fn):
 ATTN_NAMES = ("tree", "ieee", "mul", "noexp3", "nop2")
 CHUNK_CFGS = ((32, 4), (64, 3), (64, 4))
 SCAN_NAMES = ("tree", "raw", "nofold")
-SECTIONS = ("attention", "chunk", "scan", "pca", "int8", "parent")
+SECTIONS = ("attention", "chunk", "scan", "pca", "int8", "rescan", "parent")
 
 
 def main():
@@ -188,6 +201,12 @@ def main():
         sources["i8cmax_tree"] = (I8_CMAX_SRC, "chunk_max_i8")
         sources["i8cmax_nofold"] = (nofold(I8_CMAX_SRC),
                                     "chunk_max_i8")
+    if "rescan" in run:
+        sources["rescan_tree"] = (RESCAN_SRC, "rescan_mma")
+        nostore = RESCAN_SRC.replace("if (j < active && my_slot[j][e] >= 0)",
+                                     "if (false)")
+        assert nostore != RESCAN_SRC
+        sources["rescan_nostore"] = (nostore, "rescan_mma")
     if "parent" in run:
         csrc = os.path.join(args.parent,
                             "multihop_dense_retrieval_tpu_torch/ops/csrc")
@@ -211,6 +230,8 @@ def main():
             time_pca(libs, dev, gen)
         if "int8" in run:
             time_int8(libs, dev, gen)
+        if "rescan" in run:
+            time_rescan(libs, dev, gen)
         if "parent" in run:
             time_parent(libs, dev, gen)
     return 0
@@ -400,6 +421,87 @@ def time_int8(libs, dev, gen):
     print(f"kernel 7 B=384 N={n} C={CHUNK} (plan: q_tile {qn}, "
           f"{plan['per_block']} chunks a block), ms: " + ", ".join(row),
           flush=True)
+
+
+def time_rescan(libs, dev, gen):
+    sms, simt = mips._sms(dev), _build.load("two_phase")
+    n8, nf = 1 << 20, NF
+    idx8 = torch.randint(-127, 128, (n8, D), device=dev, generator=gen,
+                         dtype=torch.int8)
+    dsc = torch.rand(n8, device=dev, generator=gen) * 0.02 + 1e-3
+    idxb = torch.randn(nf, D, device=dev, generator=gen).to(torch.bfloat16)
+    cases = (("c1", idxb, None, 200, 2048, 20, False),
+             ("c2", idxb, None, 200, 512, 16, False),
+             ("leg a", idx8, dsc, 192, 512, 8, False),
+             ("leg a, planted", idx8, dsc, 192, 512, 8, True),
+             ("leg d", idx8, dsc, 384, 2048, 20, False),
+             ("leg d, planted", idx8, dsc, 384, 2048, 20, True),
+             ("few chunks", idxb[:1 << 15], None, 200, 2048, 8, False))
+    for what, idx, sc, b, cand, kc, planted in cases:
+        n, int8 = idx.shape[0], sc is not None
+        q32 = torch.randn(b, D, device=dev, generator=gen)
+        q = mips.quantize_rows(q32)[0] if int8 else q32.to(torch.bfloat16)
+        ids = torch.stack([torch.randperm(n // cand, device=dev,
+                                          generator=gen)[:kc]
+                           for _ in range(b)]).to(torch.int32)
+        if planted:
+            ids[:, 0] = n // cand // 3
+        nv = n - 1000
+        ref = mips.rescan_plain(ids, q, idx, sc, cand, nv)
+        plan = mips.rescan_plan(b, kc, n, cand, D, idx.dtype, sms)
+        out = torch.empty(b, kc * cand, device=dev)
+        code = 0 if int8 else 1
+
+        def mma(q_tile, rows, groups=1, lib="rescan_tree"):
+            return lambda: libs[lib].rescan_mma(
+                code, ids.data_ptr(), q.data_ptr(), idx.data_ptr(),
+                sc.data_ptr() if int8 else None, b, kc, n, nv, D, cand,
+                q_tile, rows, -(-cand // rows), groups,
+                mips._rescan_smem(q_tile, D * idx.element_size(), int8),
+                out.data_ptr(), stream())
+
+        def simt_call():
+            return simt.rescan(code, ids.data_ptr(), q.data_ptr(),
+                               idx.data_ptr(), sc.data_ptr() if int8 else None,
+                               b, kc, D * idx.element_size() // 4, cand, nv,
+                               out.data_ptr(), stream())
+
+        def run(fn, must_match=True):
+            out.fill_(float("nan"))
+            assert fn() == 0
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            ok = torch.equal(out, ref) if int8 else err <= 1e-3
+            assert ok or not must_match, (what, err)
+            return best_ms(fn), ok
+
+        plan_call = mma(plan["q_tile"], plan["rows_per_split"],
+                        plan["groups"])
+        times = {"simt": [], "plan": []}
+        for name in ("simt", "plan", "plan", "simt"):
+            times[name].append(run(simt_call if name == "simt"
+                                   else plan_call)[0])
+        row = [f"simt {times['simt'][0]:.4f} / {times['simt'][1]:.4f}",
+               f"plan {times['plan'][0]:.4f} / {times['plan'][1]:.4f}"]
+        qt, rs, gs = plan["q_tile"], plan["rows_per_split"], plan["groups"]
+        variants = [(f"{r}-row split", qt, r, gs)
+                    for r in (cand, 512, 256, 128) if r <= cand]
+        variants += [(f"q_tile {t}", t, rs, gs) for t in (32, 64, 96)
+                     if mips._rescan_smem(t, D * idx.element_size(), int8)
+                     <= mips.SMEM_LIMIT]
+        variants += [(f"{g} tile groups", qt, rs, g) for g in (1, 2, 4)]
+        variants += [(f"{g} tile groups, {r}-row split", qt, r, g)
+                     for g, r in ((2, 512), (4, 512), (2, 256)) if r < cand]
+        for label, q_tile, rows, groups in variants:
+            if (q_tile, rows, groups) != (qt, rs, gs):
+                row.append(f"{label} "
+                           f"{run(mma(q_tile, rows, groups))[0]:.4f}")
+        ms, _ = run(mma(qt, rs, gs, "rescan_nostore"), must_match=False)
+        row.append(f"nostore {ms:.4f} (wrong)")
+        print(f"kernel {4 if int8 else 5} at {what} (B={b}, C={cand}, "
+              f"kc={kc}; plan: q_tile {qt}, {plan['splits']} x {rs} rows, "
+              f"{gs} tile groups), ms: "
+              + ", ".join(row), flush=True)
 
 
 def time_parent(libs, dev, gen):

@@ -1,8 +1,8 @@
-"""Launch plans of kernels 1, 2, 3, 6, 7 and 8, on the CPU.
+"""Launch plans of kernels 1-8, on the CPU.
 
 Each wrapper decides its template (tensor cores, one warp a row, or SIMT),
 grid, padding and dynamic shared memory in a plain Python function
-(``mips.scan_plan``, ``mips.chunk_max_plan``,
+(``mips.scan_plan``, ``mips.chunk_max_plan``, ``mips.rescan_plan``,
 ``fused_attention.attention_plan``), and the C
 entry point refuses a plan that disagrees with its own count.  These tests
 walk every shape the wrappers accept, so that a plan the card would refuse
@@ -16,6 +16,7 @@ import importlib
 import re
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -53,6 +54,7 @@ def _constexpr(source: str, name: str) -> int:
     ("mips_scan_i8.cu", "QN_K2", mips._SCAN_QMAX[2]),
     ("mips_scan_i8.cu", "QN_K4", mips._SCAN_QMAX[4]),
     ("mips_scan_i8.cu", "QN_K8", mips._SCAN_QMAX[8]),
+    ("rescan_mma.cu", "MAX_QN", mips._MMA_QMAX),
     ("fused_attention.cu", "KSTRIP", fa._KSTRIP),
     ("fused_attention.cu", "ROW_WARPS", fa._ROW_WARPS),
 ])
@@ -427,6 +429,128 @@ def test_chunk_max_rejects_chunks_off_the_row_tile():
         mips._check_chunks(5000, 1024)
 
 
+# ---- kernels 4 and 5 ---------------------------------------------------------
+
+
+def _rescan_route(d, dtype):
+    if dtype == torch.int8 and d % 128 == 0:
+        return "mma"
+    if dtype == torch.bfloat16 and d % 64 == 0:
+        return "mma"
+    return "simt"
+
+
+def _check_rescan_plan(plan, b, kc, n, cand, d, dtype):
+    assert plan["route"] == _rescan_route(d, dtype), (b, kc, cand, d, dtype)
+    if plan["route"] == "simt":
+        assert plan["grid"] == (kc, b, 1)
+        return
+    row_bytes = d * dtype.itemsize
+    q_tile, rows, splits = plan["q_tile"], plan["rows_per_split"], \
+        plan["splits"]
+    assert q_tile % 32 == 0 and 32 <= q_tile <= 256
+    assert plan["smem"] == mips._rescan_smem(q_tile, row_bytes,
+                                             dtype == torch.int8)
+    assert plan["smem"] <= SMEM_LIMIT, (b, kc, cand, d, dtype, plan)
+    # a wider tile only where a narrower one would not cover b * kc slots
+    assert q_tile == 32 or q_tile - 32 < b * kc
+    assert rows % 128 == 0 and 128 <= rows <= -(-cand // 128) * 128
+    assert splits * rows >= cand and (splits - 1) * rows < cand
+    assert 1 <= plan["groups"] <= mips._RESCAN_GROUPS
+    assert plan["grid"] == (n // cand, splits * plan["groups"], 1)
+    assert plan["grid"][1] <= GRID_YZ
+    # every chunk streams its 16-byte pieces through 128-byte k-slices
+    assert row_bytes % mips._I8_KS == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [64, 128, 768, 1024])
+@pytest.mark.parametrize("cand", [128, 512, 2048])
+def test_rescan_plan_fits_every_batch(cand, d, dtype):
+    """B from 1 to 512, kc in (1, 8, 16, 20), over 16 chunks and over 1M
+    rows: the route follows the width rule (int8 rows a multiple of 128
+    bytes and bf16 rows of 64 elements on the tensor cores, fp32 and the
+    rest on SIMT), shared memory fits a block, the row ranges cover a
+    chunk with none empty, and the grid fits."""
+    for n in (16 * cand, 1 << 20):
+        for kc in (1, 8, 16, 20):
+            for b in range(1, 513):
+                plan = mips.rescan_plan(b, kc, n, cand, d, dtype)
+                _check_rescan_plan(plan, b, kc, n, cand, d, dtype)
+
+
+def _rescan_writes(ids, plan, cand):
+    """How often the tensor-core template's schedule writes each (slot,
+    row) of the (B * kc, cand) output: block (c, s + splits * g) ranks the
+    slots that selected chunk c and takes their query tiles g, g + groups,
+    ... over its row range, as csrc/rescan_mma.cu does."""
+    flat = ids.reshape(-1)
+    qn, rows = plan["q_tile"], plan["rows_per_split"]
+    splits, groups = plan["splits"], plan["groups"]
+    writes = np.zeros((flat.size, cand), np.int32)
+    for c in range(plan["grid"][0]):
+        slots = np.flatnonzero(flat == c)
+        for y in range(plan["grid"][1]):
+            s, g = y % splits, y // splits
+            r0, r1 = s * rows, min(cand, (s + 1) * rows)
+            for p0 in range(g * qn, slots.size, groups * qn):
+                writes[slots[p0:p0 + qn], r0:r1] += 1
+    return writes
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("b,kc,n,cand,layout", [
+    (192, 8, 1 << 20, 512, "random"),      # leg a
+    (192, 8, 1 << 20, 512, "planted"),     # leg a's planted chunk
+    (384, 20, 1 << 20, 2048, "planted"),   # leg d
+    (200, 20, 1 << 18, 2048, "random"),    # leg c1
+    (200, 16, 1 << 18, 512, "random"),     # leg c2
+    (512, 20, 1 << 15, 2048, "one"),       # every slot on one chunk
+    (96, 16, 96 * 16 * 128, 128, "distinct"),
+    (7, 8, 1 << 15, 2048, "random"),       # few chunks: rows split
+    (1, 1, 1 << 12, 128, "random"),
+])
+def test_rescan_schedule_covers_every_slot(b, kc, n, cand, layout, dtype):
+    """Every (slot, row) of the output is written exactly once by the
+    planned grid, whether the slots are spread at random, all distinct, all
+    on one chunk (ids repeated within each row), or one chunk is selected
+    by every query beside random others (as the legs' planted rows make
+    it)."""
+    rng = np.random.RandomState(b + kc)
+    chunks = n // cand
+    if layout == "distinct":
+        ids = rng.permutation(chunks)[:b * kc].reshape(b, kc)
+    elif layout == "one":
+        ids = np.full((b, kc), chunks // 2)
+    else:
+        ids = np.stack([rng.choice(chunks, kc, replace=False)
+                        for _ in range(b)])
+        if layout == "planted":
+            ids[:, 0] = chunks // 3
+    plan = mips.rescan_plan(b, kc, n, cand, 768, dtype)
+    assert plan["route"] == "mma"
+    assert (_rescan_writes(ids, plan, cand) == 1).all()
+
+
+def test_rescan_plans_at_the_path_shapes():
+    """The measured choices (NVIDIA H100 80GB HBM3, PERF.md): 32-slot
+    query tiles on legs a, d and c2, where a chunk holds 1-15 slots on
+    average, 64 on c1 (31); four blocks share the query tiles of a chunk
+    that every query selects; leg d's 2048-row chunks split in 512-row
+    ranges, as does a chunk of few chunks."""
+    def plan(*a):
+        p = mips.rescan_plan(*a)
+        return p["q_tile"], p["rows_per_split"], p["splits"], p["groups"]
+    assert plan(192, 8, 1 << 20, 512, 768, torch.int8) == (32, 512, 1, 4)
+    assert plan(384, 20, 1 << 20, 2048, 768, torch.int8) == (32, 512, 4, 4)
+    assert plan(200, 20, 1 << 18, 2048, 768, torch.bfloat16) == (64, 2048,
+                                                                 1, 4)
+    assert plan(200, 16, 1 << 18, 512, 768, torch.bfloat16) == (32, 512,
+                                                                1, 4)
+    assert plan(200, 8, 1 << 15, 2048, 768, torch.bfloat16) == (96, 256,
+                                                                8, 3)
+
+
 # ---- the wrappers hand their plan to the entry point --------------------------
 
 
@@ -586,6 +710,71 @@ def test_int8_kernels_refuse_misaligned_rows(fake_card):
         mips.chunk_max_int8(qi, index, torch.ones(4096), 2048)
     assert not fake_card.calls
     assert mips.LAUNCHES["mips_scan_int8"] == mips.LAUNCHES["chunk_max_int8"] == 0
+
+
+@pytest.mark.parametrize("b,kc,cand", [(192, 8, 512), (384, 20, 2048)])
+def test_pca_rescan_int8_routes_to_the_int8_tensor_cores(fake_card, b, kc,
+                                                         cand):
+    qi = torch.zeros(b, 768, dtype=torch.int8)
+    index = torch.zeros(1 << 16, 768, dtype=torch.int8)
+    ids = torch.zeros(b, kc, dtype=torch.int64)
+    out = mips.pca_rescan_int8(ids, qi, index, torch.ones(1 << 16), cand,
+                               60000)
+    plan = mips.rescan_plan(b, kc, 1 << 16, cand, 768, torch.int8)
+    (fn, args), = fake_card.calls
+    assert fn == "rescan_mma" and args[0] == 0
+    assert args[5:16] == (b, kc, 1 << 16, 60000, 768, cand,
+                              plan["q_tile"], plan["rows_per_split"],
+                              plan["splits"], plan["groups"], plan["smem"])
+    assert tuple(out.shape) == (b, kc * cand)
+    assert mips.LAUNCHES["pca_rescan_int8"] == 1
+
+
+def test_rescan_routes_bf16_to_the_tensor_cores(fake_card):
+    q = torch.zeros(200, 768)
+    index = torch.zeros(1 << 15, 768, dtype=torch.bfloat16)
+    ids = torch.zeros(200, 20, dtype=torch.int32)
+    mips.rescan(ids, q, index, 2048)
+    plan = mips.rescan_plan(200, 20, 1 << 15, 2048, 768, torch.bfloat16)
+    (fn, args), = fake_card.calls
+    assert fn == "rescan_mma" and args[0] == 1 and args[4] is None
+    assert args[5:16] == (200, 20, 1 << 15, 1 << 15, 768, 2048,
+                          plan["q_tile"], plan["rows_per_split"],
+                          plan["splits"], plan["groups"], plan["smem"])
+    assert mips.LAUNCHES["rescan"] == 1
+
+
+@pytest.mark.parametrize("d,dtype,code", [(768, torch.float32, 2),
+                                          (96, torch.bfloat16, 1),
+                                          (64, torch.int8, 0)])
+def test_rescan_keeps_fp32_and_narrow_rows_on_simt(fake_card, d, dtype, code):
+    q = torch.zeros(5, d, dtype=dtype)
+    index = torch.zeros(4096, d, dtype=dtype)
+    ids = torch.zeros(5, 3, dtype=torch.int32)
+    if dtype == torch.int8:
+        mips.pca_rescan_int8(ids, q, index, torch.ones(4096), 512)
+    else:
+        mips.rescan(ids, q, index, 512)
+    (fn, args), = fake_card.calls
+    assert fn == "rescan" and args[0] == code
+    assert args[5:10] == (5, 3, d * dtype.itemsize // 4, 512, 4096)
+
+
+def test_rescan_refuses_misaligned_rows_and_mismatched_queries(fake_card):
+    """The tensor-core template copies 16-byte pieces: rows that start off a
+    16-byte boundary raise, as do queries of another width, and nothing is
+    launched or counted."""
+    flat = torch.zeros(4096 * 768 + 8, dtype=torch.int8)
+    index = flat[8:].view(4096, 768)
+    ids = torch.zeros(4, 2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        mips.pca_rescan_int8(ids, torch.zeros(4, 768, dtype=torch.int8),
+                             index, torch.ones(4096), 512)
+    with pytest.raises(ValueError, match="do not match"):
+        mips.rescan(ids, torch.zeros(4, 512),
+                    torch.zeros(4096, 768, dtype=torch.bfloat16), 512)
+    assert not fake_card.calls
+    assert mips.LAUNCHES["pca_rescan_int8"] == mips.LAUNCHES["rescan"] == 0
 
 
 def test_mips_scan_keeps_fp32_on_simt(fake_card):

@@ -357,8 +357,10 @@ def test_chunk_max_matches_plain(dev, dtype, b, n, chunk, n_valid, d):
                                                  (33, 768, 512, 4, 3000),
                                                  (9, 1024, 256, 16, 4095)])
 def test_rescan_matches_plain(dev, dtype, b, d, cand, kc, n_valid):
-    """Kernels 4 and 5 at every register width (8, 16 and 32 words a
-    lane) and with the pad rows' chunk selected."""
+    """Kernels 4 and 5 with the pad rows' chunk selected: on the SIMT
+    template at every register width (8, 16 and 32 words a lane: fp32,
+    and int8 at D=64), and on the tensor-core template elsewhere (bf16;
+    int8 at D = 768 and 1024)."""
     g = _gen(dev, d + kc)
     n = 4096
     idx = _rows(dev, g, n, d, dtype)
@@ -375,6 +377,155 @@ def test_rescan_matches_plain(dev, dtype, b, d, cand, kc, n_valid):
         exp = mips.rescan_plain(ids, q, idx, None, cand, n_valid)
     torch.cuda.synchronize()
     assert torch.equal(got, exp)
+
+
+# kernels 4 and 5 on the tensor-core template (csrc/rescan_mma.cu)
+MMA_RESCAN = [torch.int8, torch.bfloat16]
+
+
+def _rescan_both(ids, q, idx, dsc, cand, n_valid):
+    """(kernel, plain twin) of kernel 4 (``dsc`` given) or 5, with the
+    kernel's launch counted."""
+    mips.reset_launch_counts()
+    if dsc is not None:
+        got = mips.pca_rescan_int8(ids, q, idx, dsc, cand, n_valid)
+        name = "pca_rescan_int8"
+    else:
+        got = mips.rescan(ids, q, idx, cand, n_valid)
+        name = "rescan"
+    exp = mips.rescan_plain(ids, q, idx, dsc, cand, n_valid)
+    torch.cuda.synchronize()
+    assert mips.LAUNCHES[name] == 1
+    return got, exp
+
+
+def _mma_rescan_inputs(dev, g, n, d, dtype, b):
+    idx = _rows(dev, g, n, d, dtype)
+    q = _rows(dev, g, b, d, dtype)
+    dsc = (torch.rand(n, device=dev, generator=g) + 0.01
+           if dtype == torch.int8 else None)
+    return idx, q, dsc
+
+
+@pytest.mark.parametrize("dtype", MMA_RESCAN)
+@pytest.mark.parametrize("d", [128, 768, 1024])
+@pytest.mark.parametrize("b", [1, 7, 192, 200, 384])
+def test_rescan_on_the_tensor_cores_matches_plain(dev, b, d, dtype):
+    """Kernels 4 and 5 on their tensor-core template against the plain
+    twin, bit for bit (int8 over its whole range, bf16 on small integers,
+    whose fp32 sums are exact in any order), at kc = 1, 8, 16, 20 and
+    chunks of 128, 512 and 2048 rows of a 131,072-row index: chunk ids
+    drawn with repeats (a chunk selected by up to 120 slots, more than a
+    query tile holds, and ids repeated within a row), the pad rows' chunk
+    selected by query 0, n_valid cutting inside it, and a chunk's rows
+    split over several blocks where the chunks are few."""
+    g = _gen(dev, 11 * b + d + (dtype == torch.int8))
+    n = 1 << 17
+    idx, q, dsc = _mma_rescan_inputs(dev, g, n, d, dtype, b)
+    for cand in (128, 512, 2048):
+        n_valid = n - cand // 2 - 3
+        for kc in (1, 8, 16, 20):
+            plan = mips.rescan_plan(b, kc, n, cand, d, dtype, mips._sms(dev))
+            assert plan["route"] == "mma"
+            ids = torch.randint(0, n // cand, (b, kc), device=dev,
+                                generator=g, dtype=torch.int32)
+            ids[0, 0] = n // cand - 1
+            got, exp = _rescan_both(ids, q, idx, dsc, cand, n_valid)
+            assert torch.equal(got, exp), (cand, kc, plan)
+            assert bool((got[0, n_valid % cand:cand] == -3.0e38).all())
+
+
+@pytest.mark.parametrize("dtype", MMA_RESCAN)
+def test_rescan_with_every_slot_on_one_chunk(dev, dtype):
+    """Every query selects chunk 5 eight times (3,072 slots on one chunk,
+    sixteen or more query tiles, each id repeated in its row) and the pad
+    rows' chunk once: each repeat gives the chunk's scores again."""
+    g = _gen(dev, 21)
+    n, d, cand, b = 1 << 16, 768, 512, 384
+    idx, q, dsc = _mma_rescan_inputs(dev, g, n, d, dtype, b)
+    ids = torch.full((b, 9), 5, device=dev, dtype=torch.int32)
+    ids[:, 8] = n // cand - 1
+    got, exp = _rescan_both(ids, q, idx, dsc, cand, n - 100)
+    assert torch.equal(got, exp)
+    assert torch.equal(got[:, :cand], got[:, 7 * cand:8 * cand])
+
+
+@pytest.mark.parametrize("dtype", MMA_RESCAN)
+def test_rescan_with_every_chunk_distinct(dev, dtype):
+    """192 queries x 8 chunks over 1,536 chunks of 128 rows: every chunk
+    selected exactly once (one slot a block, no row split)."""
+    g = _gen(dev, 22)
+    cand, b, kc, d = 128, 192, 8, 768
+    n = b * kc * cand
+    idx, q, dsc = _mma_rescan_inputs(dev, g, n, d, dtype, b)
+    ids = torch.randperm(n // cand, device=dev, generator=g).view(b, kc)
+    got, exp = _rescan_both(ids.to(torch.int32), q, idx, dsc, cand, None)
+    assert torch.equal(got, exp)
+
+
+@pytest.mark.parametrize("d", [128, 768, 1024])
+def test_int8_rescan_extremes_match_plain(dev, d):
+    """Queries of +-127 against rows of -128 only, of 127 only and over the
+    whole range: the largest raw dots through kernel 4, bit-equal."""
+    g = _gen(dev, d + 23)
+    n, cand, b, kc = 8192, 512, 70, 8
+    idx = torch.randint(-128, 128, (n, d), device=dev, generator=g,
+                        dtype=torch.int8)
+    idx[:600] = -128
+    idx[4000:4600] = 127
+    dsc = torch.rand(n, device=dev, generator=g) + 0.01
+    sign = torch.randint(0, 2, (b, d), device=dev, generator=g) * 2 - 1
+    q = (127 * sign).to(torch.int8)
+    ids = torch.randint(0, n // cand, (b, kc), device=dev, generator=g,
+                        dtype=torch.int32)
+    ids[:, 0], ids[:, 1] = 0, 7
+    got, exp = _rescan_both(ids, q, idx, dsc, cand, n - 3)
+    assert torch.equal(got, exp)
+
+
+@pytest.mark.parametrize("cand,kc", [(2048, 20), (512, 16)])
+def test_bf16_rescan_within_tolerance(dev, cand, kc):
+    """Kernel 5 at the FEVER CLI's shapes on N(0,1) bf16 data (B=200,
+    262,144 x 768): within 1e-3 of the plain fp32 sums (the tensor cores
+    add in their own order)."""
+    g = _gen(dev, cand + kc)
+    n, d, b = 1 << 18, 768, 200
+    idx = torch.randn(n, d, device=dev, generator=g).to(torch.bfloat16)
+    q = torch.randn(b, d, device=dev, generator=g).to(torch.bfloat16)
+    ids = torch.stack([torch.randperm(n // cand, device=dev, generator=g)[:kc]
+                       for _ in range(b)]).to(torch.int32)
+    got, exp = _rescan_both(ids, q, idx, None, cand, n - 1000)
+    torch.testing.assert_close(got, exp, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", MMA_RESCAN)
+def test_rescan_launch_variants_agree(dev, dtype):
+    """The tensor-core template under other launch plans than the one the
+    wrapper picks (query tiles of 32 and 64 slots, the row split off, at
+    512 rows and at one 128-row tile a block, one to three blocks sharing
+    a range's query tiles): the same scores, bit for bit."""
+    from multihop_dense_retrieval_tpu_torch.ops import _build
+
+    g = _gen(dev, 24)
+    n, d, cand, b, kc = 1 << 17, 768, 2048, 200, 20
+    idx, q, dsc = _mma_rescan_inputs(dev, g, n, d, dtype, b)
+    ids = torch.randint(0, n // cand, (b, kc), device=dev, generator=g,
+                        dtype=torch.int32)
+    exp = mips.rescan_plain(ids, q, idx, dsc, cand, n - 77)
+    lib = _build.load("rescan_mma")
+    int8 = dtype == torch.int8
+    for q_tile, rows, groups in ((32, cand, 1), (32, 128, 1), (64, cand, 1),
+                                 (64, 128, 1), (32, cand, 3), (32, 512, 2)):
+        out = torch.empty(b, kc * cand, device=dev)
+        _build.check(lib.rescan_mma(
+            0 if int8 else 1, ids.data_ptr(), q.data_ptr(), idx.data_ptr(),
+            dsc.data_ptr() if int8 else None, b, kc, n, n - 77, d, cand,
+            q_tile, rows, cand // rows, groups,
+            mips._rescan_smem(q_tile, d * idx.element_size(), int8),
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream),
+            "rescan_mma")
+        torch.cuda.synchronize()
+        assert torch.equal(out, exp), (q_tile, rows, groups)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -127,6 +127,53 @@ def test_float_rescan_matches_jax_kernel(dtype, n_valid):
         assert (got[0, n_valid % cand:cand] == tm.NEG_INF).all()
 
 
+@pytest.mark.parametrize("layout", ["one_chunk", "repeat", "pad_chunk"])
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float32"])
+def test_rescan_edge_cases_match_jax_kernel(dtype, layout):
+    """The rescan twin (kernels 4 and 5) against ``_sparse_rescan`` in
+    interpret mode where the chunk-major template's schedule has its edge
+    cases: every query selects the same chunk, a chunk id repeats within a
+    query's list (its scores given twice), and the pad rows' chunk with
+    n_valid cutting inside it.  int8 bit-equal; bf16 and fp32 as the other
+    rescan tests."""
+    rng = np.random.RandomState(17)
+    n, d, b, cand, kc = 1024, 64, 9, 128, 3
+    emb, jidx, tidx, jsc, tsc = _index(rng, n, d, dtype)
+    q = rng.randn(b, d).astype(np.float32)
+    ids = np.stack([rng.choice(n // cand, kc, replace=False)
+                    for _ in range(b)]).astype(np.int32)
+    n_valid = None
+    if layout == "one_chunk":
+        ids[:] = 2
+    elif layout == "repeat":
+        ids[:, 2] = ids[:, 0]
+    else:
+        ids[:, 1] = n // cand - 1
+        n_valid = n - 50
+    nv = jnp.asarray([n if n_valid is None else n_valid], jnp.int32)
+    if dtype == "int8":
+        jq, _ = jm.quantize_rows(jnp.asarray(q))
+        tq = _t(np.asarray(jq))
+        exp = np.asarray(jm._sparse_rescan(
+            jnp.asarray(ids), nv, jq, jidx, jsc.reshape(n // cand, cand),
+            chunk_rows=cand, k_chunks=kc, mask_valid=n_valid is not None,
+            interpret=True))
+        got = tm.pca_rescan_int8(_t(ids), tq, tidx, tsc, cand, n_valid)
+        np.testing.assert_array_equal(got.numpy(), exp)
+    else:
+        jq = jnp.asarray(q).astype(jidx.dtype)
+        exp = np.asarray(jm._sparse_rescan(
+            jnp.asarray(ids), nv, jq, jidx, None, chunk_rows=cand,
+            k_chunks=kc, mask_valid=n_valid is not None, interpret=True))
+        got = tm.rescan(_t(ids), _t(q), tidx, cand, n_valid)
+        np.testing.assert_allclose(got.numpy(), exp, rtol=1e-5, atol=1e-6)
+    assert got.shape == (b, kc * cand)
+    if layout == "repeat":
+        assert (got[:, :cand] == got[:, 2 * cand:]).all()
+    if layout == "pad_chunk":
+        assert (got[:, cand + n_valid % cand:2 * cand] == tm.NEG_INF).all()
+
+
 @pytest.mark.parametrize("k", [8, 12, 20])
 @pytest.mark.parametrize("dtype,n_valid,dup", [
     ("int8", None, True), ("int8", 1950, False), ("bfloat16", None, False),
