@@ -1,5 +1,6 @@
-"""Build the PyTorch port's CUDA kernels and drive its search and corpus-
-encoding paths on one GPU.  Run from the repository root:  python3 chip_smoke.py
+"""Build the PyTorch port's CUDA kernels and drive its search, corpus-
+encoding and question-answering paths on one GPU.  Run from the repository
+root:  python3 chip_smoke.py
 
 Phases (each prints a line and flushes; any failure exits non-zero):
   1. build   — nvcc compiles every kernel from ops/csrc (one process each).
@@ -30,7 +31,8 @@ Phases (each prints a line and flushes; any failure exits non-zero):
                path's launch counts are zeroed just before it and read
                just after it, and each must launch its kernels; kernels 1,
                2, 3, 4, 5 and 7 must have taken their tensor-core templates
-               on every path that launches them (a, b, c1, c2, d, f).
+               on every path that launches them (a, b, c1, c2, d, f, g1,
+               g2).
                a. int8: a 1,048,576-row int8 DenseIndex with a PCA
                   prefilter (R=128, 512-row chunks) and a 300-wide token
                   store; BeamSearcher at beam 1 / batch 192 / bf16 scores
@@ -70,20 +72,42 @@ Phases (each prints a line and flushes; any failure exits non-zero):
                   back.  docs/s of each; on the widest batch the fused
                   encoder is held to its plain twin, and compared with
                   the xla encoder by cosine.
+               g. question answering over e2's index directory and
+                  retriever checkpoint, with the ELECTRA-large reader (24
+                  x 1024, seeded random weights made on the card, bf16
+                  with bf16 attention scores) at the serving defaults
+                  (beam 5, top 5, max_seq_len 512, --rank-topm 0) and
+                  --pca.  g1: cli/serve's server on 127.0.0.1 (port 0,
+                  --max-batch 16) answers 64 concurrent /answer (micro-
+                  batched, reader scores finite) and 16 /retrieve, takes
+                  an /add_doc that grows the index (the new document's
+                  vector is then the exact hop-1 top-1 at its id) and a
+                  /delete_doc (ids stay below n_docs); answers/s, median
+                  retrieval_s and reading_s, reader chains/s, and one
+                  profiled micro-batch (kernels 3, 4: pca_hops="auto"
+                  filters both hops without hop-2 buckets).  g2:
+                  cli/end2end.main over 64 questions at batch 16 (exact
+                  scans: kernel 1) prints its metrics line.
   4. result  — one JSON line of kernel records, the card's name and power
                limit, and the final {"ok": true, ...} line.
 Exits with code 2 and no result when CUDA is not available.
 """
 
 import argparse
+import concurrent.futures
+import contextlib
 import dataclasses
 import importlib
+import io
 import json
 import logging
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
@@ -105,6 +129,9 @@ B_I8, C_I8 = 2 * B, 2048
 # at widths up to C_LEN
 NH = 12
 N_DOCS, C_BATCH, C_LEN = 32768, 256, 300
+# leg g (question answering): the server's micro-batch cap, the concurrent
+# /answer and /retrieve requests
+QA_BATCH, N_ANSWERS, N_RETRIEVE = 16, 64, 16
 # (what, B, Wq, W, dtype) of the kernel-8 checks; the first is the record
 ATTN_CASES = (("corpus square", C_BATCH, C_LEN, C_LEN, torch.bfloat16),
               ("corpus cls layer", C_BATCH, 1, C_LEN, torch.bfloat16),
@@ -619,6 +646,79 @@ def record_queries(engine, outputs=False):
     return seen
 
 
+@contextlib.contextmanager
+def recorded_engines(cls):
+    """Within the block, (index, queries, k, (vals, doc ids, certificates))
+    of every MIPS call of every engine of class ``cls``: for a CLI that
+    builds its own engine."""
+    seen = []
+    hop_mips = cls._mips
+
+    def _mips(self, queries, k, pca=True):
+        res = hop_mips(self, queries, k, pca)
+        seen.append((self.index, queries, k, res))
+        return res
+
+    cls._mips = _mips
+    try:
+        yield seen
+    finally:
+        cls._mips = hop_mips
+
+
+def record_launches(mips, names):
+    """Keep (name, arguments, result) of every call of the kernel wrappers
+    ``names`` of ``mips``: (that list, a function that puts the wrappers
+    back)."""
+    seen = []
+    own = {name: getattr(mips, name) for name in names}
+
+    def recorded(name):
+        def call(*a):
+            res = own[name](*a)
+            seen.append((name, a, res))
+            return res
+        return call
+
+    def restore():
+        for name, fn in own.items():
+            setattr(mips, name, fn)
+
+    for name in names:
+        setattr(mips, name, recorded(name))
+    return seen, restore
+
+
+def check_recorded_launches(seen, mips):
+    """Hold recorded launches of kernels 3 and 4 against their plain
+    versions on the same arguments.  Kernel 4 bit-equal.  Kernel 3 within
+    the fp32 summation bound of its R exact bf16 products: each side's sum
+    lies within R * 2^-23 times the sum of |products| of the exact one
+    (an ulp an add, truncated or rounded), so the two within R * 2^-22
+    times the chunk's largest sum of |products|, or within phase 2's 1e-3
+    where that is smaller.  The serving path's projected scores reach the
+    hundreds, where the tensor cores' sums lie more than 1e-3 from the
+    plain version's.  Clears them; returns (launches, kernel 3's largest
+    error, its largest share of the bound)."""
+    worst = share = 0.0
+    n = len(seen)
+    for name, a, res in seen:
+        if name == "pca_chunk_max":
+            qp, proj, cand, n_valid = a
+            err = (res - mips.chunk_max_plain(*a)).abs()
+            mag = mips.chunk_max_plain(qp.abs(), proj.abs(), cand, n_valid)
+            tol = (qp.shape[1] * 2.0 ** -22 * mag).clamp(min=1e-3)
+            assert bool((err <= tol).all()), \
+                f"kernel 3 (B={qp.shape[0]}) off by {err.max().item()}"
+            worst = max(worst, err.max().item())
+            share = max(share, (err / tol).max().item())
+        else:
+            assert torch.equal(res, mips.rescan_plain(*a)), \
+                f"kernel 4 (B={a[1].shape[0]}) disagrees with its plain version"
+    seen.clear()
+    return n, worst, share
+
+
 def scan_order_scores(q32, index, rows, mips, rescan_order):
     """fp32 score of row rows[i] for query i, on the host, in one of the
     two int8 epilogues: the scan's (raw * q_scale) * d_scale or the
@@ -666,6 +766,46 @@ def check_int8_path(out, seen, index, mips, n_valid):
     assert np.array_equal(got[cert], i2[cert]), \
         "a certified hop-2 query differs from the exact top-1"
     return float(cert.mean())
+
+
+def check_recorded_hops(seen, index, mips):
+    """Hold recorded MIPS calls (queries, k, (vals, doc ids, certificates))
+    of an int8 engine against the plain scans over ``index`` as it stood when they
+    ran.  A scan hop (kernel 1): ids and scores bit-equal to the plain scan
+    at the call's k.  A PCA hop (kernels 3 + 4): no id at or past n_docs,
+    every returned score bit-equal to its row's rescan-order product, the
+    top row's scan-order score never above the exact top-1, and a certified
+    query's top row the exact top-1.  Returns (scan rows, PCA rows,
+    certified PCA rows)."""
+    n_valid = index.n_docs
+    n_scan = n_pca = n_cert = 0
+    for q, k, (vals, docs, cert) in seen:
+        assert bool(torch.isfinite(q).all()), "non-finite query vectors"
+        qi, qs = mips.quantize_rows(q)
+        if cert is None:
+            ev, ei = mips.mips_scan_int8_plain(qi, qs, index.vectors,
+                                               index.scales, k, n_valid)
+            assert torch.equal(vals, ev) and torch.equal(docs, ei.long()), \
+                f"kernel 1 (B={q.shape[0]}, k={k}) differs from the plain scan"
+            n_scan += q.shape[0]
+            continue
+        ev, ei = mips.mips_scan_int8_plain(qi, qs, index.vectors,
+                                           index.scales, 1, n_valid)
+        d, v = docs.cpu().numpy(), vals.cpu().numpy()
+        assert (d < n_valid).all(), f"a PCA hop returned an id >= {n_valid}"
+        for j in range(k):
+            assert np.array_equal(v[:, j], scan_order_scores(
+                q, index, d[:, j], mips, rescan_order=True)), \
+                f"PCA hop (B={q.shape[0]}) score {j} is not its row's product"
+        assert (scan_order_scores(q, index, d[:, 0], mips, rescan_order=False)
+                <= ev[:, 0].cpu().numpy()).all(), \
+            f"PCA hop (B={q.shape[0]}) returned a row above the exact top-1"
+        c = cert.cpu().numpy()
+        assert np.array_equal(d[c, 0], ei[:, 0].cpu().numpy()[c]), \
+            f"a certified PCA query (B={q.shape[0]}) missed the exact top-1"
+        n_pca += q.shape[0]
+        n_cert += int(c.sum())
+    return n_scan, n_pca, n_cert
 
 
 def check_bf16_path(out, seen, index, mips):
@@ -823,8 +963,11 @@ def run_main_path(port, mips, dev, gen, smi, table_path=None, iters=50):
     del bf16_engine, bf16_index, text_ids, text_lens, empty
 
     launches.update(run_fever_cli(port, model, mips, dev, gen, smi))
-    launches.update(run_corpus_encoding(port, model.state_dict(), mips, dev,
-                                        smi))
+    # leg g serves from leg e2's index directory and checkpoint
+    with tempfile.TemporaryDirectory() as tmp:
+        launches.update(run_corpus_encoding(port, model.state_dict(), mips,
+                                            dev, smi, tmp))
+        launches.update(run_qa_serving(mips, dev, smi, tmp))
     return launches
 
 
@@ -908,7 +1051,7 @@ def widest_batch(tc, spec, dev):
     return assemble_pair_inputs(*ids, C_LEN, spec)
 
 
-def run_corpus_encoding(port, state, mips, dev, smi):
+def run_corpus_encoding(port, state, mips, dev, smi, tmp):
     """Leg (e): corpus encoding at roberta-base width over N_DOCS wiki-like
     passages (max_c_len 300, batch 256, length sort on), same weights as
     the other legs.  e1: index.build.build_index on a cls_only retriever
@@ -922,7 +1065,9 @@ def run_corpus_encoding(port, state, mips, dev, smi):
     one-ulp roundings of p and o the 12 random layers amplify, every
     vector's cosine >= 0.999 and no entry off by more than 0.1 (entries
     are ~1).  The fused and xla vectors are compared by cosine (reported:
-    the xla encoder rounds its scores to bf16, the kernel keeps fp32)."""
+    the xla encoder rounds its scores to bf16, the kernel keeps fp32).  Both
+    write into ``tmp``, which leg (g) reads after: e2's index directory and
+    the retriever checkpoint ``model.pt``."""
     from multihop_dense_retrieval_tpu_torch.cli import common
     from multihop_dense_retrieval_tpu_torch.cli import encode_corpus as cli
     from multihop_dense_retrieval_tpu_torch.index import build
@@ -933,119 +1078,454 @@ def run_corpus_encoding(port, state, mips, dev, smi):
         "multihop_dense_retrieval_tpu_torch.ops.fused_attention")
     cfgmod, data, index_mod, models, _ = port
     out = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        write_corpus(f"{tmp}/corpus.jsonl", np.random.RandomState(11))
-        torch.save(state, f"{tmp}/model.pt")
-        tok = common.resolve_tokenizer("hash")
-        tc = data.TokenizedCorpus.build(
-            data.Corpus.from_jsonl(f"{tmp}/corpus.jsonl"), tok,
-            max_text_len=C_LEN)
-        say(f"  corpus set-up: {N_DOCS} docs written and tokenized in "
-            f"{time.perf_counter() - t0:.1f} s; text lengths mean "
-            f"{tc.text_lens.mean():.1f}, max {tc.text_lens.max()}")
-        fused = models.MhopRetriever(cfgmod.EncoderConfig.roberta_base(
-            attention_impl="fused"), cls_only=True)
-        fused.load_state_dict(state)
-        fused = fused.to(dev).eval()
+    t0 = time.perf_counter()
+    write_corpus(f"{tmp}/corpus.jsonl", np.random.RandomState(11))
+    torch.save(state, f"{tmp}/model.pt")
+    tok = common.resolve_tokenizer("hash")
+    tc = data.TokenizedCorpus.build(
+        data.Corpus.from_jsonl(f"{tmp}/corpus.jsonl"), tok,
+        max_text_len=C_LEN)
+    say(f"  corpus set-up: {N_DOCS} docs written and tokenized in "
+        f"{time.perf_counter() - t0:.1f} s; text lengths mean "
+        f"{tc.text_lens.mean():.1f}, max {tc.text_lens.max()}")
+    fused = models.MhopRetriever(cfgmod.EncoderConfig.roberta_base(
+        attention_impl="fused"), cls_only=True)
+    fused.load_state_dict(state)
+    fused = fused.to(dev).eval()
 
-        # e1: build_index with the fused encoder; the encode timed alone
-        enc_secs, encode = [], build.encode_corpus
+    # e1: build_index with the fused encoder; the encode timed alone
+    enc_secs, encode = [], build.encode_corpus
 
-        def timed_encode(*a, **kw):
-            t = time.perf_counter()
-            res = encode(*a, **kw)          # host array: the device is done
-            enc_secs.append(time.perf_counter() - t)
-            return res
+    def timed_encode(*a, **kw):
+        t = time.perf_counter()
+        res = encode(*a, **kw)          # host array: the device is done
+        enc_secs.append(time.perf_counter() - t)
+        return res
 
-        build.encode_corpus = timed_encode
+    build.encode_corpus = timed_encode
+    torch.cuda.synchronize()
+    mips.reset_launch_counts()
+    t1 = time.perf_counter()
+    try:
+        index = build.build_index(
+            fused.encode_seq, tc, tok.spec, max_c_len=C_LEN,
+            batch_size=C_BATCH, chunk_rows=4096, dtype="int8",
+            pca_dims=R, pca_cand_rows=CAND, device=dev)
         torch.cuda.synchronize()
-        mips.reset_launch_counts()
-        t1 = time.perf_counter()
-        try:
-            index = build.build_index(
-                fused.encode_seq, tc, tok.spec, max_c_len=C_LEN,
-                batch_size=C_BATCH, chunk_rows=4096, dtype="int8",
-                pca_dims=R, pca_cand_rows=CAND, device=dev)
-            torch.cuda.synchronize()
-        finally:
-            build.encode_corpus = encode
-        e1 = time.perf_counter() - t1
-        out["corpus_e1"] = leg_counts(mips)
-        n_batches = -(-N_DOCS // C_BATCH)
-        assert index.n_docs == N_DOCS and index.vectors.dtype == torch.int8
-        assert bool(torch.isfinite(index.scales).all())
-        say(f"  e1 build_index (fused): encode {N_DOCS / enc_secs[0]:.1f} "
-            f"docs/s ({enc_secs[0]:.2f} s), build_index {N_DOCS / e1:.1f} "
-            f"docs/s ({e1:.2f} s), {n_batches} batches [{smi}]")
-        say(f"  e1 launches: {json.dumps(out['corpus_e1'])}")
-        assert out["corpus_e1"]["fused_attention"] == \
-            fused.config.num_layers * n_batches, \
-            "kernel 8 did not run once a layer for every batch"
-        del index
+    finally:
+        build.encode_corpus = encode
+    e1 = time.perf_counter() - t1
+    out["corpus_e1"] = leg_counts(mips)
+    n_batches = -(-N_DOCS // C_BATCH)
+    assert index.n_docs == N_DOCS and index.vectors.dtype == torch.int8
+    assert bool(torch.isfinite(index.scales).all())
+    say(f"  e1 build_index (fused): encode {N_DOCS / enc_secs[0]:.1f} "
+        f"docs/s ({enc_secs[0]:.2f} s), build_index {N_DOCS / e1:.1f} "
+        f"docs/s ({e1:.2f} s), {n_batches} batches [{smi}]")
+    say(f"  e1 launches: {json.dumps(out['corpus_e1'])}")
+    assert out["corpus_e1"]["fused_attention"] == \
+        fused.config.num_layers * n_batches, \
+        "kernel 8 did not run once a layer for every batch"
+    del index
 
-        # e2: the CLI at its default attention
-        torch.cuda.synchronize()
-        mips.reset_launch_counts()
-        t2 = time.perf_counter()
-        cli.main([f"{tmp}/corpus.jsonl", f"{tmp}/e2", "--tokenizer", "hash",
-                  "--model-name", "roberta-base", "--checkpoint",
-                  f"{tmp}/model.pt", "--index-dtype", "int8", "--pca-dims",
-                  str(R)])
-        torch.cuda.synchronize()
-        e2 = time.perf_counter() - t2
-        out["corpus_e2"] = leg_counts(mips)
-        index = index_mod.DenseIndex.load(f"{tmp}/e2/index.npz", device=dev)
-        tc2 = data.TokenizedCorpus.load(f"{tmp}/e2/tokens.npz")
-        with open(f"{tmp}/e2/id2doc.json") as f:
-            n_id2doc = len(json.load(f))
-        assert index.n_docs == tc2.text_ids.shape[0] == n_id2doc == N_DOCS
-        assert index.pca_proj is not None and index.vectors.dtype == torch.int8
-        say(f"  e2 cli/encode_corpus (xla): {N_DOCS / e2:.1f} docs/s for the "
-            f"whole CLI ({e2:.2f} s: tokenize, encode, int8 + PCA build, "
-            f"save); the directory loads with {index.n_docs} docs [{smi}]")
-        say(f"  e2 launches: {json.dumps(out['corpus_e2'])}")
-        assert out["corpus_e2"]["fused_attention"] == 0, \
-            "kernel 8 ran under the default attention"
-        del index
+    # e2: the CLI at its default attention
+    torch.cuda.synchronize()
+    mips.reset_launch_counts()
+    t2 = time.perf_counter()
+    cli.main([f"{tmp}/corpus.jsonl", f"{tmp}/e2", "--tokenizer", "hash",
+              "--model-name", "roberta-base", "--checkpoint",
+              f"{tmp}/model.pt", "--index-dtype", "int8", "--pca-dims",
+              str(R)])
+    torch.cuda.synchronize()
+    e2 = time.perf_counter() - t2
+    out["corpus_e2"] = leg_counts(mips)
+    index = index_mod.DenseIndex.load(f"{tmp}/e2/index.npz", device=dev)
+    tc2 = data.TokenizedCorpus.load(f"{tmp}/e2/tokens.npz")
+    with open(f"{tmp}/e2/id2doc.json") as f:
+        n_id2doc = len(json.load(f))
+    assert index.n_docs == tc2.text_ids.shape[0] == n_id2doc == N_DOCS
+    assert index.pca_proj is not None and index.vectors.dtype == torch.int8
+    say(f"  e2 cli/encode_corpus (xla): {N_DOCS / e2:.1f} docs/s for the "
+        f"whole CLI ({e2:.2f} s: tokenize, encode, int8 + PCA build, "
+        f"save); the directory loads with {index.n_docs} docs [{smi}]")
+    say(f"  e2 launches: {json.dumps(out['corpus_e2'])}")
+    assert out["corpus_e2"]["fused_attention"] == 0, \
+        "kernel 8 ran under the default attention"
+    del index
 
-        # the widest batch: kernel against plain inside the encoder (bf16,
-        # and fp32 with the same weights); fused against xla
-        inputs = widest_batch(tc, tok.spec, dev)
-        ids, am = inputs["input_ids"], inputs["attention_mask"]
-        kernel = enc.fused_attention
-        cosine = torch.nn.functional.cosine_similarity
+    # the widest batch: kernel against plain inside the encoder (bf16,
+    # and fp32 with the same weights); fused against xla
+    inputs = widest_batch(tc, tok.spec, dev)
+    ids, am = inputs["input_ids"], inputs["attention_mask"]
+    kernel = enc.fused_attention
+    cosine = torch.nn.functional.cosine_similarity
 
-        def twin_gap(model):
-            with torch.inference_mode():
-                got = model.encode_seq(ids, am)
-                enc.fused_attention = fa.fused_attention_plain
-                try:
-                    twin = model.encode_seq(ids, am)
-                finally:
-                    enc.fused_attention = kernel
-            assert bool(torch.isfinite(got).all())
-            return (got, (got - twin).abs().max().item(),
-                    cosine(got, twin).min().item())
-
-        v_fused, gap16, cos16 = twin_gap(fused)
-        fused32 = models.MhopRetriever(cfgmod.EncoderConfig.roberta_base(
-            attention_impl="fused", dtype="float32"), cls_only=True)
-        fused32.load_state_dict(state)
-        _, gap32, cos32 = twin_gap(fused32.to(dev).eval())
-        xla = common.init_retriever(common.resolve_encoder_config(
-            "roberta-base"), checkpoint=f"{tmp}/model.pt", device=dev)
+    def twin_gap(model):
         with torch.inference_mode():
-            cos_xla = cosine(v_fused, xla.encode_seq(ids, am))
-        say(f"  widest batch ({C_BATCH} x {C_LEN}), fused encoder vs its "
-            f"plain twin: bf16 max abs {gap16:.4g}, min cosine {cos16:.6f}; "
-            f"fp32 max abs {gap32:.4g}, min cosine {cos32:.8f}; fused vs xla "
-            f"(bf16) cosine min {cos_xla.min().item():.6f}, median "
-            f"{cos_xla.median().item():.6f}")
-        assert gap32 <= 1e-3, f"fp32 fused encoder off its twin by {gap32}"
-        assert cos16 >= 0.999 and gap16 <= 0.1, \
-            f"bf16 fused encoder off its twin: {gap16}, cosine {cos16}"
+            got = model.encode_seq(ids, am)
+            enc.fused_attention = fa.fused_attention_plain
+            try:
+                twin = model.encode_seq(ids, am)
+            finally:
+                enc.fused_attention = kernel
+        assert bool(torch.isfinite(got).all())
+        return (got, (got - twin).abs().max().item(),
+                cosine(got, twin).min().item())
+
+    v_fused, gap16, cos16 = twin_gap(fused)
+    fused32 = models.MhopRetriever(cfgmod.EncoderConfig.roberta_base(
+        attention_impl="fused", dtype="float32"), cls_only=True)
+    fused32.load_state_dict(state)
+    _, gap32, cos32 = twin_gap(fused32.to(dev).eval())
+    xla = common.init_retriever(common.resolve_encoder_config(
+        "roberta-base"), checkpoint=f"{tmp}/model.pt", device=dev)
+    with torch.inference_mode():
+        cos_xla = cosine(v_fused, xla.encode_seq(ids, am))
+    say(f"  widest batch ({C_BATCH} x {C_LEN}), fused encoder vs its "
+        f"plain twin: bf16 max abs {gap16:.4g}, min cosine {cos16:.6f}; "
+        f"fp32 max abs {gap32:.4g}, min cosine {cos32:.8f}; fused vs xla "
+        f"(bf16) cosine min {cos_xla.min().item():.6f}, median "
+        f"{cos_xla.median().item():.6f}")
+    assert gap32 <= 1e-3, f"fp32 fused encoder off its twin by {gap32}"
+    assert cos16 >= 0.999 and gap16 <= 0.1, \
+        f"bf16 fused encoder off its twin: {gap16}, cosine {cos16}"
     return out
+
+
+def _http(url, payload=None):
+    """One request to the leg-g server: (status, JSON reply)."""
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, headers={
+        "Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _fire(url, payloads):
+    """All ``payloads`` at once, one thread each; the replies in order."""
+    with concurrent.futures.ThreadPoolExecutor(len(payloads)) as pool:
+        return list(pool.map(lambda p: _http(url, p), payloads))
+
+
+def qa_questions(tmp, rng, n):
+    """Questions cut from the corpus texts: 6-16 words of a random
+    passage, and a word of it as the gold answer."""
+    with open(f"{tmp}/corpus.jsonl") as f:
+        texts = [json.loads(l)["text"].split() for l in f]
+    out = []
+    for i in rng.randint(len(texts), size=n):
+        words = texts[i]
+        n_w = rng.randint(6, 17)
+        s = rng.randint(max(1, len(words) - n_w))
+        out.append((" ".join(words[s:s + n_w]) + "?", words[s]))
+    return out
+
+
+def run_qa_serving(mips, dev, smi, tmp):
+    """Leg (g): question answering with the ELECTRA-large reader (24 x
+    1024, seeded random weights made on the card, bf16 with bf16 attention
+    scores) over leg e2's index directory (N_DOCS passages, int8 + PCA
+    R=128) and retriever checkpoint, at the serving CLIs' defaults (beam 5,
+    top 5 chains, max_seq_len 512, --rank-topm 0) with --pca and hash
+    tokenizers (the reader's at its vocabulary of 30,522).
+    g1, the server (cli/serve.py's parse_args, DemoPipeline and make_server
+    on 127.0.0.1, port 0, --max-batch 16, in a thread): /healthz; 64
+    concurrent /answer (each 5 chains of 2 titles and an answer string,
+    micro-batched; the reader's rank and span scores finite); 16 /retrieve;
+    /add_doc (32,768 rows fill their chunks: the index grows), whose own
+    vector, encoded as the pipeline encodes it, is the plain scan's top-1
+    at its new id; 16 /retrieve over the grown index (n_docs inside a
+    chunk); /delete_doc of a middle document (the last moves in: id table
+    and n_docs agree, no later search returns an id >= n_docs); 16
+    /retrieve.  Every hop of those requests is held to the plain scans over
+    the index as it stood (check_recorded_hops), and every launch of
+    kernels 3 and 4 to its plain version (check_recorded_launches).
+    Kernels 3 and 4 serve
+    both hops: with 80 hop-2 rows there are no hop-2 buckets, so
+    pca_hops="auto" filters hop 1 too.  After the counted requests, the
+    added document's vector, now at the middle id, through the engine's
+    exact hop-1 search (kernel 1 over the grown index) is bit-equal to the
+    plain scan, and the PCA tier is held to that id when certified; one
+    micro-batch is profiled (device ms of retrieval and of the reader,
+    idle share, peak memory).
+    g2, the CLI: cli/end2end.main over 64 questions at batch 16 (no --pca:
+    exact scans, kernel 1 at both hops) exits 0 and prints its metrics;
+    every hop it ran is bit-equal to the plain scan."""
+    from multihop_dense_retrieval_tpu_torch.cli import demo, end2end, serve
+    from multihop_dense_retrieval_tpu_torch.core.config import EncoderConfig
+    from multihop_dense_retrieval_tpu_torch.search.beam import BeamSearcher
+
+    out = {}
+    rng = np.random.RandomState(21)
+    qs = qa_questions(tmp, rng, N_ANSWERS + N_RETRIEVE)
+    t0 = time.perf_counter()
+    args = serve.parse_args([
+        f"{tmp}/e2", "--tokenizer", "hash", "--retriever-model",
+        "roberta-base", "--retriever-checkpoint", f"{tmp}/model.pt",
+        "--reader-model", "electra-large", "--pca", "--port", "0",
+        "--max-batch", str(QA_BATCH)])
+    pipe = demo.DemoPipeline(args)
+    rc = pipe.reader.config
+    assert rc == EncoderConfig.electra_large(
+        attention_scores_dtype="bfloat16"), rc
+    assert next(pipe.reader.parameters()).device.type == dev.type
+    assert pipe.q_tok.spec.vocab_size == rc.vocab_size
+    cfg = pipe.searcher.config
+    assert (cfg.beam_size_1, cfg.topk, args.max_seq_len, args.rank_topm,
+            cfg.use_pca, cfg.hop2_buckets) == (5, 5, 512, 0, True, ())
+    n_params = sum(p.numel() for p in pipe.reader.parameters())
+    srv = serve.make_server(pipe, args.host, args.port,
+                            max_batch=args.max_batch,
+                            batch_wait_ms=args.batch_wait_ms)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_port}"
+    say(f"  g1 set-up: DemoPipeline (roberta-base retriever, {N_DOCS}-doc "
+        f"int8 + PCA index, electra-large reader: {rc.num_layers} x "
+        f"{rc.hidden_size}, {n_params / 1e6:.1f}M parameters made on the "
+        f"card) and server in {time.perf_counter() - t0:.1f} s")
+
+    # what the worker ran: per micro-batch its size and times, the reader's
+    # scores, and every search's ids
+    batches, scores, searched = [], [], []
+    answer_batch, pred_step = pipe.answer_batch, pipe.pred_step
+    search = pipe.searcher.search
+
+    def recorded_batch(questions, pad_to=None):
+        res = answer_batch(questions, pad_to)
+        batches.append((len(questions), res[0]["retrieval_s"],
+                        res[0]["reading_s"]))
+        return res
+
+    def recorded_step(batch):
+        res = pred_step(batch)
+        scores.append((res["rank_score"], res["span_score"]))
+        return res
+
+    def recorded_search(*a):
+        res = search(*a)
+        searched.append((res["hop1_ids"], res["hop2_ids"]))
+        return res
+
+    pipe.answer_batch, pipe.pred_step = recorded_batch, recorded_step
+    pipe.searcher.search = recorded_search
+    launched, restore_launches = record_launches(
+        mips, ("pca_chunk_max", "pca_rescan_int8"))
+    try:
+        code, health = _http(f"{url}/healthz")
+        assert code == 200 and health["n_docs"] == N_DOCS, health
+        code, warm = _http(f"{url}/answer", {"question": qs[0][0]})
+        assert code == 200, warm
+        torch.cuda.synchronize()
+        say(f"  g1 /healthz ok ({health['n_docs']} docs); warm-up /answer "
+            f"in {warm['retrieval_s'] + warm['reading_s']:.2f} s")
+        batches.clear()
+        scores.clear()
+
+        def held(stage, seen):
+            """Hold a stage's recorded hops against the plain scans over
+            the index as it now stands, and clear them."""
+            n_scan, n_pca, n_cert = check_recorded_hops(
+                seen, pipe.searcher.index, mips)
+            n_launch, err3, share3 = check_recorded_launches(launched, mips)
+            assert n_pca and n_launch, f"no PCA hop on {stage}"
+            say(f"  g1 {stage}: {len(seen)} hops over n_docs "
+                f"{pipe.searcher.index.n_docs} held to the plain scans "
+                f"({n_pca} PCA rows, {n_cert} certified; {n_scan} scan "
+                f"rows); {n_launch} launches of kernels 3 and 4 held to "
+                f"their plain versions (kernel 3 max abs err {err3:.3g}, "
+                f"{share3:.3f} of its bound; kernel 4 bit-equal)")
+            seen.clear()
+
+        seen = record_queries(pipe.searcher, outputs=True)
+        launched.clear()
+        mips.reset_launch_counts()
+        before = _http(f"{url}/healthz")[1]
+        t1 = time.perf_counter()
+        replies = _fire(f"{url}/answer",
+                        [{"question": q} for q, _ in qs[:N_ANSWERS]])
+        wall = time.perf_counter() - t1
+        after = _http(f"{url}/healthz")[1]
+        for code, r in replies:
+            assert code == 200, r
+            assert isinstance(r["answer"], str), r
+            assert len(r["chains"]) == 5 and all(
+                len(c) == 2 for c in r["chains"]), r["chains"]
+        n_batches = after["batches_run"] - before["batches_run"]
+        assert after["questions_run"] - before["questions_run"] == N_ANSWERS
+        assert n_batches < N_ANSWERS, "the worker did not micro-batch"
+        for rank, span in scores:
+            assert bool(torch.isfinite(rank).all()) and \
+                bool(torch.isfinite(span).all()), "non-finite reader scores"
+        n_chains = 5 * sum(b[0] for b in batches)
+        read_s = sum(b[2] for b in batches)
+        sizes = [b[0] for b in batches]
+        say(f"  g1 {N_ANSWERS} concurrent /answer: {N_ANSWERS / wall:.2f} "
+            f"answers/s ({wall:.2f} s, host clock), {n_batches} micro-"
+            f"batches of {sizes}; median retrieval_s "
+            f"{np.median([r['retrieval_s'] for _, r in replies]):.3f}, "
+            f"median reading_s "
+            f"{np.median([r['reading_s'] for _, r in replies]):.3f}; reader "
+            f"{n_chains / read_s:.1f} chains/s over {n_chains} chains; "
+            f"{len(scores)} reader batches, rank and span scores finite; "
+            f"e.g. answer {replies[0][1]['answer'][:40]!r} [{smi}]")
+        held("/answer", seen)
+
+        def retrieve(stage):
+            replies = _fire(f"{url}/retrieve",
+                            [{"question": q} for q, _ in qs[N_ANSWERS:]])
+            for code, r in replies:
+                assert code == 200 and len(r["chains"]) == 5, r
+            say(f"  g1 {N_RETRIEVE} concurrent /retrieve {stage}: ok, median "
+                f"retrieval_s "
+                f"{np.median([r['retrieval_s'] for _, r in replies]):.3f}")
+            held(f"/retrieve {stage}", seen)
+
+        retrieve("before the updates")
+
+        title = "added doc"
+        text = " ".join(f"w{i}" for i in rng.randint(1 << 16, size=120))
+        code, added = _http(f"{url}/add_doc", {"title": title, "text": text})
+        assert code == 200 and added == {"doc_id": N_DOCS,
+                                         "n_docs": N_DOCS + 1}, added
+        index = pipe.searcher.index
+        assert index.vectors.shape[0] == N_DOCS + 4096, index.vectors.shape
+        # the added document's own vector, encoded as the pipeline encodes
+        # it, is the exact top-1 at its new id (plain scan: no launch)
+        vec = torch.from_numpy(pipe.encode_passage(title, text)).to(dev)
+        qi, qsc = mips.quantize_rows(vec)
+        ev, ei = mips.mips_scan_int8_plain(qi, qsc, index.vectors,
+                                           index.scales, 1, index.n_docs)
+        assert int(ei[0, 0]) == N_DOCS, ei
+        say(f"  g1 /add_doc: id {added['doc_id']}, index grown to "
+            f"{index.vectors.shape[0]} rows; its own vector's exact top-1 "
+            f"is id {int(ei[0, 0])}")
+        retrieve("after /add_doc (n_valid inside a chunk)")
+
+        searched.clear()
+        middle = N_DOCS // 2
+        code, deleted = _http(f"{url}/delete_doc", {"doc_id": middle})
+        assert code == 200 and deleted == {"moved_doc_id": N_DOCS,
+                                           "n_docs": N_DOCS}, deleted
+        assert pipe.corpus.docs[middle]["title"] == title
+        assert len(pipe.corpus.docs) == pipe.searcher.index.n_docs == N_DOCS
+        retrieve("after /delete_doc")
+        top = max(int(max(h1.max(), h2.max())) for h1, h2 in searched)
+        assert searched and top < N_DOCS, top
+        torch.cuda.synchronize()
+        out["qa_serving"] = leg_counts(mips)
+        say(f"  g1 /delete_doc {middle}: moved {deleted['moved_doc_id']}, "
+            f"n_docs {deleted['n_docs']} = id table; {len(searched)} later "
+            f"searches, largest id returned {top}")
+        say(f"  g1 launches: {json.dumps(out['qa_serving'])}")
+        for name in ("pca_chunk_max", "pca_rescan_int8"):
+            assert out["qa_serving"][name] > 0, f"{name} not launched on g1"
+
+        # check launches (not counted): the added document, now at id
+        # `middle`, through the engine's exact hop-1 search (kernel 1 over
+        # the grown index) against the plain scan, and through its PCA tier
+        index = pipe.searcher.index
+        vals, docs, _ = pipe.searcher._mips(vec, 1, pca=False)
+        ev, ei = mips.mips_scan_int8_plain(qi, qsc, index.vectors,
+                                           index.scales, 1, index.n_docs)
+        assert int(docs[0, 0]) == int(ei[0, 0]) == middle, (docs, ei)
+        assert torch.equal(vals, ev), (vals, ev)
+        pv, pd, cert = pipe.searcher._mips(vec, 1, pca=True)
+        assert not bool(cert[0]) or int(pd[0, 0]) == middle, (pd, cert)
+        held("the added document's PCA tier", seen)
+        say(f"  g1 the added document at id {middle}: its own vector is the "
+            f"exact hop-1 top-1 through kernel 1, score "
+            f"{float(vals[0, 0]):.4f}, bit-equal to the plain scan; the PCA "
+            f"tier returns id {int(pd[0, 0])} (certified: {bool(cert[0])})")
+
+        # one micro-batch, unprofiled and then under the profiler
+        mb = [q for q, _ in qs[:QA_BATCH]]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        recorded_batch(mb, QA_BATCH)
+        batch_ms = (time.perf_counter() - t2) * 1e3
+        profile_qa_batch(pipe, mb, batch_ms, smi)
+    finally:
+        pipe.answer_batch, pipe.pred_step = answer_batch, pred_step
+        pipe.searcher.search = search
+        pipe.searcher.__dict__.pop("_mips", None)
+        restore_launches()
+        srv.shutdown()
+        srv.server_close()
+        srv.engine_worker.stop()
+        thread.join(timeout=60)
+    assert not thread.is_alive() and not srv.engine_worker.is_alive()
+    del pipe, srv
+    torch.cuda.empty_cache()
+
+    # g2: the end2end CLI
+    with open(f"{tmp}/qas.jsonl", "w") as f:
+        for i, (q, a) in enumerate(qs[:N_ANSWERS]):
+            f.write(json.dumps({"_id": f"g{i}", "question": q,
+                                "answer": [a]}) + "\n")
+    torch.cuda.synchronize()
+    mips.reset_launch_counts()
+    printed = io.StringIO()
+    t3 = time.perf_counter()
+    with contextlib.redirect_stdout(printed), \
+            recorded_engines(BeamSearcher) as seen:
+        res = end2end.main([
+            f"{tmp}/qas.jsonl", f"{tmp}/e2", "--tokenizer", "hash",
+            "--retriever-model", "roberta-base", "--retriever-checkpoint",
+            f"{tmp}/model.pt", "--reader-model", "electra-large",
+            "--batch-size", str(QA_BATCH)])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t3
+    out["qa_end2end"] = leg_counts(mips)
+    line = json.loads(printed.getvalue().strip().splitlines()[-1])
+    assert line == res and res["n"] == N_ANSWERS, line
+    assert res["answer_em"] is not None and np.isfinite(res["answer_f1"])
+    say(f"  g2 cli/end2end.main over {N_ANSWERS} questions at batch "
+        f"{QA_BATCH}: {secs:.1f} s; metrics line {json.dumps(res)} [{smi}]")
+    say(f"  g2 launches: {json.dumps(out['qa_end2end'])}")
+    assert out["qa_end2end"]["mips_scan_int8"] > 0, "kernel 1 not launched"
+    index = seen[0][0]
+    assert all(r[0] is index for r in seen)
+    shapes = sorted({(r[1].shape[0], r[2]) for r in seen})
+    n_scan, n_pca, _ = check_recorded_hops([r[1:] for r in seen], index, mips)
+    assert n_scan and not n_pca, (n_scan, n_pca)
+    say(f"  g2 {len(seen)} hops (B, k in {shapes}) through kernel 1: ids "
+        f"and scores bit-equal to the plain scan")
+    return out
+
+
+def profile_qa_batch(pipe, questions, batch_ms, smi):
+    """One micro-batch of answer_batch in two profiled windows: its 2-hop
+    retrieval, then its reading over those chains (the same calls that
+    answer_batch makes).  Device ms of each (the sum of its kernels and
+    copies), the device's idle share of the unprofiled ``batch_ms``, peak
+    memory, and the largest kernels of each window."""
+    torch.cuda.reset_peak_memory_stats()
+    chains, _, retr_k = device_kernels(
+        lambda: pipe._chains(questions, QA_BATCH))
+    own = pipe._chains
+    pipe._chains = lambda qs, pad_to: chains
+    try:
+        _, _, read_k = device_kernels(
+            lambda: pipe.answer_batch(questions, QA_BATCH))
+    finally:
+        pipe._chains = own
+    retr_ms = sum(t for t, _ in retr_k)
+    read_ms = sum(t for t, _ in read_k)
+    busy = retr_ms + read_ms
+    say(f"  g1 profile of one micro-batch of {len(questions)} questions "
+        f"({5 * len(questions)} chains): device ms retrieval {retr_ms:.2f}, "
+        f"reader {read_ms:.2f} ({read_ms / busy:.3f} of the device time); "
+        f"idle share {idle_share(busy, batch_ms):.3f} of the unprofiled "
+        f"{batch_ms:.2f} ms; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]")
+    for what, kernels in (("retrieval", retr_k), ("reader", read_k)):
+        for t, name in kernels[:5]:
+            say(f"    {what} {t:9.3f} ms  {name[:90]}")
+    assert read_ms > 0 and retr_ms > 0, "no device time in a window"
 
 
 def run_int8_two_phase(engine, scfg, q_inputs, q_raw, q_lens, mips, search,
@@ -1291,37 +1771,53 @@ RANGES = ("hop1_encode", "hop1_mips", "hop2_assemble", "hop2_encode",
           "hop2_mips", "chain_topk")
 
 
-def profile_batch(engine, q_inputs, q_raw, q_lens, batch_ms, smi,
-                  table_path=None):
-    """Where one batch's time goes: device time per search step and
-    per kernel (torch.profiler), peak memory, and the idle share: 1 minus
-    the kernels' sum over `batch_ms`, the unprofiled batch time (the
-    profiler slows the host's launches, so its own wall time would
-    overstate the idle share).  The full table goes to `table_path`.
-    Returns (device ms, name) of every kernel and copy, largest first."""
+def dev_ms(event):
+    return getattr(event, "device_time_total", 0.0) / 1e3
+
+
+def device_kernels(fn):
+    """fn() under torch.profiler: (its result, the profiler's events, and
+    (device ms, name) of every kernel and copy, largest first: the
+    device-side events other than the search step ranges)."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
-        t0 = time.perf_counter()
-        engine.search(dict(q_inputs), q_raw, q_lens)
+        out = fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
-
-    def dev_ms(e):
-        return getattr(e, "device_time_total", 0.0) / 1e3
-
-    # device-side events other than the step ranges are kernels and copies
     kernels = sorted(((dev_ms(e), e.key) for e in events
                       if e.device_type == torch.autograd.DeviceType.CUDA
                       and e.key not in RANGES), reverse=True)
+    return out, events, kernels
+
+
+def idle_share(busy_ms, batch_ms):
+    """1 minus the device's busy ms over the unprofiled batch time (the
+    profiler slows the host's launches, so its own wall time would
+    overstate the idle share)."""
+    return 1 - busy_ms / batch_ms
+
+
+def profile_batch(engine, q_inputs, q_raw, q_lens, batch_ms, smi,
+                  table_path=None):
+    """Where one batch's time goes: device time per search step and
+    per kernel (torch.profiler), peak memory, and the idle share of
+    `batch_ms`.  The full table goes to `table_path`.  Returns (device ms,
+    name) of every kernel and copy, largest first."""
+    def timed():
+        t0 = time.perf_counter()
+        engine.search(dict(q_inputs), q_raw, q_lens)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    torch.cuda.reset_peak_memory_stats()
+    wall_ms, events, kernels = device_kernels(timed)
     busy = sum(t for t, _ in kernels)
     steps = {e.key: round(dev_ms(e), 3) for e in events if e.key in RANGES}
     say(f"  profile of one batch: device busy {busy:.2f} ms, idle share "
-        f"{1 - busy / batch_ms:.3f} of the unprofiled {batch_ms:.2f} ms "
-        f"(wall under the profiler {wall_ms:.2f} ms), peak memory "
+        f"{idle_share(busy, batch_ms):.3f} of the unprofiled {batch_ms:.2f} "
+        f"ms (wall under the profiler {wall_ms:.2f} ms), peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]")
     say(f"  device ms per step: {json.dumps(steps)}")
     for t, name in kernels[:8]:
@@ -1357,7 +1853,7 @@ TENSOR_CORE_SOURCES = ("mips_scan_mma", "mips_scan_i8", "chunk_max_mma",
 # the legs that launch kernels 1, 2, 3, 4, 5 and 7, and those kernels, which
 # must take the tensor cores wherever they run
 MMA_LEGS = ("int8", "int8_two_phase", "fused_serving", "bf16", "fever_c1",
-            "fever_c2")
+            "fever_c2", "qa_serving", "qa_end2end")
 MMA_KERNELS = ("mips_scan_int8", "mips_scan", "pca_chunk_max",
                "chunk_max_int8", "pca_rescan_int8", "rescan")
 

@@ -1,10 +1,13 @@
 """Shared CLI plumbing: logging, tokenizer, model and checkpoint resolution,
-and the hop-2 tiling flags (the JAX package's ``cli/common.py``, minus its
-compile cache, which the eager port has no use for).
+the serving pipeline's flags, and the hop-2 tiling flags (the JAX
+package's ``cli/common.py``, minus its compile cache, which the eager port
+has no use for), plus ``init_reader``, whose JAX counterpart lives in the
+JAX package's ``cli/train_qa.py``.
 
 ``--model-name roberta-base --checkpoint q_encoder.pt`` works as in the
 JAX package, and ``--tokenizer hash --model-name tiny`` gives a
-self-contained run.
+self-contained run.  ``init_retriever`` and ``init_reader`` put their
+model on ``cuda`` unless the caller names another device.
 """
 
 from __future__ import annotations
@@ -18,8 +21,9 @@ from typing import Optional
 import torch
 
 from ..core.config import EncoderConfig, default_hop2_tiling
+from ..core.device import resolve_device
 from ..data.tokenization import HashTokenizer, HFTokenizer
-from ..models import MhopRetriever
+from ..models import MhopRetriever, QAReader
 
 
 def setup_logging(output_dir: Optional[str] = None) -> logging.Logger:
@@ -54,20 +58,29 @@ def is_primary() -> bool:
     return True
 
 
-def _electra_large(**kw):
-    raise NotImplementedError(
-        "electra-large is the reader's encoder; it comes with the reader "
-        "(ROADMAP item 10)")
-
-
 MODEL_PRESETS = {
     "roberta-base": EncoderConfig.roberta_base,
     "bert-base-uncased": EncoderConfig.bert_base_uncased,
-    "electra-large": _electra_large,
+    "electra-large": EncoderConfig.electra_large,
     "tiny": lambda **kw: EncoderConfig.tiny(
         vocab_size=50265, max_position_embeddings=514, **kw),
     "mini": lambda **kw: EncoderConfig.tiny(
         vocab_size=50265, max_position_embeddings=514, hidden_size=64,
+        num_layers=4, intermediate_size=128, **kw),
+}
+
+
+# the reader's presets (BERT-style positions and segment ids); "tiny" and
+# "mini" run in fp32, as EncoderConfig.tiny does
+READER_PRESETS = {
+    "electra-large": EncoderConfig.electra_large,
+    "bert-base-uncased": EncoderConfig.bert_base_uncased,
+    "tiny": lambda **kw: EncoderConfig.tiny(
+        vocab_size=50265, max_position_embeddings=514, type_vocab_size=2,
+        pad_token_id=0, roberta_positions=False, **kw),
+    "mini": lambda **kw: EncoderConfig.tiny(
+        vocab_size=50265, max_position_embeddings=514, type_vocab_size=2,
+        pad_token_id=0, roberta_positions=False, hidden_size=64,
         num_layers=4, intermediate_size=128, **kw),
 }
 
@@ -77,6 +90,69 @@ def resolve_encoder_config(name: str, dtype: str = "bfloat16") -> EncoderConfig:
         raise ValueError(f"unknown model preset {name}; "
                          f"options: {sorted(MODEL_PRESETS)}")
     return MODEL_PRESETS[name](dtype=dtype)
+
+
+def add_device_arg(p):
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (cpu: the kernels' plain "
+                        "versions)")
+
+
+def add_pipeline_args(p):
+    """Arguments that construct a ``DemoPipeline`` (retriever + reader +
+    live index), shared by the demo REPL and the HTTP server."""
+    p.add_argument("index_dir")
+    add_device_arg(p)
+    p.add_argument("--tokenizer", default="hash")
+    p.add_argument("--retriever-model", default="roberta-base")
+    p.add_argument("--retriever-checkpoint", default="")
+    p.add_argument("--reader-model", default="electra-large")
+    p.add_argument("--reader-checkpoint", default="")
+    p.add_argument("--reader-tokenizer", default="",
+                   help="tokenizer for the reader (its vocabulary differs "
+                        "from the retriever's: electra wordpiece vs roberta "
+                        "BPE); default: --tokenizer, correct only for the "
+                        "hash test tokenizer")
+    p.add_argument("--beam-size", type=int, default=5)
+    p.add_argument("--topk", type=int, default=5)
+    p.add_argument("--max-q-len", type=int, default=70)
+    p.add_argument("--max-q-sp-len", type=int, default=350)
+    p.add_argument("--max-seq-len", type=int, default=512)
+    p.add_argument("--max-ans-len", type=int, default=30)
+    p.add_argument("--chunk-rows", type=int, default=4096)
+    p.add_argument("--max-c-len", type=int, default=300,
+                   help="passage budget when encoding live-added documents")
+    add_reader_scores_args(p)
+    p.add_argument("--pca", action="store_true",
+                   help="PCA-prefiltered MIPS (index built with --pca-dims)")
+    p.add_argument("--pca-k-chunks", type=int, default=8)
+    p.add_argument("--lambda", dest="lam", type=float, default=0.8)
+    p.add_argument("--unified", action="store_true",
+                   help="variable-hop serving with a UnifiedRetriever.  Not "
+                        "ported yet: raises")
+    p.add_argument("--stop-threshold", type=float, default=0.5)
+    add_rank_args(p)
+    add_hop2_tiling_args(p)
+
+
+def add_reader_scores_args(p):
+    p.add_argument("--reader-bf16-scores", action="store_true", default=True,
+                   help="bf16 reader attention scores (the default)")
+    p.add_argument("--reader-fp32-scores", dest="reader_bf16_scores",
+                   action="store_false",
+                   help="revert reader attention scores to fp32")
+
+
+def add_rank_args(p):
+    """Two-stage read flags (shared by the pipeline CLIs and end2end)."""
+    p.add_argument("--rank-topm", type=int, default=0,
+                   help="two-stage read: rank ALL chains at --rank-width "
+                        "tokens, run the full span/sp pass on the top-m per "
+                        "question (0 = read every chain fully, the "
+                        "reference behavior)")
+    p.add_argument("--rank-width", type=int, default=128,
+                   help="rank-pass token width (a cap on each length-"
+                        "bucketed batch's width)")
 
 
 def _prune_margin(s: str) -> float:
@@ -152,9 +228,9 @@ def resolve_tokenizer(spec: str, vocab_size: int = 50265,
 
 
 def load_retriever_params(checkpoint: str):
-    """A reference ``.pt`` state dict (``module.`` prefixes stripped; an HF
-    pooler is ignored by the model).  Orbax directories are the JAX
-    package's format and raise."""
+    """A reference ``.pt`` state dict, retriever or reader (``module.``
+    prefixes stripped; an HF pooler is ignored by the retriever).  Orbax
+    directories are the JAX package's format and raise."""
     if not checkpoint.endswith(".pt"):
         raise NotImplementedError(
             f"{checkpoint!r}: the port loads reference .pt state dicts; "
@@ -167,13 +243,45 @@ def load_retriever_params(checkpoint: str):
 
 def init_retriever(config: EncoderConfig, *, checkpoint: str = "",
                    seed: int = 0, device=None) -> MhopRetriever:
-    """The retriever in eval mode on ``device``: loaded from ``checkpoint``,
-    or random weights from ``seed`` without one (the caller's global RNG
-    state is left as it was).  The last layer computes the CLS position
-    only (``cls_only``)."""
+    """The retriever in eval mode on ``device`` (``cuda`` unless named):
+    loaded from ``checkpoint``, or random weights from ``seed`` without one
+    (the caller's global RNG state is left as it was).  The last layer
+    computes the CLS position only (``cls_only``)."""
+    dev = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = MhopRetriever(config, cls_only=True)
     if checkpoint:
         model.load_state_dict(load_retriever_params(checkpoint))
-    return model.to(device).eval()
+    return model.to(dev).eval()
+
+
+def init_reader(model_name: str, checkpoint: str = "", sp_pred: bool = True,
+                seed: int = 0, scores_dtype: str = "float32", device=None):
+    """(config, QAReader in eval mode on ``device``, ``cuda`` unless
+    named): loaded from a reference ``QAModel`` ``.pt``, or random weights
+    from ``seed`` made on the device itself without one (the caller's RNG
+    state is left as it was).  ``scores_dtype`` is the attention scores'
+    dtype; the serving CLIs default to bf16.  The JAX counterpart is
+    ``init_reader`` in the JAX package's ``cli/train_qa.py``."""
+    dev = resolve_device(device)
+    if model_name not in READER_PRESETS:
+        raise ValueError(f"unknown reader preset {model_name}; "
+                         f"options: {sorted(READER_PRESETS)}")
+    cfg = READER_PRESETS[model_name](attention_scores_dtype=scores_dtype)
+    devices = [dev.index or 0] if dev.type == "cuda" else []
+    with torch.random.fork_rng(devices=devices):
+        torch.manual_seed(seed)
+        with dev:
+            model = QAReader(cfg, sp_pred=sp_pred)
+    if checkpoint:
+        model.load_state_dict(load_retriever_params(checkpoint))
+    return cfg, model.eval()
+
+
+def resolve_reader_tokenizer(spec: str, config: EncoderConfig):
+    """The reader's tokenizer: BERT-style specials; the hash tokenizer is
+    sized to the reader's vocabulary, so every id it gives is a row of the
+    reader's embedding table."""
+    return resolve_tokenizer(spec, vocab_size=config.vocab_size,
+                             roberta_style=False)

@@ -66,6 +66,16 @@ class EncoderConfig:
         return cls(**d)
 
     @classmethod
+    def electra_large(cls, **kw) -> "EncoderConfig":
+        """The QA reader's backbone: 24 layers, 1024 wide, 16 heads."""
+        d = dict(vocab_size=30522, hidden_size=1024, num_layers=24,
+                 num_heads=16, intermediate_size=4096,
+                 max_position_embeddings=512, type_vocab_size=2,
+                 layer_norm_eps=1e-12, pad_token_id=0, roberta_positions=False)
+        d.update(kw)
+        return cls(**d)
+
+    @classmethod
     def tiny(cls, **kw) -> "EncoderConfig":
         """A minuscule config for unit tests (CPU-fast, same code paths)."""
         d = dict(vocab_size=128, hidden_size=32, num_layers=2, num_heads=4,

@@ -4,7 +4,15 @@
 Rows are padded to a multiple of ``chunk_rows`` and ``n_docs``
 is kept so padded rows are masked in search.  On disk a bf16 payload and
 ``pca_proj`` are stored as uint16 bit patterns (numpy has no bf16).
-Online updates and sharding are not ported yet.
+
+Online updates (``append``, ``replace``, ``delete_swap``) follow the JAX
+store's arithmetic: new rows are quantized on the host as ``build`` does
+(true division by 127, which is what the JAX store's eager
+``quantize_rows`` computes), the PCA projection of a stored row is an fp32
+product on the device, and certificate bounds only ever grow.  The JAX
+store donates its buffers; the port writes into them in place, so an
+update's input index shares (and sees) the written buffers: use only the
+returned index afterwards.  Sharding is not ported yet (ROADMAP item 12).
 """
 
 from __future__ import annotations
@@ -35,6 +43,22 @@ def _dtype(dtype) -> torch.dtype:
 
 def _bf16_to_u16(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().view(torch.int16).numpy().view(np.uint16)
+
+
+def quantize_host(x: np.ndarray):
+    """Symmetric per-row int8 on the host: (int8 rows, fp32 scales), the
+    scale max|x| / 127 (floor 1e-10), values rounded half to even."""
+    q = np.empty(x.shape, np.int8)
+    sc = np.empty((x.shape[0],), np.float32)
+    for s0 in range(0, x.shape[0], 65536):
+        e0 = min(s0 + 65536, x.shape[0])
+        chunk = x[s0:e0]
+        s_chunk = np.maximum(np.max(np.abs(chunk), axis=1) / 127.0,
+                             1e-10).astype(np.float32)
+        q[s0:e0] = np.clip(np.round(chunk / s_chunk[:, None]),
+                           -127, 127).astype(np.int8)
+        sc[s0:e0] = s_chunk
+    return q, sc
 
 
 def _u16_to_bf16(a: np.ndarray) -> torch.Tensor:
@@ -76,16 +100,7 @@ class DenseIndex:
         scales = sc = None
         if dt == torch.int8:
             # host-side, chunk by chunk, in the JAX store's arithmetic
-            q = np.empty((n_pad, d), np.int8)
-            sc = np.empty((n_pad,), np.float32)
-            for s0 in range(0, n_pad, 65536):
-                e0 = min(s0 + 65536, n_pad)
-                x = out[s0:e0]
-                s_chunk = np.maximum(np.max(np.abs(x), axis=1) / 127.0,
-                                     1e-10).astype(np.float32)
-                q[s0:e0] = np.clip(np.round(x / s_chunk[:, None]),
-                                   -127, 127).astype(np.int8)
-                sc[s0:e0] = s_chunk
+            q, sc = quantize_host(out)
             arr = torch.from_numpy(q).to(dev)
             scales = torch.from_numpy(sc).to(dev)
         else:
@@ -106,6 +121,130 @@ class DenseIndex:
                    multi_vector=max(multi_vector, 1), chunk_rows=chunk_rows,
                    pca_rot=rot, pca_proj=proj, pca_bounds=bounds,
                    pca_cand_rows=pca_cand_rows)
+
+    # ---- online updates (serving) ----------------------------------------
+    # Row arithmetic is in DOCUMENT units of `multi_vector` rows.
+
+    def _stored_rows(self, embeddings: np.ndarray):
+        """(rows in the index dtype, int8 scales or None) on the device."""
+        x = np.array(embeddings, np.float32)     # a writable copy
+        dev = self.vectors.device
+        if self.scales is not None:
+            q, sc = quantize_host(x)
+            return torch.from_numpy(q).to(dev), torch.from_numpy(sc).to(dev)
+        return torch.from_numpy(x).to(dev).to(self.vectors.dtype), None
+
+    def _pca_ingest(self, proj, bounds, rows, scales_new, start: int):
+        """Project newly stored rows and max their certificate bounds in.
+        Bounds only ever grow, so every certificate issued afterwards stays
+        a true upper bound; stale contributions of replaced or deleted rows
+        cost tightness only.  ``rows`` are the stored rows (int8 values or
+        bf16/fp32 rows)."""
+        xd = rows.float()
+        if scales_new is not None:
+            xd = xd * scales_new.reshape(-1, 1)
+        p = xd @ self.pca_rot
+        pb = p.to(proj.dtype)
+        pb32 = pb.float()
+        quant = torch.stack([
+            torch.sqrt(torch.clamp((xd * xd).sum(1) - (p * p).sum(1),
+                                   min=0)),
+            torch.linalg.vector_norm(p - pb32, dim=1),
+            torch.linalg.vector_norm(pb32, dim=1),
+            torch.linalg.vector_norm(xd, dim=1),
+        ]) * (1 + 1e-6) + 1e-6          # fp32-accumulation safety margin
+        proj[start:start + rows.shape[0]] = pb
+        cols = torch.arange(start, start + rows.shape[0],
+                            device=bounds.device) // self.pca_cand_rows
+        bounds.scatter_reduce_(1, cols.expand(4, -1), quant, reduce="amax")
+        return proj, bounds
+
+    def append(self, embeddings: np.ndarray, *,
+               chunk_rows: Optional[int] = None) -> "DenseIndex":
+        """Add documents; returns the updated index.  New rows land in the
+        tail padding when they fit; otherwise every buffer grows to the
+        next multiple of ``chunk_rows`` (default: the index's own layout
+        granularity) with zero rows, and the bounds with zero chunks."""
+        chunk_rows = chunk_rows or self.chunk_rows
+        rows, scales_new = self._stored_rows(embeddings)
+        m = rows.shape[0]
+        if m % self.multi_vector:
+            raise ValueError("appended rows must be whole documents")
+        vec, scales = self.vectors, self.scales
+        proj, bounds = self.pca_proj, self.pca_bounds
+        n_pad = vec.shape[0]
+        if self.n_docs + m > n_pad:
+            pad = _round_up(self.n_docs + m, chunk_rows) - n_pad
+
+            def grow(t, shape):
+                return torch.cat([t, t.new_zeros(shape)], dim=0)
+
+            vec = grow(vec, (pad, vec.shape[1]))
+            if scales is not None:
+                scales = grow(scales, (pad,))
+            if proj is not None:
+                if (n_pad + pad) % self.pca_cand_rows:
+                    raise ValueError("the grown row count is not a multiple "
+                                     "of pca_cand_rows")
+                proj = grow(proj, (pad, proj.shape[1]))
+                bounds = torch.cat([bounds, bounds.new_zeros(
+                    (4, pad // self.pca_cand_rows))], dim=1)
+        start = self.n_docs
+        vec[start:start + m] = rows
+        if scales is not None:
+            scales[start:start + m] = scales_new
+        if proj is not None:
+            proj, bounds = self._pca_ingest(proj, bounds, rows, scales_new,
+                                            start)
+        return dataclasses.replace(self, vectors=vec, n_docs=self.n_docs + m,
+                                   scales=scales, pca_proj=proj,
+                                   pca_bounds=bounds)
+
+    def replace(self, doc_id: int, embeddings: np.ndarray) -> "DenseIndex":
+        """Overwrite one document's vector(s) in place."""
+        rows, scales_new = self._stored_rows(embeddings)
+        if rows.shape[0] != self.multi_vector:
+            raise ValueError(f"a document is {self.multi_vector} rows, "
+                             f"got {rows.shape[0]}")
+        start = doc_id * self.multi_vector
+        if not 0 <= start < self.n_docs:
+            raise IndexError(f"doc_id {doc_id} out of range")
+        self.vectors[start:start + rows.shape[0]] = rows
+        if self.scales is not None:
+            self.scales[start:start + rows.shape[0]] = scales_new
+        if self.pca_proj is not None:
+            self._pca_ingest(self.pca_proj, self.pca_bounds, rows,
+                             scales_new, start)
+        return dataclasses.replace(self)
+
+    def delete_swap(self, doc_id: int):
+        """Swap-delete a document: the LAST document moves into its slot and
+        n_docs shrinks (the freed rows stay masked by n_valid in search).
+        Returns (index, moved_doc_id): the caller moves the same row of its
+        doc table, or nothing when the moved id is None (the last document
+        was deleted).  The moved rows take their source chunk's bounds, a
+        sound (if loose) transfer without per-row bounds."""
+        last = self.n_passages - 1
+        if not 0 <= doc_id <= last:
+            raise IndexError(f"doc_id {doc_id} out of range")
+        mv = self.multi_vector
+        moved = None
+        if doc_id != last:
+            src = slice(last * mv, last * mv + mv)
+            dst = slice(doc_id * mv, doc_id * mv + mv)
+            self.vectors[dst] = self.vectors[src].clone()
+            if self.scales is not None:
+                self.scales[dst] = self.scales[src].clone()
+            if self.pca_proj is not None:
+                self.pca_proj[dst] = self.pca_proj[src].clone()
+                r = torch.arange(mv, device=self.pca_bounds.device)
+                srcs = (last * mv + r) // self.pca_cand_rows
+                tgts = (doc_id * mv + r) // self.pca_cand_rows
+                self.pca_bounds.scatter_reduce_(
+                    1, tgts.expand(4, -1), self.pca_bounds[:, srcs].clone(),
+                    reduce="amax")
+            moved = last
+        return dataclasses.replace(self, n_docs=self.n_docs - mv), moved
 
     def save(self, path: str):
         extra = {"multi_vector": self.multi_vector,

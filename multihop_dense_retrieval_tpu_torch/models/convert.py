@@ -1,4 +1,5 @@
-"""Carry retriever weights from a Flax parameter tree into the port.
+"""Carry retriever and reader weights from a Flax parameter tree into the
+port.
 
 ``retriever_state_dict_from_jax`` takes the JAX package's MhopRetriever
 parameter tree with numpy leaves (``jax.device_get(params)``, with or
@@ -8,6 +9,14 @@ It is the port's own copy of the mapping in the JAX package's
 ``models/export.py``; no pooler is synthesized because the port's module
 has none.  Load the result with ``MhopRetriever.load_state_dict`` (or
 ``MultiVectorCtxEncoder.load_state_dict``: the same names).
+
+``reader_state_dict_from_jax`` does the same for the JAX QAReader under
+the reference ``QAModel``'s names: ``encoder.*`` (HF ELECTRA/BERT, with
+``encoder.embeddings_project`` where the embeddings are narrower than the
+hidden size), the top-level ``pooler.dense`` that the reference adds to
+ELECTRA, ``qa_outputs``, ``rank`` and ``sp``.  The JAX package's
+``reader_ckpt_to_flax`` reads these names back, and ``QAReader`` loads
+them directly.
 """
 
 from __future__ import annotations
@@ -57,7 +66,8 @@ def encoder_state_dict_from_jax(enc: Dict, prefix: str = "") -> StateDict:
         out[f"{p}embeddings.{name}.weight"] = _np(emb[name]["embedding"])
     _layer_norm(out, f"{p}embeddings.LayerNorm", emb["layer_norm"])
     if "embeddings_project" in emb:
-        raise NotImplementedError("embedding_size != hidden_size")
+        # HF ElectraModel.embeddings_project, beside the embeddings
+        _dense(out, f"{p}embeddings_project", emb["embeddings_project"])
     i = 0
     while f"layer_{i}" in enc:
         lp = f"{p}encoder.layer.{i}."
@@ -76,6 +86,11 @@ def encoder_state_dict_from_jax(enc: Dict, prefix: str = "") -> StateDict:
     return out
 
 
+def _tensors(out: StateDict) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, np.float32))
+            for k, v in out.items()}
+
+
 def retriever_state_dict_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
     """MhopRetriever or MultiVectorCtxEncoder Flax params (numpy leaves) →
     the port's state dict (no ``project.*`` where the tree has no
@@ -86,5 +101,17 @@ def retriever_state_dict_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
     if "project" in params:
         _dense(out, "project.0", params["project"]["dense"])
         _layer_norm(out, "project.1", params["project"]["layer_norm"])
-    return {k: torch.from_numpy(np.array(v, np.float32))
-            for k, v in out.items()}
+    return _tensors(out)
+
+
+def reader_state_dict_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
+    """QAReader Flax params (numpy leaves) → a reference ``QAModel`` state
+    dict (no ``sp.*`` for a reader built with ``sp_pred=False``)."""
+    if "params" in params and "encoder" not in params:
+        params = params["params"]
+    out = encoder_state_dict_from_jax(params["encoder"], prefix="encoder.")
+    for name in ("pooler.dense", "qa_outputs", "rank", "sp"):
+        key = name.split(".")[0]
+        if key in params:
+            _dense(out, name, params[key])
+    return _tensors(out)

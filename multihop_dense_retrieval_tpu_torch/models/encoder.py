@@ -13,7 +13,12 @@ step, so a checkpoint gives the same vectors in both:
   * RoBERTa position ids come from ``input_ids != pad_id`` (not the mask);
   * LayerNorm statistics are fp32 with the fast variance E[x²]−E[x]², the
     result is downcast once;
-  * gelu is fp32 erf with one downcast;
+  * gelu is fp32 erf with one downcast; ``gelu_new`` (the tanh
+    approximation) and ``relu`` run in the compute dtype, op for op as
+    ``jax.nn.gelu(approximate=True)`` and ``jax.nn.relu``;
+  * with ``embedding_size != hidden_size`` (ELECTRA small/base) the
+    embeddings and their LayerNorm are ``embedding_size`` wide, and the
+    ``embeddings_project`` dense (compute dtype) follows the LayerNorm;
   * a dense layer is a matmul in the compute dtype, then a separate bias
     add in that dtype (Flax rounds the product before adding the bias);
   * attention (``attention_impl="xla"``) is two matmuls and an explicit
@@ -56,10 +61,18 @@ def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     return (xf * 0.5 * (1.0 + torch.erf(xf * 0.7071067811865476))).to(x.dtype)
 
 
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=True)`` in the dtype of ``x``."""
+    c = torch.tensor(math.sqrt(2 / math.pi), dtype=torch.float32).to(x.dtype)
+    cdf = 0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * (x ** 3))))
+    return x * cdf
+
+
 def _act(name: str):
-    if name == "gelu":
-        return gelu_exact
-    raise NotImplementedError(f"activation {name!r} is not ported yet")
+    acts = {"gelu": gelu_exact, "gelu_new": gelu_tanh, "relu": torch.relu}
+    if name not in acts:
+        raise ValueError(f"unknown activation {name}")
+    return acts[name]
 
 
 def dense(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
@@ -85,14 +98,11 @@ def roberta_position_ids(input_ids: torch.Tensor, pad_id: int) -> torch.Tensor:
 class Embeddings(nn.Module):
     def __init__(self, c: EncoderConfig):
         super().__init__()
-        if c.embedding_size not in (None, c.hidden_size):
-            raise NotImplementedError("embedding_size != hidden_size")
-        self.word_embeddings = nn.Embedding(c.vocab_size, c.hidden_size)
-        self.position_embeddings = nn.Embedding(c.max_position_embeddings,
-                                                c.hidden_size)
-        self.token_type_embeddings = nn.Embedding(c.type_vocab_size,
-                                                  c.hidden_size)
-        self.LayerNorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
+        e = c.embedding_size or c.hidden_size
+        self.word_embeddings = nn.Embedding(c.vocab_size, e)
+        self.position_embeddings = nn.Embedding(c.max_position_embeddings, e)
+        self.token_type_embeddings = nn.Embedding(c.type_vocab_size, e)
+        self.LayerNorm = nn.LayerNorm(e, eps=c.layer_norm_eps)
         self.dtype = c.torch_dtype
 
     def forward(self, input_ids, token_type_ids, position_ids):
@@ -219,8 +229,14 @@ class TransformerEncoder(nn.Module):
         self.cls_only = cls_only
         self.return_all_hiddens = return_all_hiddens
         self.embeddings = Embeddings(config)
+        # HF ELECTRA keeps the projection beside the embeddings, at the
+        # model's top level
+        self.embeddings_project = None
+        if config.embedding_size not in (None, config.hidden_size):
+            self.embeddings_project = nn.Linear(config.embedding_size,
+                                                config.hidden_size)
         self.encoder = LayerStack(config)
-        for mod in self.encoder.modules():
+        for mod in self.modules():
             if isinstance(mod, nn.Linear):
                 mod.to(config.torch_dtype)
         self._register_load_state_dict_pre_hook(_drop_unused_keys,
@@ -238,6 +254,8 @@ class TransformerEncoder(nn.Module):
             position_ids = torch.arange(L, device=input_ids.device
                                         ).expand(B, L)
         x = self.embeddings(input_ids, token_type_ids.long(), position_ids)
+        if self.embeddings_project is not None:
+            x = dense(x, self.embeddings_project)
         attn_bias = torch.where(attention_mask[:, None, None, :].bool(),
                                 0.0, NEG_INF).to(torch.float32)
         layers = self.encoder.layer

@@ -13,15 +13,18 @@ then encodes each tile at its width (the JAX engine's ``lax.cond``).
 The search steps carry ``torch.profiler`` ranges (hop1_encode, hop1_mips,
 hop2_assemble, hop2_encode, hop2_mips, chain_topk); they cost nothing
 unless a profiler is recording.
+``add_docs`` and ``delete_doc`` update the live engine (index and token
+store) between searches, as the JAX engine's do.
 Not ported yet (each raises NotImplementedError): candidate pruning
 (``hop2_prune_margin``), the stop-skip cascade (``stop_skip_threshold``,
-``encode_qsp_fn``), sharding (``mesh``) and online updates.
+``encode_qsp_fn``) and sharding (``mesh``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+import math
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -130,6 +133,58 @@ class BeamSearcher:
             raise ValueError(f"token store dtype {self.text_ids.dtype}")
         self.text_lens = _to_tensor(self.text_lens, self.device)
         self.empty = _to_tensor(self.empty, self.device, torch.bool)
+
+    # ---- live corpus updates -------------------------------------------
+
+    def add_docs(self, embeddings: np.ndarray, text_ids: np.ndarray,
+                 text_lens: np.ndarray,
+                 empty: Optional[np.ndarray] = None) -> List[int]:
+        """Append documents to the live engine: ``embeddings`` (M, D), and
+        ``text_ids`` (M, <= Lt) raw doc token ids (no specials), padded here
+        to the store width; a 16-bit store keeps ids >= 32768 as their
+        int16 bit patterns.  The index grows by lcm(index layout chunk,
+        config.chunk_rows) when its padding is full.  Returns the new
+        documents' ids."""
+        if self.index.multi_vector != 1:
+            raise NotImplementedError(
+                "online updates support single-vector indexes")
+        m = len(text_lens)
+        start = self.index.n_docs
+        unit = math.lcm(self.index.chunk_rows, self.config.chunk_rows)
+        self.index = self.index.append(embeddings, chunk_rows=unit)
+        grow = self.index.vectors.shape[0] - self.text_ids.shape[0]
+        if grow > 0:
+            self.text_ids = torch.cat([self.text_ids, self.text_ids.new_full(
+                (grow, self.text_ids.shape[1]), self.spec.pad_id)])
+            self.text_lens = torch.cat(
+                [self.text_lens, self.text_lens.new_zeros(grow)])
+            self.empty = torch.cat([self.empty, self.empty.new_zeros(grow)])
+        width = self.text_ids.shape[1]
+        rows = np.full((m, width), self.spec.pad_id, np.int64)
+        tin = np.asarray(text_ids)
+        rows[:, :tin.shape[1]] = tin
+        if self.text_ids.dtype == torch.int16:
+            rows = rows.astype(np.uint16).view(np.int16)
+        new = slice(start, start + m)
+        self.text_ids[new] = _to_tensor(rows, self.device, self.text_ids.dtype)
+        self.text_lens[new] = _to_tensor(np.asarray(text_lens), self.device,
+                                         self.text_lens.dtype)
+        emp = np.zeros((m,), bool) if empty is None else np.asarray(empty)
+        self.empty[new] = _to_tensor(emp, self.device, torch.bool)
+        return list(range(start, start + m))
+
+    def delete_doc(self, doc_id: int) -> Optional[int]:
+        """Swap-delete a document from the live engine (index + token
+        store).  Returns the id that moved into the freed slot (the caller
+        moves its host doc table the same way), or None."""
+        if self.index.multi_vector != 1:
+            raise NotImplementedError(
+                "online updates support single-vector indexes")
+        self.index, moved = self.index.delete_swap(doc_id)
+        if moved is not None:
+            for store in (self.text_ids, self.text_lens, self.empty):
+                store[doc_id] = store[moved].clone()
+        return moved
 
     def _pca_on_hop(self, hop: int) -> bool:
         mode = self.config.pca_hops

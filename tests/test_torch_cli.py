@@ -234,8 +234,9 @@ def test_unported_options_raise(tmp_path):
             tretr.main(base + flags)
     with pytest.raises(NotImplementedError, match="ROADMAP item"):
         tfever.main(base + ["--hop2-prune-margin", "0.5"])
-    with pytest.raises(NotImplementedError, match="electra-large"):
-        tcommon.resolve_encoder_config("electra-large")
+    # electra-large is ported (the reader's preset) and no longer raises
+    assert tcommon.resolve_encoder_config("electra-large") == \
+        EncoderConfig.electra_large()
     with pytest.raises(NotImplementedError, match="orbax"):
         tcommon.load_retriever_params(str(tmp_path))
 

@@ -145,3 +145,100 @@ def test_reference_checkpoint_layout_loads_directly():
     np.testing.assert_allclose(_torch_encode(model, ids, mask, tt),
                                _jax_encode(jmodel, params, ids, mask, tt),
                                rtol=0, atol=1e-5)
+
+
+# ---- gelu_new, relu, embedding_size != hidden_size (ELECTRA) --------------
+
+
+@pytest.mark.parametrize("dtype,scores", [("float32", "float32"),
+                                          ("bfloat16", "bfloat16")])
+@pytest.mark.parametrize("act,emb_size", [("gelu_new", None), ("relu", None),
+                                          ("gelu", 16), ("gelu_new", 24)])
+@pytest.mark.parametrize("roberta", [True, False])
+def test_activations_and_embeddings_project_match_jax(dtype, scores, act,
+                                                      emb_size, roberta):
+    """hidden_act gelu_new / relu and the embeddings_project dense against
+    the JAX encoder, weights carried by convert; the tolerances above."""
+    kw = dict(_cfg_kwargs(dtype, scores, roberta), hidden_act=act,
+              embedding_size=emb_size)
+    jmodel, params = _jax_model(kw, seed=21)
+    cfg = EncoderConfig.tiny(**kw)
+    ids, mask, tt = _inputs(np.random.RandomState(17), 6, 24,
+                            cfg.pad_token_id, roberta)
+    exp = _jax_encode(jmodel, params, ids, mask, tt)
+    sd = retriever_state_dict_from_jax(jax.device_get(params))
+    assert ("encoder.embeddings_project.weight" in sd) == (emb_size is not None)
+    model = MhopRetriever(cfg)
+    model.load_state_dict(sd)
+    got = _torch_encode(model, ids, mask, tt)
+    assert got.shape == exp.shape
+    _close(got, exp, dtype)
+
+
+def test_electra_large_preset_matches_jax():
+    import dataclasses
+
+    got = dataclasses.asdict(EncoderConfig.electra_large())
+    exp = dataclasses.asdict(JaxEncoderConfig.electra_large())
+    assert got == exp
+    assert EncoderConfig.electra_large(dtype="float32").dtype == "float32"
+
+
+def _hf_hidden(hf, ids, mask, tt):
+    with torch.no_grad():
+        return hf(input_ids=torch.from_numpy(ids).long(),
+                  attention_mask=torch.from_numpy(mask).long(),
+                  token_type_ids=None if tt is None
+                  else torch.from_numpy(tt).long()).last_hidden_state.numpy()
+
+
+def _port_hidden(cfg, sd, ids, mask, tt):
+    from multihop_dense_retrieval_tpu_torch.models import TransformerEncoder
+
+    enc = TransformerEncoder(cfg)
+    enc.load_state_dict(sd)
+    with torch.no_grad():
+        return enc(torch.from_numpy(ids), torch.from_numpy(mask),
+                   None if tt is None else torch.from_numpy(tt)).numpy()
+
+
+def test_fp32_encoder_matches_transformers_roberta():
+    """The port's fp32 encoder against a randomly initialised transformers
+    RobertaModel built from a local config: every hidden state, atol 1e-5
+    (HF's own pooler is ignored by the port)."""
+    transformers = pytest.importorskip("transformers")
+    hf_cfg = transformers.RobertaConfig(
+        vocab_size=96, hidden_size=32, num_hidden_layers=2,
+        num_attention_heads=4, intermediate_size=64,
+        max_position_embeddings=40, type_vocab_size=1, layer_norm_eps=1e-5,
+        pad_token_id=1, hidden_act="gelu")
+    torch.manual_seed(0)
+    hf = transformers.RobertaModel(hf_cfg).eval()
+    cfg = EncoderConfig.tiny(**_cfg_kwargs("float32", "float32", True))
+    ids, mask, tt = _inputs(np.random.RandomState(8), 5, 24, 1, True)
+    np.testing.assert_allclose(_port_hidden(cfg, hf.state_dict(), ids, mask,
+                                            tt),
+                               _hf_hidden(hf, ids, mask, tt),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("act", ["gelu", "gelu_new", "relu"])
+def test_fp32_encoder_matches_transformers_electra(act):
+    """The port's fp32 encoder against a randomly initialised transformers
+    ElectraModel whose embeddings (16) are narrower than its hidden size
+    (32), so its embeddings_project runs; atol 1e-5."""
+    transformers = pytest.importorskip("transformers")
+    hf_cfg = transformers.ElectraConfig(
+        vocab_size=96, embedding_size=16, hidden_size=32,
+        num_hidden_layers=2, num_attention_heads=4, intermediate_size=64,
+        max_position_embeddings=40, type_vocab_size=2, layer_norm_eps=1e-12,
+        pad_token_id=0, hidden_act=act)
+    torch.manual_seed(1)
+    hf = transformers.ElectraModel(hf_cfg).eval()
+    cfg = EncoderConfig.tiny(**dict(_cfg_kwargs("float32", "float32", False),
+                                    embedding_size=16, hidden_act=act))
+    ids, mask, tt = _inputs(np.random.RandomState(9), 5, 24, 0, False)
+    np.testing.assert_allclose(_port_hidden(cfg, hf.state_dict(), ids, mask,
+                                            tt),
+                               _hf_hidden(hf, ids, mask, tt),
+                               rtol=0, atol=1e-5)

@@ -128,3 +128,46 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
                              capture_output=True, text=True, timeout=120)
         assert res.returncode != 0
         assert '"ok"' not in res.stdout
+
+
+def test_model_inits_without_device_raise_when_cuda_is_absent(monkeypatch):
+    """init_retriever and init_reader put their model on cuda unless the
+    caller names a device: without CUDA they raise, and never leave the
+    model on the CPU on their own."""
+    from multihop_dense_retrieval_tpu_torch.cli import common
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = common.resolve_encoder_config("tiny", dtype="float32")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        common.init_retriever(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        common.init_reader("tiny")
+    assert next(common.init_retriever(cfg, device="cpu").parameters()
+                ).device.type == "cpu"
+    _, reader = common.init_reader("tiny", device="cpu")
+    assert next(reader.parameters()).device.type == "cpu"
+
+
+@pytest.mark.parametrize("cli", ["end2end", "demo", "serve", "parity"])
+def test_qa_cli_without_device_raises_when_cuda_is_absent(monkeypatch,
+                                                          tmp_path, cli):
+    """The question-answering CLIs default to --device cuda: without CUDA
+    they raise before reading the index, the questions or a checkpoint."""
+    import importlib
+
+    main = importlib.import_module(f"{PORT}.cli.{cli}").main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    missing = str(tmp_path / "missing")
+    argv = {"end2end": [missing + ".jsonl", missing],
+            "demo": [missing, "--question", "q"],
+            "serve": [missing, "--port", "0"]}.get(cli)
+    if cli == "parity":
+        # the artifacts exist (empty files): the device is resolved next
+        for rel in ("models/q_encoder.pt", "data/hotpot_index/wiki_index.npy",
+                    "data/hotpot_index/wiki_id2doc.json",
+                    "data/hotpot/hotpot_qas_val.json"):
+            (tmp_path / rel).parent.mkdir(parents=True, exist_ok=True)
+            (tmp_path / rel).write_text("")
+        argv = ["--data-dir", str(tmp_path)]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(argv + ["--tokenizer", "hash"])

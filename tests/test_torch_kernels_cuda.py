@@ -617,6 +617,64 @@ def test_mips_topk_pca_on_card_matches_cpu(dev):
                                rtol=1e-6, atol=0)
 
 
+@pytest.mark.parametrize("d", [128, 768])
+def test_grown_index_kernels_match_plain(dev, d):
+    """Kernels 1, 3 and 4 over an int8 + PCA index that live updates grew
+    on the card (a full 4096-row index appended to: 8192 rows, n_valid
+    4196, a chunk half filled and one empty) and then swap-deleted from,
+    against their plain versions on a CPU copy of the same index: hop-1
+    scan bit-equal, PCA certificates equal, certified queries equal to
+    the exact scan.  The same updates made on the CPU store the same int8
+    rows and scales; their projections (fp32 products summed in another
+    order on each device) within one bf16 ulp."""
+    import dataclasses
+
+    from multihop_dense_retrieval_tpu_torch.index import DenseIndex
+
+    rng = torch.Generator().manual_seed(d)
+    emb = torch.randn(4096, d, generator=rng)
+    extra = torch.randn(100, d, generator=rng)
+    q = torch.cat([extra[:40], emb[:40]]) + 0.05 * torch.randn(80, d,
+                                                               generator=rng)
+    idx = {}
+    for where in ("cpu", dev):
+        i = DenseIndex.build(emb.numpy(), chunk_rows=4096, dtype="int8",
+                             pca_dims=64, pca_cand_rows=512, device=where)
+        i = i.append(extra.numpy())
+        assert (i.vectors.shape[0], i.n_docs) == (8192, 4196)
+        idx[where] = i.delete_swap(7)[0]
+    b = idx[dev]
+    a = dataclasses.replace(b, **{
+        name: getattr(b, name).cpu() for name in (
+            "vectors", "scales", "pca_rot", "pca_proj", "pca_bounds")})
+    for name in ("vectors", "scales"):
+        assert torch.equal(getattr(idx["cpu"], name), getattr(a, name))
+    ulps = (idx["cpu"].pca_proj.view(torch.int16).int()
+            - a.pca_proj.view(torch.int16).int()).abs()
+    assert int(ulps.max()) <= 1
+    mips.reset_launch_counts()
+    got = mips.mips_topk(b.vectors, q.to(dev), 5, n_valid=b.n_docs,
+                         doc_scales=b.scales)
+    exp = mips.mips_topk(a.vectors, q, 5, n_valid=a.n_docs,
+                         doc_scales=a.scales)
+    torch.cuda.synchronize()
+    assert mips.LAUNCHES["mips_scan_int8"] == 1
+    assert torch.equal(got[0].cpu(), exp[0]) and torch.equal(got[1].cpu(),
+                                                              exp[1])
+    args = dict(k_chunks=4, cand_rows=512, n_valid=a.n_docs)
+    pg = mips.mips_topk_pca(b.vectors, b.pca_proj, b.pca_rot, b.pca_bounds,
+                            q.to(dev), 1, doc_scales=b.scales, **args)
+    pc = mips.mips_topk_pca(a.vectors, a.pca_proj, a.pca_rot, a.pca_bounds,
+                            q, 1, doc_scales=a.scales, **args)
+    torch.cuda.synchronize()
+    assert mips.LAUNCHES["pca_chunk_max"] == 1
+    assert mips.LAUNCHES["pca_rescan_int8"] == 1
+    cert = pg[2].cpu()
+    assert torch.equal(cert, pc[2]) and bool(cert.any())
+    assert torch.equal(pg[1].cpu()[cert], exp[1][cert, :1])
+    assert bool((pg[1].cpu() < a.n_docs).all())
+
+
 def _attn_inputs(dev, g, b, wq, w, nh, d, dtype, masked_row=True):
     q, k, v = (torch.randn(b, n, nh * d, device=dev, generator=g).to(dtype)
                for n in (wq, w, w))
