@@ -32,7 +32,7 @@ Phases (each prints a line and flushes; any failure exits non-zero):
                just after it, and each must launch its kernels; kernels 1,
                2, 3, 4, 5 and 7 must have taken their tensor-core templates
                on every path that launches them (a, b, c1, c2, d, f, g1,
-               g2).
+               g2, h0-h6).
                a. int8: a 1,048,576-row int8 DenseIndex with a PCA
                   prefilter (R=128, 512-row chunks) and a 300-wide token
                   store; BeamSearcher at beam 1 / batch 192 / bf16 scores
@@ -88,6 +88,28 @@ Phases (each prints a line and flushes; any failure exits non-zero):
                   filters both hops without hop-2 buckets).  g2:
                   cli/end2end.main over 64 questions at batch 16 (exact
                   scans: kernel 1) prints its metrics line.
+               h. beam-4 serving: leg a's index, token store and weights
+                  (kept in memory) at beam 4 / 4, top 4, batch 192, the
+                  6-tile hop-2 split, seven engines: h0 unpruned, h1 / h2
+                  hop2_prune_margin auto / auto:0.9, h3 a UnifiedRetriever
+                  (leg a's weights, a seeded stop head) without the
+                  cascade, h4 / h5 the stop-skip cascade at ~30% / ~60%
+                  stops (quantiles of h3's top-1 stop probabilities), h6
+                  h5 with auto:0.9.  Each: 8 timed batches (kernels 1, 3,
+                  4, each on its mma template), one held to the exact
+                  scans on its own vectors and to the beam-4 rules (the
+                  margin on its own d1, stopped questions' chains through
+                  their top-1 candidate, skipped rows' stop probability
+                  0.5), one profiled; q/s, stop rate, pruned share, chain
+                  agreement with h0 / h3; kernel 4 timed at h3's and h5's
+                  hop 2 (zero vectors of skipped rows select the same
+                  chunks).
+               i. the HNSW host tier: cli/eval_mhop_retrieval --hnsw over
+                  e2's directory, twice: the first builds index.hnsw
+                  with the port's binding (M 32, ef_construction 200;
+                  build rows/s), the second loads it (the CLI's q/s);
+                  hop-1 recall@4 against kernel 1's exact scan >= 0.85;
+                  the library outside native/.
   4. result  — one JSON line of kernel records, the card's name and power
                limit, and the final {"ok": true, ...} line.
 Exits with code 2 and no result when CUDA is not available.
@@ -108,6 +130,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -132,6 +155,15 @@ N_DOCS, C_BATCH, C_LEN = 32768, 256, 300
 # leg g (question answering): the server's micro-batch cap, the concurrent
 # /answer and /retrieve requests
 QA_BATCH, N_ANSWERS, N_RETRIEVE = 16, 64, 16
+# leg h (beam-4 serving): beam 4 / 4, top 4, timed batches per engine;
+# the engines: (name, retriever, hop2_prune_margin, target stop rate in %)
+B4, H_ITERS = 4, 8
+H_ENGINES = (("h0", "mhop", 0.0, None), ("h1", "mhop", -0.5, None),
+             ("h2", "mhop", -0.9, None), ("h3", "unified", 0.0, None),
+             ("h4", "unified", 0.0, 30), ("h5", "unified", 0.0, 60),
+             ("h6", "unified", -0.9, 60))
+# leg i (the HNSW host tier): questions, graph parameters
+N_HNSW_Q, HNSW_M, HNSW_EF_C = 2 * B, 32, 200
 # (what, B, Wq, W, dtype) of the kernel-8 checks; the first is the record
 ATTN_CASES = (("corpus square", C_BATCH, C_LEN, C_LEN, torch.bfloat16),
               ("corpus cls layer", C_BATCH, 1, C_LEN, torch.bfloat16),
@@ -931,6 +963,8 @@ def run_main_path(port, mips, dev, gen, smi, table_path=None, iters=50):
     launches["fused_serving"] = run_fused_serving(
         engine, model, models, search, q_inputs, q_raw, q_lens, planted, mips,
         n_valid, smi)
+    launches.update(run_beam4_serving(
+        engine, model, port, q_inputs, q_raw, q_lens, mips, smi))
     del engine, index
 
     # path 2: a bf16 index engine without prefilter (kernel 2)
@@ -968,6 +1002,7 @@ def run_main_path(port, mips, dev, gen, smi, table_path=None, iters=50):
         launches.update(run_corpus_encoding(port, model.state_dict(), mips,
                                             dev, smi, tmp))
         launches.update(run_qa_serving(mips, dev, smi, tmp))
+        launches.update(run_hnsw_tier(port, mips, dev, smi, tmp))
     return launches
 
 
@@ -1021,6 +1056,315 @@ def run_fused_serving(engine, model, models, search, q_inputs, q_raw, q_lens,
     assert attn, "no kernel-8 time in leg f's profile"
     del eng, fused
     return launches
+
+
+def record_pass2(engine):
+    """Keep (row lengths, active rows) of the cascade's pass-2 encode (the
+    front-sorted call of ``_encode_hop2``) of each search of ``engine``."""
+    calls = []
+    encode = engine._encode_hop2
+
+    def recorded(qsp, **kw):
+        if kw.get("inactive_sort") == "front":
+            calls.append((qsp["attention_mask"].sum(1).cpu().numpy(),
+                          kw["active"].cpu().numpy()))
+        return encode(qsp, **kw)
+
+    engine._encode_hop2 = recorded
+    return calls
+
+
+def skipped_rows(lens, active, fracs, top_slot):
+    """The (question, slot) rows, flat, of the cascade's pass-2 tiles with
+    no active row, on the host: pass 2 holds each question's non-top slots
+    in slot order, sorts them stably by length with inactive rows first
+    (key -1) and cuts the configured tiles."""
+    n = len(lens)
+    keys = np.where(active, lens, -1)
+    order = np.argsort(keys, kind="stable")
+    sizes = [int(round(f * n)) for f in fracs]
+    sizes[-1] = n - sum(sizes[:-1])
+    bounds = np.cumsum([0] + sizes)
+    skipped = np.concatenate(
+        [order[a:b] for a, b in zip(bounds[:-1], bounds[1:])
+         if not active[order[a:b]].any()] or [np.zeros(0, np.int64)])
+    nt = np.array([[q * B4 + j for j in range(B4) if j != t]
+                   for q, t in enumerate(top_slot)]).reshape(-1)
+    return nt[skipped]
+
+
+def check_beam4_semantics(out, margin, thr, pass2, fracs, neg_inf):
+    """Hold one leg-h batch to the beam-4 rules on its own outputs: every
+    finite chain's hop-1 candidate meets the margin rule on the engine's
+    d1 (the auto:Q margin at the JAX engine's static index into the sorted
+    gaps), the top-1 candidate is always kept; a stopped question keeps
+    exactly beam2 finite chains, all through its top-1 candidate; every
+    row of a skipped pass-2 tile has stop probability exactly 0.5.
+    Returns (pruned share, stop rate, skipped rows)."""
+    d1 = out["hop1_cand_scores"]
+    bsz = d1.shape[0]
+    top1 = d1.max(1, keepdims=True)
+    top_slot = d1.argmax(1)
+    kept = d1 > neg_inf / 2
+    if margin != 0:
+        if margin > 0:
+            m = np.float32(margin)
+        else:
+            gaps = np.sort((top1 - d1).reshape(-1))
+            m = gaps[bsz + int((gaps.size - bsz - 1) * min(-margin, 1.0))]
+        kept &= d1 >= top1 - m
+    assert kept[np.arange(bsz), top_slot].all(), "a top-1 candidate was pruned"
+    live = out["path_scores"] > neg_inf / 2
+    slot = (out["hop1_ids"][:, :, None]
+            == out["hop1_cand_ids"][:, None, :]).argmax(2)
+    assert kept[np.arange(bsz)[:, None], slot][live].all(), \
+        "a finite chain runs through a pruned candidate"
+    stop_rate, n_skipped = 0.0, 0
+    if thr > 0:
+        stopped = out["stop_probs"][np.arange(bsz), top_slot] >= thr
+        stop_rate = float(stopped.mean())
+        top_id = out["hop1_cand_ids"][np.arange(bsz), top_slot]
+        for q in np.flatnonzero(stopped):
+            assert live[q].sum() == B4, f"stopped question {q}: {live[q]}"
+            assert (out["hop1_ids"][q] == top_id[q]).all(), \
+                f"stopped question {q} kept another candidate's chains"
+        assert len(pass2) == 1, "no single pass-2 encode was recorded"
+        rows = skipped_rows(*pass2[0], fracs, top_slot)
+        assert (out["stop_probs"].reshape(-1)[rows] == 0.5).all(), \
+            "a skipped row's stop probability is not 0.5"
+        n_skipped = len(rows)
+    return 1.0 - float(kept.mean()), stop_rate, n_skipped
+
+
+def profile_steps(engine, q_inputs, q_raw, q_lens, batch_ms):
+    """One profiled batch: (device ms per search step, busy ms, idle share
+    of the unprofiled batch time)."""
+    _, events, kernels = device_kernels(
+        lambda: engine.search(dict(q_inputs), q_raw, q_lens))
+    busy = sum(t for t, _ in kernels)
+    steps = {e.key: round(dev_ms(e), 3) for e in events if e.key in RANGES}
+    return steps, busy, idle_share(busy, batch_ms)
+
+
+def run_beam4_serving(engine, model, port, q_inputs, q_raw, q_lens, mips,
+                      smi):
+    """Leg (h): beam-4 serving at full width over leg a's index and token
+    store (kept in memory): beam 4 / 4, top 4, batch 192, max_q_sp_len 350,
+    the 6-tile hop-2 split.  Seven engines (H_ENGINES): h0 unpruned, h1 and
+    h2 pruned at auto (q 0.5) and auto:0.9, h3 the UnifiedRetriever (leg
+    a's weights and a seeded stop head) without the cascade, h4 and h5 the
+    stop-skip cascade at the thresholds that stop ~30% and ~60% of the
+    questions (quantiles of h3's own top-1 stop probabilities), h6 = h5
+    with auto:0.9.  Each: a warm-up, H_ITERS timed batches with their own
+    launch counts (kernels 1, 3, 4, nothing else), one batch held to the
+    exact scans on its own query vectors (check_recorded_hops), its kernel
+    3 and 4 launches to their plain versions, and to the beam-4 rules
+    (check_beam4_semantics), and one profiled.  Kernel 4 is timed again
+    on h3's and h5's hop-2 launches: the zero vectors of skipped rows all
+    select the same chunks."""
+    cfgmod, _, _, models, search = port
+    cfg = dataclasses.replace(
+        engine.config, beam_size_1=B4, beam_size_2=B4, topk=B4,
+        hop2_buckets=cfgmod.HOP2_BUCKETS_6TILE,
+        hop2_tile_fracs=cfgmod.HOP2_TILE_FRACS_6TILE)
+    torch.manual_seed(21)
+    unified = models.UnifiedRetriever(model.config, cls_only=True)
+    torch.nn.init.normal_(unified.stop_head.weight, std=0.05)  # as leg a's
+    missing, unexpected = unified.load_state_dict(model.state_dict(),
+                                                  strict=False)
+    assert sorted(missing) == ["stop_head.bias", "stop_head.weight"] \
+        and not unexpected, (missing, unexpected)
+    unified = unified.to(engine.device).eval()
+    out, results, k4 = {}, {}, {}
+    p_top = None
+    for name, kind, margin, rate in H_ENGINES:
+        thr = 0.0 if rate is None else float(np.quantile(p_top, 1 - rate / 100))
+        enc = unified if kind == "unified" else model
+        eng = search.BeamSearcher(
+            encode_fn=enc.encode_seq,
+            encode_qsp_fn=unified.encode_qsp if kind == "unified" else None,
+            index=engine.index, text_ids=engine.text_ids,
+            text_lens=engine.text_lens, empty=engine.empty, spec=engine.spec,
+            config=dataclasses.replace(cfg, hop2_prune_margin=margin,
+                                       stop_skip_threshold=thr),
+            device=engine.device)
+        eng.search(dict(q_inputs), q_raw, q_lens)             # warm-up
+        torch.cuda.synchronize()
+        mips.reset_launch_counts()
+        res, secs = timed_batches(eng, q_inputs, q_raw, q_lens, H_ITERS)
+        leg = f"beam4_{name}"
+        out[leg] = leg_counts(mips)
+        seen = record_queries(eng, outputs=True)
+        pass2 = record_pass2(eng)
+        launched, restore = record_launches(
+            mips, ("pca_chunk_max", "pca_rescan_int8"))
+        try:
+            checked = eng.search(dict(q_inputs), q_raw, q_lens)
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        for key, val in res.items():
+            assert np.array_equal(val, checked[key]), f"{name}: {key} by batch"
+        n_scan, n_pca, n_cert = check_recorded_hops(seen, eng.index, mips)
+        assert n_scan == B and n_pca == B * B4, (name, n_scan, n_pca)
+        k4[name] = [a for n_, a, _ in launched if n_ == "pca_rescan_int8"]
+        n_k, k3_err, k3_share = check_recorded_launches(launched, mips)
+        pruned, stop_rate, n_skipped = check_beam4_semantics(
+            checked, margin, thr, pass2, cfg.hop2_tile_fracs, mips.NEG_INF)
+        if kind == "unified" and rate is None:
+            p_top = checked["stop_probs"][
+                np.arange(B), checked["hop1_cand_scores"].argmax(1)]
+        results[name] = checked
+        ref = results["h3" if rate is not None else "h0"]
+        same = ((checked["hop1_ids"] == ref["hop1_ids"])
+                & (checked["hop2_ids"] == ref["hop2_ids"]))
+        agree = float(same.mean())
+        cascade = ""
+        if rate is not None:
+            # pass 1 encodes the top pairs in a tiling of its own: compare
+            # their stop probabilities with h3's (one tiling for all rows),
+            # and the unstopped questions' chains with h3's
+            assert np.array_equal(checked["hop1_cand_ids"],
+                                  ref["hop1_cand_ids"]), f"{name}: hop 1"
+            top = np.arange(B), checked["hop1_cand_scores"].argmax(1)
+            p_c, p_3 = checked["stop_probs"][top], ref["stop_probs"][top]
+            unstopped = p_c < thr
+            cascade = (f"; pass-1 top-pair stop probabilities bit-equal to "
+                       f"h3's for {int((p_c == p_3).sum())} of {B} (max "
+                       f"abs diff {float(np.abs(p_c - p_3).max()):.3g}); "
+                       f"unstopped questions' chains equal to h3's "
+                       f"{float(same[unstopped].mean()):.4f}")
+        med = float(np.median(secs))
+        steps, busy, idle = profile_steps(eng, q_inputs, q_raw, q_lens,
+                                          med * 1e3)
+        say(f"  leg h {name} ({kind}, margin {margin}, stop threshold "
+            f"{thr:.4f}): {B / med:.1f} q/s at the median of {H_ITERS} "
+            f"batches ({med * 1e3:.2f} ms, host clock); stop rate "
+            f"{stop_rate:.3f}, rows pruned {pruned:.3f}, skipped rows "
+            f"{n_skipped}; chains equal to {'h3' if rate is not None else 'h0'}"
+            f"'s {agree:.4f}{cascade}; hop 1 = exact scan ({n_scan} queries, "
+            f"bit-equal), hop 2 {n_pca} queries = rescan-order products, "
+            f"{n_cert} certified = exact top-1; kernels 3/4 held to plain "
+            f"over {n_k} launches (kernel 3 max err {k3_err:.3g}, "
+            f"{k3_share:.3f} of its bound) [{smi}]")
+        say(f"    device busy {busy:.2f} ms, idle share {idle:.3f}; ms per "
+            f"step {json.dumps(steps)}; launches {json.dumps(out[leg])}")
+        for kname in ("mips_scan_int8", "pca_chunk_max", "pca_rescan_int8"):
+            assert out[leg][kname] > 0, f"{kname} not launched on leg {name}"
+        others = set(mips.LAUNCHES) - {"mips_scan_int8", "pca_chunk_max",
+                                       "pca_rescan_int8"}
+        assert not any(out[leg][k] for k in others), \
+            f"other kernels ran on leg {name}: {out[leg]}"
+        if rate is not None:
+            assert abs(stop_rate - rate / 100) <= 0.1, \
+                f"{name}: stop rate {stop_rate} for a target of {rate}%"
+            assert n_skipped > 0 or rate < 50, f"{name}: no tile skipped"
+        if margin != 0:
+            assert 0 < pruned < 1, f"{name}: pruned share {pruned}"
+        del eng, seen, launched
+    for name in ("h3", "h5"):
+        (a,) = k4[name]
+        ids, q, index, cand = a[0], a[1], a[2], a[4]
+        per_chunk = torch.bincount(ids.reshape(-1).long())
+        uniq = int((per_chunk > 0).sum())
+        ms = cuda_ms(lambda: mips.pca_rescan_int8(*a), 20)
+        b, kc = ids.shape
+        bnd = bound_ms(uniq * cand * (index.shape[1] + 4) + q.numel()
+                       + b * kc * 4 + b * kc * cand * 4,
+                       2 * b * kc * cand * index.shape[1], "int8")
+        say(f"  leg h kernel 4 at {name}'s hop 2 (B={b}, kc={kc}): "
+            f"{ms:.4f} ms, bound {bnd[0]:.4f} ms by {bnd[1]} ({bnd[0] / ms:.3f}"
+            f" of it); {uniq} distinct chunks, at most "
+            f"{int(per_chunk.max())} slots on one [{smi}]")
+    return out
+
+
+def run_hnsw_tier(port, mips, dev, smi, tmp):
+    """Leg (i): cli/eval_mhop_retrieval --hnsw over leg e2's index
+    directory (N_DOCS passages, int8) with its checkpoint: the encoder on
+    the card, the graph on the host.  The first run builds
+    <dir>/index.hnsw with the port's binding (M 32, ef_construction 200,
+    the int8 rows dequantized with their scales); the second loads it.
+    Reports the build rate, each run's q/s line, and hop-1 recall@beam
+    against kernel 1's exact scan on the same query vectors (>= 0.85, as
+    tests/test_hnsw.py holds the graph); the library must lie outside
+    native/ and native/libhnsw.so must be left as it was."""
+    from multihop_dense_retrieval_tpu_torch.cli import eval_mhop_retrieval \
+        as cli
+    from multihop_dense_retrieval_tpu_torch.index import hnsw
+
+    index_mod = port[2]
+    native = Path(__file__).resolve().parent / "native" / "libhnsw.so"
+    state = native.stat().st_mtime_ns if native.exists() else None
+    rng = np.random.RandomState(23)
+    with open(f"{tmp}/hnsw_qas.jsonl", "w") as f:
+        for i, (q, _) in enumerate(qa_questions(tmp, rng, N_HNSW_Q)):
+            f.write(json.dumps({"_id": str(i), "question": q}) + "\n")
+    builds, vectors, results = [], [], []
+    add, encode, search = (hnsw.HNSWIndex.add, cli.HnswBeamSearcher._vectors,
+                           cli.HnswBeamSearcher.search)
+
+    def timed_add(self, v):
+        t = time.perf_counter()
+        add(self, v)
+        builds.append((len(v), time.perf_counter() - t))
+
+    def kept_vectors(self, inputs):
+        res = encode(self, inputs)
+        vectors.append(res)
+        return res
+
+    def kept_search(self, *a):
+        res = search(self, *a)
+        results.append(res)
+        return res
+
+    args = [f"{tmp}/hnsw_qas.jsonl", f"{tmp}/e2", "--tokenizer", "hash",
+            "--model-name", "roberta-base", "--checkpoint", f"{tmp}/model.pt",
+            "--beam-size", str(B4), "--topk", str(B4), "--batch-size", str(B),
+            "--hnsw", "--save-path", f"{tmp}/hnsw_chains.jsonl"]
+    lines = _Lines()
+    logger = logging.getLogger("mdr_torch")
+    logger.addHandler(lines)
+    hnsw.HNSWIndex.add = timed_add
+    cli.HnswBeamSearcher._vectors = kept_vectors
+    cli.HnswBeamSearcher.search = kept_search
+    try:
+        for run in ("build", "load"):
+            _, rows = cli.main(args)
+            assert len(rows) == N_HNSW_Q and all(
+                len(r["candidate_chains"]) == B4 for r in rows), run
+    finally:
+        hnsw.HNSWIndex.add = add
+        cli.HnswBeamSearcher._vectors = encode
+        cli.HnswBeamSearcher.search = search
+        logger.removeHandler(lines)
+    assert len(builds) == 1 and builds[0][0] == N_DOCS, builds
+    lib = hnsw.library_path()
+    assert native.parent not in lib.parents, lib
+    assert (native.stat().st_mtime_ns if native.exists() else None) == state
+    index = index_mod.DenseIndex.load(f"{tmp}/e2/index.npz", device=dev)
+    per_batch = N_HNSW_Q // B
+    recall = []
+    for v, res in zip(vectors[0:2 * per_batch:2], results[:per_batch]):
+        q = torch.from_numpy(v).to(dev)
+        _, exact = mips.mips_topk(index.vectors, q, B4,
+                                  doc_scales=index.scales)
+        exact = exact.cpu().numpy()
+        recall += [len(set(a) & set(b)) / B4
+                   for a, b in zip(res["hop1_cand_ids"], exact)]
+    recall = float(np.mean(recall))
+    qps = [x for x in lines.lines if "q/s" in x]
+    omp = hnsw.openmp_info()
+    say(f"  leg i HNSW tier: graph of {N_DOCS} rows (M {HNSW_M}, "
+        f"ef_construction {HNSW_EF_C}) built at {N_DOCS / builds[0][1]:.1f} "
+        f"rows/s ({builds[0][1]:.2f} s, OpenMP {omp[0]}, {omp[1]} threads); "
+        f"CLI building: \"{qps[0]}\"; CLI loading: \"{qps[1]}\"; hop-1 "
+        f"recall@{B4} vs kernel 1's exact scan {recall:.4f} over "
+        f"{N_HNSW_Q} questions; library {lib.relative_to(lib.parents[3])} "
+        f"[{smi}]")
+    assert recall >= 0.85, f"HNSW hop-1 recall@{B4} {recall} < 0.85"
+    return {}
 
 
 def write_corpus(path, rng):
@@ -1853,7 +2197,8 @@ TENSOR_CORE_SOURCES = ("mips_scan_mma", "mips_scan_i8", "chunk_max_mma",
 # the legs that launch kernels 1, 2, 3, 4, 5 and 7, and those kernels, which
 # must take the tensor cores wherever they run
 MMA_LEGS = ("int8", "int8_two_phase", "fused_serving", "bf16", "fever_c1",
-            "fever_c2", "qa_serving", "qa_end2end")
+            "fever_c2", "qa_serving", "qa_end2end") + tuple(
+                f"beam4_{name}" for name, *_ in H_ENGINES)
 MMA_KERNELS = ("mips_scan_int8", "mips_scan", "pca_chunk_max",
                "chunk_max_int8", "pca_rescan_int8", "rescan")
 

@@ -6,8 +6,9 @@ JAX package's ``cli/train_qa.py``.
 
 ``--model-name roberta-base --checkpoint q_encoder.pt`` works as in the
 JAX package, and ``--tokenizer hash --model-name tiny`` gives a
-self-contained run.  ``init_retriever`` and ``init_reader`` put their
-model on ``cuda`` unless the caller names another device.
+self-contained run.  ``init_retriever`` (``unified=True``: the
+variable-hop ``UnifiedRetriever``) and ``init_reader`` put their model on
+``cuda`` unless the caller names another device.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ import torch
 from ..core.config import EncoderConfig, default_hop2_tiling
 from ..core.device import resolve_device
 from ..data.tokenization import HashTokenizer, HFTokenizer
-from ..models import MhopRetriever, QAReader
+from ..models import (MhopRetriever, QAReader, UnifiedRetriever,
+                      unified_state_dict_from_reference)
 
 
 def setup_logging(output_dir: Optional[str] = None) -> logging.Logger:
@@ -128,9 +130,11 @@ def add_pipeline_args(p):
     p.add_argument("--pca-k-chunks", type=int, default=8)
     p.add_argument("--lambda", dest="lam", type=float, default=0.8)
     p.add_argument("--unified", action="store_true",
-                   help="variable-hop serving with a UnifiedRetriever.  Not "
-                        "ported yet: raises")
-    p.add_argument("--stop-threshold", type=float, default=0.5)
+                   help="variable-hop serving with a UnifiedRetriever: a "
+                        "chain whose stop head fires is one passage")
+    p.add_argument("--stop-threshold", type=float, default=0.5,
+                   help="P(single-hop) above which a chain is served as one "
+                        "passage (--unified only)")
     add_rank_args(p)
     add_hop2_tiling_args(p)
 
@@ -183,8 +187,11 @@ def add_hop2_tiling_args(p):
                    help="comma row-fractions per bucket (sum to 1); empty = "
                         "preset fracs for auto, equal tiles otherwise")
     p.add_argument("--hop2-prune-margin", type=_prune_margin, default=0.0,
-                   help="approximate hop-2 candidate pruning; 0 = off "
-                        "(exact).  Not ported yet: any other value raises")
+                   help="approximate hop-2 candidate pruning: re-encode only "
+                        "hop-1 candidates within this margin of their "
+                        "question's top-1 score; 'auto' / 'auto:Q' take the "
+                        "batch's Q-quantile hop-1 gap (auto = 0.5); 0 = off "
+                        "(exact)")
 
 
 def resolve_hop2_tiling(args, n_rows: int, max_width: int):
@@ -241,13 +248,30 @@ def load_retriever_params(checkpoint: str):
             for k, v in sd.items()}
 
 
-def init_retriever(config: EncoderConfig, *, checkpoint: str = "",
-                   seed: int = 0, device=None) -> MhopRetriever:
+def init_retriever(config: EncoderConfig, *, unified: bool = False,
+                   checkpoint: str = "", seed: int = 0, device=None):
     """The retriever in eval mode on ``device`` (``cuda`` unless named):
     loaded from ``checkpoint``, or random weights from ``seed`` without one
     (the caller's global RNG state is left as it was).  The last layer
-    computes the CLS position only (``cls_only``)."""
+    computes the CLS position only (``cls_only``).  ``unified``: a
+    ``UnifiedRetriever``, whose head layout a reference checkpoint decides
+    (``project`` only for roberta names, the stop head on the tanh
+    pooler); its seeded weights are made on the device itself."""
     dev = resolve_device(device)
+    if unified:
+        sd, kw = None, {}
+        if checkpoint:
+            sd, proj, pooled = unified_state_dict_from_reference(
+                load_retriever_params(checkpoint))
+            kw = dict(use_projection=proj, stop_on_pooled=pooled)
+        devices = [dev.index or 0] if dev.type == "cuda" else []
+        with torch.random.fork_rng(devices=devices):
+            torch.manual_seed(seed)
+            with dev:
+                model = UnifiedRetriever(config, cls_only=True, **kw)
+        if sd is not None:
+            model.load_state_dict(sd)
+        return model.eval()
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = MhopRetriever(config, cls_only=True)

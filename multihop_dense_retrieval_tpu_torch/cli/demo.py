@@ -6,8 +6,8 @@ table and the reader.  ``answer_batch`` runs one search and one reader
 pass for a list of questions (the server's micro-batch), ``retrieve_batch``
 the search alone, and ``add_document`` / ``delete_document`` update the
 live engine.  Everything runs on CUDA unless ``--device`` names another
-device.  ``--unified`` (variable-hop serving) is not ported yet and
-raises (ROADMAP item 8).
+device.  ``--unified`` serves variable-hop chains: a chain whose stop
+probability exceeds ``--stop-threshold`` is one passage.
 
 Usage:
   python -m multihop_dense_retrieval_tpu_torch.cli.demo INDEX_DIR \\
@@ -37,13 +37,14 @@ from .eval_mhop_retrieval import load_searcher
 class DemoPipeline:
     def __init__(self, args):
         self.device = resolve_device(getattr(args, "device", None))
-        if getattr(args, "unified", False):
-            raise NotImplementedError(
-                "--unified is not ported yet (ROADMAP item 8)")
         self.r_tok = common.resolve_tokenizer(args.tokenizer)
+        unified = getattr(args, "unified", False)
+        self.stop_threshold = (getattr(args, "stop_threshold", 0.5)
+                               if unified else None)
         r_model = common.init_retriever(
             common.resolve_encoder_config(args.retriever_model),
-            checkpoint=args.retriever_checkpoint, device=self.device)
+            unified=unified, checkpoint=args.retriever_checkpoint,
+            device=self.device)
         # hop-2 rows per search = micro-batch x beam (the server pads to
         # max_batch; the REPL runs single questions)
         h2b, h2f = common.resolve_hop2_tiling(
@@ -60,7 +61,7 @@ class DemoPipeline:
                            use_pca=getattr(args, "pca", False),
                            pca_k_chunks=getattr(args, "pca_k_chunks", 8))
         self.searcher = load_searcher(args.index_dir, self.r_tok, r_model,
-                                      cfg, self.device)
+                                      cfg, self.device, unified=unified)
         self.corpus = Corpus.from_id2doc(f"{args.index_dir}/id2doc.json")
         r_cfg, self.reader = common.init_reader(
             args.reader_model, args.reader_checkpoint, sp_pred=True,
@@ -127,7 +128,8 @@ class DemoPipeline:
     def _chains(self, questions, pad_to):
         return retrieve_chains(self.searcher, self.r_tok, self.corpus,
                                questions, pad_to or len(questions),
-                               self.args.max_q_len)
+                               self.args.max_q_len,
+                               stop_threshold=self.stop_threshold)
 
     def answer_batch(self, questions, pad_to=None):
         """Answer a list of questions with one 2-hop search and one reader

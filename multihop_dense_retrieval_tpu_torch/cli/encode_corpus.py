@@ -9,9 +9,11 @@ It runs on CUDA unless ``--device`` names another device.  The encoder is
 the ``--model-name`` preset; a caller that wants kernel 8 builds the
 retriever from ``EncoderConfig(attention_impl="fused")`` and calls
 ``index.build.build_index`` (the CLI has no flag for it, as in JAX).
-Not ported (each raises NotImplementedError): ``--unified`` (ROADMAP item
-8), ``--data-parallel`` > 1 and pod auto-sharding under an initialised
-``torch.distributed`` with more than one process (item 12).
+``--unified`` encodes passages with a UnifiedRetriever's ``encode_seq``
+(for the variable-hop serving of ``eval_mhop_retrieval --unified``).
+Not ported (each raises NotImplementedError): ``--data-parallel`` > 1 and
+pod auto-sharding under an initialised ``torch.distributed`` with more
+than one process (ROADMAP item 12).
 
 Usage:
   python -m multihop_dense_retrieval_tpu_torch.cli.encode_corpus \\
@@ -35,9 +37,6 @@ from . import common
 
 
 def _refuse_unported(args):
-    if args.unified:
-        raise NotImplementedError(
-            "--unified (UnifiedRetriever) is not ported yet (ROADMAP item 8)")
     if args.data_parallel is not None and args.data_parallel > 1:
         raise NotImplementedError(
             "--data-parallel > 1 is not ported yet (ROADMAP item 12)")
@@ -86,8 +85,8 @@ def main(argv=None):
     p.add_argument("--mv-scheme", default="tokenwise",
                    choices=["tokenwise", "layerwise"])
     p.add_argument("--unified", action="store_true",
-                   help="encode with a UnifiedRetriever checkpoint (not "
-                        "ported yet)")
+                   help="encode with a UnifiedRetriever checkpoint "
+                        "(variable-hop serving, see eval --unified)")
     p.add_argument("--num-shards", type=int, default=1,
                    help="split the corpus into N contiguous slices; this "
                         "invocation encodes one slice (see --shard-id) and "
@@ -136,8 +135,8 @@ def main(argv=None):
 
     cfg = common.resolve_encoder_config(args.model_name)
     tok = common.resolve_tokenizer(args.tokenizer)
-    model = common.init_retriever(cfg, checkpoint=args.checkpoint,
-                                  device=device)
+    model = common.init_retriever(cfg, unified=args.unified,
+                                  checkpoint=args.checkpoint, device=device)
 
     logger.info("loading corpus %s", args.corpus)
     corpus = Corpus.from_jsonl(args.corpus, max_docs=args.max_docs)
@@ -156,7 +155,9 @@ def main(argv=None):
         # of the query vectors they are scored against
         mv_model = MultiVectorCtxEncoder(cfg, multi_vector=args.multi_vector,
                                          scheme=args.mv_scheme)
-        mv_model.load_state_dict(model.state_dict())
+        mv_model.load_state_dict({
+            k: v for k, v in model.state_dict().items()
+            if k.startswith(("encoder.", "project."))})
         encode_fn = mv_model.to(device).eval()
 
     logger.info("encoding on %s", device)

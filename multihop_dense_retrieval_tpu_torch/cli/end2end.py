@@ -7,8 +7,11 @@ fixed λ, then answer EM/F1 where gold answers are given.  It runs on CUDA
 unless ``--device`` names another device, and prints one JSON line of
 metrics.
 
-Not ported yet (each raises NotImplementedError): ``--unified`` and
-``--stop-threshold`` (ROADMAP item 8) and ``--index-shards > 1`` (item 12).
+``--unified`` retrieves with a UnifiedRetriever: a chain whose stop
+probability exceeds ``--stop-threshold`` goes to the reader as one
+passage (without ``--unified`` the threshold is ignored, as in JAX).
+Not ported yet: ``--index-shards > 1`` (ROADMAP item 12) raises
+NotImplementedError.
 
 Usage:
   python -m multihop_dense_retrieval_tpu_torch.cli.end2end QAS.jsonl \\
@@ -33,20 +36,28 @@ from . import common
 from .eval_mhop_retrieval import load_searcher, search_batches
 
 
-def retrieve_chains(searcher, tok, corpus, questions, batch_size, max_q_len):
+def retrieve_chains(searcher, tok, corpus, questions, batch_size, max_q_len,
+                    stop_threshold=None):
     """2-hop beam search; per question, its candidate chains with
     sentence-split passages for the reader (a text is split on '. ' when
     the corpus has no sentence annotations).  A short last batch is padded
-    with its last question."""
+    with its last question.  ``stop_threshold`` (unified engines): a chain
+    whose stop probability exceeds it is one passage."""
     qs = [q[:-1] if q.endswith("?") else q for q in questions]
     outs = []
     for s, res in search_batches(searcher, tok, qs, batch_size, max_q_len,
                                  searcher.config.max_q_sp_len):
+        stops = (res["top_stop_probs"] if stop_threshold is not None
+                 and "top_stop_probs" in res else None)
         for i in range(len(qs[s:s + batch_size])):
             chains = []
-            for h1, h2 in zip(res["hop1_ids"][i], res["hop2_ids"][i]):
+            for j, (h1, h2) in enumerate(zip(res["hop1_ids"][i],
+                                             res["hop2_ids"][i])):
+                doc_ids = ((int(h1),) if stops is not None
+                           and float(stops[i][j]) > stop_threshold
+                           else (int(h1), int(h2)))
                 chain = []
-                for doc_id in (int(h1), int(h2)):
+                for doc_id in doc_ids:
                     d = corpus[doc_id]
                     sents = [x for x in d["text"].split(". ") if x.strip()] \
                         or [d["text"] or d["title"]]
@@ -85,15 +96,12 @@ def main(argv=None):
     common.add_hop2_tiling_args(p)
     p.add_argument("--save-path", default="")
     p.add_argument("--unified", action="store_true",
-                   help="UnifiedRetriever variable-hop chains.  Not ported "
-                        "yet: raises")
-    p.add_argument("--stop-threshold", type=float, default=None)
+                   help="UnifiedRetriever checkpoint: chains whose stop head "
+                        "fires are read as one-passage chains")
+    p.add_argument("--stop-threshold", type=float, default=0.5)
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
-    if args.unified or args.stop_threshold is not None:
-        raise NotImplementedError("--unified / --stop-threshold are not "
-                                  "ported yet (ROADMAP item 8)")
     if args.index_shards > 1:
         raise NotImplementedError(
             "--index-shards is not ported yet (ROADMAP item 12)")
@@ -101,7 +109,8 @@ def main(argv=None):
     r_tok = common.resolve_tokenizer(args.tokenizer)
     r_model = common.init_retriever(
         common.resolve_encoder_config(args.retriever_model),
-        checkpoint=args.retriever_checkpoint, device=device)
+        unified=args.unified, checkpoint=args.retriever_checkpoint,
+        device=device)
     h2b, h2f = common.resolve_hop2_tiling(
         args, args.batch_size * args.beam_size, args.max_q_sp_len)
     cfg = SearchConfig(beam_size_1=args.beam_size, beam_size_2=args.beam_size,
@@ -110,7 +119,8 @@ def main(argv=None):
                        hop2_buckets=h2b, hop2_tile_fracs=h2f,
                        hop2_prune_margin=args.hop2_prune_margin,
                        chunk_rows=args.chunk_rows)
-    searcher = load_searcher(args.index_dir, r_tok, r_model, cfg, device)
+    searcher = load_searcher(args.index_dir, r_tok, r_model, cfg, device,
+                             unified=args.unified)
     corpus = Corpus.from_id2doc(os.path.join(args.index_dir, "id2doc.json"))
 
     with open(args.raw_data) as f:
@@ -119,7 +129,9 @@ def main(argv=None):
     t0 = time.time()
     chains = retrieve_chains(searcher, r_tok, corpus,
                              [r["question"] for r in items],
-                             args.batch_size, args.max_q_len)
+                             args.batch_size, args.max_q_len,
+                             stop_threshold=(args.stop_threshold
+                                             if args.unified else None))
     t_retr = time.time() - t0
     logger.info("retrieval: %d questions in %.2fs (%.1f q/s)",
                 len(items), t_retr, len(items) / t_retr)

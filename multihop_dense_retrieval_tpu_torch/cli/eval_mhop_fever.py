@@ -13,6 +13,7 @@ from ``cli/eval_mhop_retrieval`` (as in the reference script):
 Rows that carry an "sp" annotation also get the chain metrics.
 It runs on CUDA unless ``--device`` names another device; the options the
 port does not serve yet raise as in ``eval_mhop_retrieval``.
+``--hop2-prune-margin`` prunes hop-1 candidates as there.
 
 Usage:
   python -m multihop_dense_retrieval_tpu_torch.cli.eval_mhop_fever \\
@@ -85,6 +86,7 @@ def main(argv=None):
                        max_q_sp_len=args.max_q_sp_len,
                        chunk_rows=args.chunk_rows,
                        hop2_buckets=h2b, hop2_tile_fracs=h2f,
+                       hop2_prune_margin=args.hop2_prune_margin,
                        use_pca=args.pca, pca_k_chunks=args.pca_k_chunks,
                        pca_hops=args.pca_hops)
     corpus = Corpus.from_id2doc(os.path.join(args.index_dir, "id2doc.json"))

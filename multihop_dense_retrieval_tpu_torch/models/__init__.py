@@ -1,8 +1,14 @@
-from .convert import reader_state_dict_from_jax, retriever_state_dict_from_jax
+from .convert import (reader_state_dict_from_jax,
+                      retriever_state_dict_from_jax,
+                      unified_state_dict_from_jax,
+                      unified_state_dict_from_reference)
 from .encoder import TransformerEncoder
 from .reader import QAReader
-from .retriever import MhopRetriever, MultiVectorCtxEncoder, ProjectionHead
+from .retriever import (MhopRetriever, MultiVectorCtxEncoder, ProjectionHead,
+                        UnifiedRetriever)
 
 __all__ = ["MhopRetriever", "MultiVectorCtxEncoder", "ProjectionHead",
-           "QAReader", "TransformerEncoder", "reader_state_dict_from_jax",
-           "retriever_state_dict_from_jax"]
+           "QAReader", "TransformerEncoder", "UnifiedRetriever",
+           "reader_state_dict_from_jax", "retriever_state_dict_from_jax",
+           "unified_state_dict_from_jax",
+           "unified_state_dict_from_reference"]

@@ -17,6 +17,15 @@ hidden size), the top-level ``pooler.dense`` that the reference adds to
 ELECTRA, ``qa_outputs``, ``rank`` and ``sp``.  The JAX package's
 ``reader_ckpt_to_flax`` reads these names back, and ``QAReader`` loads
 them directly.
+
+``unified_state_dict_from_jax`` does it for the JAX UnifiedRetriever under
+the port's ``UnifiedRetriever`` names (``encoder.*``, ``project.0/1``
+where the tree has a projection head, ``stop_head``, ``pooler``), and
+``unified_state_dict_from_reference`` maps a reference UnifiedRetriever
+``.pt`` onto them, as the JAX package's ``unified_ckpt_to_flax`` reads
+it: the transformer under ``encoder_c.`` (or ``encoder.``), the head
+``stop``, ``project.0/1`` only for roberta names, and the HF pooler
+``encoder_c.pooler.dense`` feeding the stop head.
 """
 
 from __future__ import annotations
@@ -115,3 +124,40 @@ def reader_state_dict_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
         if key in params:
             _dense(out, name, params[key])
     return _tensors(out)
+
+
+def unified_state_dict_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
+    """UnifiedRetriever Flax params (numpy leaves) → the port's
+    ``UnifiedRetriever`` state dict; ``project.*`` and ``pooler.*`` only
+    where the tree has them."""
+    if "params" in params and "encoder" not in params:
+        params = params["params"]
+    out = encoder_state_dict_from_jax(params["encoder"], prefix="encoder.")
+    if "project" in params:
+        _dense(out, "project.0", params["project"]["dense"])
+        _layer_norm(out, "project.1", params["project"]["layer_norm"])
+    _dense(out, "stop_head", params["stop_head"])
+    if "pooler" in params:
+        _dense(out, "pooler", params["pooler"])
+    return _tensors(out)
+
+
+def unified_state_dict_from_reference(sd: Dict[str, torch.Tensor]):
+    """A reference UnifiedRetriever state dict (``module.`` prefixes
+    already stripped) → (the port's state dict, use_projection,
+    stop_on_pooled): the model's flags follow from which keys exist."""
+    prefix = ("encoder_c."
+              if "encoder_c.embeddings.word_embeddings.weight" in sd
+              else "encoder.")
+    pooler = f"{prefix}pooler.dense."
+    out = {}
+    for key, val in sd.items():
+        if key.startswith(pooler):
+            out["pooler." + key[len(pooler):]] = val
+        elif key.startswith(prefix):
+            out["encoder." + key[len(prefix):]] = val
+        elif key.startswith("stop."):
+            out["stop_head." + key[len("stop."):]] = val
+        elif key.startswith("project."):
+            out[key] = val
+    return out, "project.0.weight" in sd, "pooler.weight" in out

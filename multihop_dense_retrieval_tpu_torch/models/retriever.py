@@ -1,10 +1,14 @@
-"""The multi-hop bi-encoder retriever (shared encoder + projection head)
-and the multi-vector corpus encoder.
+"""The multi-hop bi-encoder retriever (shared encoder + projection head),
+the variable-hop retriever with a stop head, and the multi-vector corpus
+encoder.
 
 Parameter names match the reference's RobertaRetriever state dict:
 ``encoder.*`` (an HF RoBERTa/BERT model), ``project.0`` (Linear) and
 ``project.1`` (LayerNorm); ``MultiVectorCtxEncoder`` uses the same names,
-so a retriever's state dict loads into it.
+so a retriever's state dict loads into it.  ``UnifiedRetriever`` adds
+``stop_head`` and, where the stop head reads the tanh pooler, ``pooler``
+(``models/convert.py`` maps a reference UnifiedRetriever ``.pt`` onto
+these names).
 """
 
 from __future__ import annotations
@@ -44,6 +48,53 @@ class MhopRetriever(nn.Module):
         return self.project(hidden[:, 0, :])
 
     forward = encode_seq
+
+
+class UnifiedRetriever(nn.Module):
+    """Variable-hop retriever: the shared encoder, an optional projection
+    head, and a stop classifier over the q⊕p representation that says
+    whether a second hop is needed (the JAX package's
+    ``models/retriever.py::UnifiedRetriever``).
+
+    ``stop_head`` is an fp32 Linear(h, 2) over the fp32 CLS vector, or,
+    with ``stop_on_pooled``, over ``tanh(pooler(cls))`` (an fp32
+    Linear(h, h)), as the reference feeds it from the HF pooler.  Without
+    ``use_projection`` the vector is the raw CLS state, in fp32.  Class 0
+    of the stop logits is "stop"."""
+
+    def __init__(self, config: EncoderConfig, use_projection: bool = True,
+                 stop_on_pooled: bool = False, cls_only: bool = False):
+        super().__init__()
+        self.config = config
+        self.use_projection = use_projection
+        self.stop_on_pooled = stop_on_pooled
+        self.encoder = TransformerEncoder(config, cls_only=cls_only)
+        if use_projection:
+            self.project = ProjectionHead(config)
+        self.stop_head = nn.Linear(config.hidden_size, 2)
+        if stop_on_pooled:
+            self.pooler = nn.Linear(config.hidden_size, config.hidden_size)
+
+    def _vec(self, cls: torch.Tensor) -> torch.Tensor:
+        return self.project(cls) if self.use_projection else cls.float()
+
+    def encode_seq(self, input_ids, mask, token_type_ids=None):
+        hidden = self.encoder(input_ids, mask, token_type_ids)
+        return self._vec(hidden[:, 0, :])
+
+    def encode_qsp(self, input_ids, mask, token_type_ids=None):
+        """(vector, stop_logits) of a question ⊕ passage row."""
+        cls = self.encoder(input_ids, mask, token_type_ids)[:, 0, :]
+        stop_in = cls.float()
+        if self.stop_on_pooled:
+            stop_in = torch.tanh(torch.matmul(stop_in, self.pooler.weight.t())
+                                 + self.pooler.bias)
+        logits = torch.matmul(stop_in, self.stop_head.weight.t()) \
+            + self.stop_head.bias
+        return self._vec(cls), logits
+
+    forward = encode_seq
+    encode_q = encode_seq
 
 
 class MultiVectorCtxEncoder(nn.Module):

@@ -8,16 +8,21 @@ pair encoding with longest-first truncation) → length-bucketed q⊕p encode
 d1 + d2 → top-k chains.
 
 Eager PyTorch replaces the JAX engine's single jit: the bucketed hop-2
-encode reads every tile's longest row in one device→host transfer and
-then encodes each tile at its width (the JAX engine's ``lax.cond``).
+encode reads every tile's longest active row, and whether it has one, in
+one device→host transfer, then encodes each tile at its width (the JAX
+engine's ``lax.cond``) or, for a tile with no active row, emits zeros
+without running the encoder (the JAX engine's ``lax.cond`` to zeros).
+The beam-4 options run as in the JAX engine: candidate pruning
+(``hop2_prune_margin``, fixed or the in-batch ``auto:Q`` gap quantile),
+the unified stop head (``encode_qsp_fn``: ``stop_probs`` and
+``top_stop_probs`` in the output) and the two-pass stop-skip cascade
+(``stop_skip_threshold``).
 The search steps carry ``torch.profiler`` ranges (hop1_encode, hop1_mips,
 hop2_assemble, hop2_encode, hop2_mips, chain_topk); they cost nothing
 unless a profiler is recording.
 ``add_docs`` and ``delete_doc`` update the live engine (index and token
 store) between searches, as the JAX engine's do.
-Not ported yet (each raises NotImplementedError): candidate pruning
-(``hop2_prune_margin``), the stop-skip cascade (``stop_skip_threshold``,
-``encode_qsp_fn``) and sharding (``mesh``).
+Not ported yet: sharding (``mesh`` raises NotImplementedError).
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from ..core.config import SearchConfig
+from ..core.config import SearchConfig, default_hop2_tiling
 from ..core.device import resolve_device
 from ..data.tokenization import TokenizerSpec
 from ..index.store import DenseIndex
@@ -99,7 +104,14 @@ class BeamSearcher:
     ``encode_fn(input_ids, mask, token_type_ids=None) -> (B, D) fp32``,
     typically ``MhopRetriever.encode_seq``.  ``text_ids`` is the (N_pad, Lt)
     token store: int32, or 16-bit (uint16 numpy / int16 tensor), widened
-    with ``& 0xFFFF`` after the gather.  ``device`` defaults to ``cuda``."""
+    with ``& 0xFFFF`` after the gather.  ``device`` defaults to ``cuda``.
+
+    ``encode_qsp_fn(input_ids, mask, token_type_ids=None) -> (vectors,
+    stop_logits)`` (``UnifiedRetriever.encode_qsp``) serves variable-hop
+    search: hop 2 runs through it, and the output carries ``stop_probs``
+    (B, beam1), P(single-hop answer | q ⊕ p1) of each hop-1 candidate
+    (class 0 = stop), and ``top_stop_probs`` (B, topk) of each chain's
+    hop-1 candidate.  The caller decides whether a chain is one passage."""
 
     encode_fn: Callable
     index: DenseIndex
@@ -116,12 +128,11 @@ class BeamSearcher:
         cfg = self.config
         if self.mesh is not None:
             raise NotImplementedError("sharded search is not ported yet")
-        if self.encode_qsp_fn is not None or cfg.stop_skip_threshold > 0:
-            raise NotImplementedError(
-                "the unified stop head / stop-skip cascade is not ported yet")
-        if cfg.hop2_prune_margin != 0:
-            raise NotImplementedError(
-                "hop-2 candidate pruning is not ported yet")
+        if cfg.stop_skip_threshold > 0 and self.encode_qsp_fn is None:
+            raise ValueError(
+                "stop_skip_threshold needs an engine built with "
+                "encode_qsp_fn (the stop head lives on the q⊕p encoder): a "
+                "plain engine would silently never stop")
         if cfg.use_pca and self.index.pca_proj is None:
             raise ValueError("use_pca requires an index built with pca_dims")
         self.device = resolve_device(self.device)
@@ -221,15 +232,35 @@ class BeamSearcher:
         vals, docs = merge_multivector(vals, rows, k, m)
         return vals, docs.long(), cert
 
-    def _encode_hop2(self, qsp):
-        """Encode hop-2 rows, length-adaptive when cfg.hop2_buckets is set:
-        rows sorted by length (stable) split into tiles, each encoded at
-        its bucket width when every row fits, else at full width."""
-        fn = self.encode_fn
+    def _encode_hop2(self, qsp, encode=None, active=None,
+                     inactive_sort="tail", buckets=None, fracs=None):
+        """Encode hop-2 q⊕p rows, length-adaptive when tiled.
+
+        With buckets (``cfg.hop2_buckets`` unless ``buckets`` is given; an
+        explicit ``()`` means no tiling) rows are sorted by length (stable)
+        and split into tiles, each encoded at its bucket width when every
+        active row fits, else at full width: trailing pad columns never
+        change a non-pad position, so the result is the full-width one.
+
+        ``active`` (n_rows,) bool skips candidates: inactive rows take the
+        sort key L+1 (``inactive_sort="tail"``: they pack into the widest
+        tiles) or -1 (``"front"``: into the narrowest), a tile's width
+        follows its active rows only (an inactive row of a mixed tile is
+        encoded truncated), and a tile with no active row emits zeros
+        without running the encoder.  Every tile's longest active row and
+        whether it has one come to the host in one transfer.
+
+        ``encode`` (default ``encode_fn``) may return a tensor or a tuple
+        of row-major tensors (the stop head's (vectors, stop_logits)):
+        tiles are concatenated and un-permuted leaf by leaf."""
+        fn = encode if encode is not None else self.encode_fn
         ids, mask = qsp["input_ids"], qsp["attention_mask"]
         tt = qsp.get("token_type_ids")
-        buckets = tuple(self.config.hop2_buckets or ())
-        fracs = tuple(self.config.hop2_tile_fracs or ())
+        if buckets is None:
+            buckets = tuple(self.config.hop2_buckets or ())
+            fracs = tuple(self.config.hop2_tile_fracs or ())
+        else:
+            buckets, fracs = tuple(buckets), tuple(fracs or ())
         n_rows, L = ids.shape
         if not buckets:
             return fn(ids, mask, tt)
@@ -246,24 +277,109 @@ class BeamSearcher:
         ends = np.cumsum(sizes).tolist()
         starts = [0] + ends[:-1]
 
-        lens = mask.sum(dim=1).to(torch.int32)
-        keys_s, order = torch.sort(lens, stable=True)
+        keys = mask.sum(dim=1).to(torch.int32)
+        if active is not None:
+            keys = torch.where(active, keys,
+                               -1 if inactive_sort == "front" else L + 1)
+        keys_s, order = torch.sort(keys, stable=True)
         inv = torch.empty_like(order)
         inv[order] = torch.arange(n_rows, device=order.device)
         ids_s, mask_s = ids[order], mask[order]
         tt_s = None if tt is None else tt[order]
-        # every tile's longest row in one device→host transfer
-        tile_max = keys_s[torch.tensor([e - 1 for e in ends],
-                                       device=keys_s.device)].tolist()
+        # per tile, in one device→host transfer: the longest active row
+        # and whether there is one (active keys lie in [0, L])
+        valid = (keys_s >= 0) & (keys_s <= L)
+        tile_of = torch.repeat_interleave(
+            torch.arange(n_tiles, device=keys.device),
+            torch.tensor(sizes, device=keys.device))
+        per_tile = torch.zeros(2, n_tiles, dtype=torch.int32,
+                               device=keys.device)
+        per_tile[0].scatter_reduce_(0, tile_of, torch.where(valid, keys_s, 0),
+                                    "amax")
+        per_tile[1].scatter_reduce_(0, tile_of, valid.to(torch.int32), "amax")
+        tile_max, tile_active = per_tile.tolist()
         tiles = []
         for t in range(n_tiles):
+            if not tile_active[t]:
+                tiles.append(None)
+                continue
             sl = slice(starts[t], ends[t])
             w = min(int(buckets[t]), L)
             if w >= L or tile_max[t] > w:
                 w = L
             tiles.append(fn(ids_s[sl, :w], mask_s[sl, :w],
                             None if tt_s is None else tt_s[sl, :w]))
-        return torch.cat(tiles, dim=0)[inv]
+        shape_of = next((x for x in tiles if x is not None), None)
+        if shape_of is None:
+            # no active row at all: one row tells the output's structure
+            shape_of = fn(ids_s[:1], mask_s[:1],
+                          None if tt_s is None else tt_s[:1])
+        is_tuple = isinstance(shape_of, tuple)
+        leaves = [x if x is None or is_tuple else (x,) for x in tiles]
+        like = shape_of if is_tuple else (shape_of,)
+        out = []
+        for j, ref in enumerate(like):
+            parts = [ref.new_zeros((n,) + ref.shape[1:]) if x is None else x[j]
+                     for x, n in zip(leaves, sizes)]
+            out.append(torch.cat(parts, dim=0)[inv])
+        return tuple(out) if is_tuple else out[0]
+
+    def _prune_active(self, d1, beam1: int):
+        """(B·beam1,) bool: the hop-1 candidates within hop2_prune_margin
+        of their question's top-1 score (and not NEG_INF); a negative
+        margin -q is the q-quantile of the batch's positive gaps, at the
+        JAX engine's static index into the sorted gaps (each question
+        contributes one zero gap, its own top-1)."""
+        cfg = self.config
+        if cfg.hop2_prune_margin == 0 or beam1 <= 1:
+            return None
+        top1 = d1.max(dim=1, keepdim=True).values
+        if cfg.hop2_prune_margin > 0:
+            margin = cfg.hop2_prune_margin
+        else:
+            q = min(-cfg.hop2_prune_margin, 1.0)
+            gaps = torch.sort((top1 - d1).reshape(-1)).values
+            bsz = d1.shape[0]
+            margin = gaps[bsz + int((gaps.numel() - bsz - 1) * q)]
+        return ((d1 >= top1 - margin) & (d1 > NEG_INF / 2)).reshape(-1)
+
+    def _stop_skip(self, qsp, d1, active, bsz: int, beam1: int):
+        """The stop-skip cascade: pass 1 encodes each question's top hop-1
+        pair (its own default tiling for B rows) for its stop probability;
+        pass 2 encodes the B·(beam1-1) other rows with the configured
+        tiling, a stopped question's rows inactive and front-sorted.
+        Returns (q⊕p vectors, stop logits, the chains to keep)."""
+        cfg = self.config
+        b_top, f_top = ((), ())
+        if cfg.hop2_buckets:
+            b_top, f_top = default_hop2_tiling(bsz, cfg.max_q_sp_len)
+        dev = d1.device
+        top_slot = d1.argmax(dim=1)
+        row_idx = torch.arange(bsz, device=dev) * beam1 + top_slot
+        vec_top, logits_top = self._encode_hop2(
+            {k: v[row_idx] for k, v in qsp.items()},
+            encode=self.encode_qsp_fn, buckets=b_top, fracs=f_top)
+        p_stop = torch.softmax(logits_top.float(), dim=-1)[:, 0]
+        stopped = p_stop >= cfg.stop_skip_threshold
+        is_top = torch.arange(beam1, device=dev)[None, :] == top_slot[:, None]
+        nt_slots = torch.argsort(is_top.to(torch.int32), dim=1,
+                                 stable=True)[:, :beam1 - 1]
+        nt_idx = (torch.arange(bsz, device=dev)[:, None] * beam1
+                  + nt_slots).reshape(-1)
+        act_nt = torch.repeat_interleave(~stopped, beam1 - 1)
+        if active is not None:
+            act_nt = act_nt & active[nt_idx]
+        vec_nt, logits_nt = self._encode_hop2(
+            {k: v[nt_idx] for k, v in qsp.items()},
+            encode=self.encode_qsp_fn, active=act_nt, inactive_sort="front")
+        vecs = vec_top.new_zeros((bsz * beam1,) + vec_top.shape[1:])
+        vecs[row_idx] = vec_top
+        vecs[nt_idx] = vec_nt.to(vec_top.dtype)
+        logits = logits_top.new_zeros((bsz * beam1,) + logits_top.shape[1:])
+        logits[row_idx] = logits_top
+        logits[nt_idx] = logits_nt.to(logits_top.dtype)
+        cont = torch.where(stopped[:, None], is_top, True).reshape(-1)
+        return vecs, logits, cont
 
     def _search_impl(self, q_inputs, q_raw_ids, q_raw_lens, *, beam1: int,
                      beam2: int, topk: int):
@@ -288,8 +404,19 @@ class BeamSearcher:
             a_lens = torch.repeat_interleave(q_raw_lens, beam1, dim=0)
             qsp = assemble_pair_inputs(a_ids, a_lens, doc_ids, doc_lens,
                                        cfg.max_q_sp_len, self.spec)
+            active = self._prune_active(d1, beam1)
+        stop_logits = None
         with record_function("hop2_encode"):
-            qsp_vec = self._encode_hop2(qsp)
+            if (self.encode_qsp_fn is not None
+                    and cfg.stop_skip_threshold > 0 and beam1 > 1):
+                qsp_vec, stop_logits, cont = self._stop_skip(
+                    qsp, d1, active, bsz, beam1)
+                active = cont if active is None else active & cont
+            elif self.encode_qsp_fn is not None:
+                qsp_vec, stop_logits = self._encode_hop2(
+                    qsp, encode=self.encode_qsp_fn, active=active)
+            else:
+                qsp_vec = self._encode_hop2(qsp, active=active)
         with record_function("hop2_mips"):
             d2, i2, cert2 = self._mips(qsp_vec.float(), beam2,
                                        pca=self._pca_on_hop(2))
@@ -297,13 +424,23 @@ class BeamSearcher:
         i2 = i2.reshape(bsz, beam1, beam2)
 
         with record_function("chain_topk"):
+            if active is not None:
+                # pruned or stopped candidates contribute no chains
+                d2 = torch.where(active.reshape(bsz, beam1)[:, :, None], d2,
+                                 NEG_INF)
             path_scores = (d1[:, :, None] + d2).reshape(bsz, beam1 * beam2)
             top_scores, flat = topk_lower_index(path_scores, topk)
-            hop1_ids = torch.gather(i1, 1, flat // beam2)
+            hop1_slot = flat // beam2
+            hop1_ids = torch.gather(i1, 1, hop1_slot)
             hop2_ids = torch.gather(i2.reshape(bsz, -1), 1, flat)
         out = {"path_scores": top_scores, "hop1_ids": hop1_ids,
                "hop2_ids": hop2_ids, "hop1_cand_ids": i1,
                "hop1_cand_scores": d1}
+        if stop_logits is not None:
+            sp = torch.softmax(stop_logits.float(), dim=-1)[:, 0]
+            sp = sp.reshape(bsz, beam1)
+            out["stop_probs"] = sp
+            out["top_stop_probs"] = torch.gather(sp, 1, hop1_slot)
         if cert1 is not None:
             out["pca_cert1"] = cert1
         if cert2 is not None:

@@ -309,9 +309,13 @@ def test_unported_options_raise():
     base = dict(encode_fn=None, index=index, text_ids=f["text"][0],
                 text_lens=f["text"][1], empty=f["text"][2], spec=tok.spec,
                 device="cpu")
-    for cfg, extra in ((dict(hop2_prune_margin=0.5), {}),
-                       (dict(stop_skip_threshold=0.5), {}),
-                       ({}, dict(encode_qsp_fn=lambda *a: None)),
-                       ({}, dict(mesh=object()))):
-        with pytest.raises(NotImplementedError):
-            BeamSearcher(config=SearchConfig(**f["kw"], **cfg), **base, **extra)
+    # only sharding is left to port; the beam-4 options are accepted, and
+    # a cascade without a stop head fails as in the JAX engine
+    with pytest.raises(NotImplementedError, match="sharded"):
+        BeamSearcher(config=SearchConfig(**f["kw"]), mesh=object(), **base)
+    with pytest.raises(ValueError, match="stop_skip_threshold"):
+        BeamSearcher(config=SearchConfig(**f["kw"], stop_skip_threshold=0.5),
+                     **base)
+    BeamSearcher(config=SearchConfig(**f["kw"], hop2_prune_margin=-0.5,
+                                     stop_skip_threshold=0.5),
+                 encode_qsp_fn=lambda *a: None, **base)

@@ -509,10 +509,8 @@ def test_unported_options_raise(tmp_path):
                            device="cpu")
     base = [str(tmp_path / "c.jsonl"), str(tmp_path / "out"), "--device",
             "cpu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        tcli.main(base + ["--unified"])
     with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        tcli.main(base + ["--data-parallel", "2"])
+        tcli.main(base + ["--unified", "--data-parallel", "2"])
     for flags in (["--export-npy", "--num-shards", "2"],
                   ["--export-npy", "--multi-vector", "2"]):
         with pytest.raises(SystemExit):

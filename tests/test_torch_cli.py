@@ -17,7 +17,21 @@ worker):
 The FEVER runs (beam 2 / 10, batch 4) search hop 2 at B=8, k=10, the
 two-phase route in the port; the JAX package takes its XLA tier on the
 CPU.  Both are exact, so dumps must be equal row for row and the metrics
-JSON equal.
+JSON equal.  ``--hop2-prune-margin`` runs (fixed and ``auto``) compare the
+same way, and the pruned chains' NEG_INF scores must sit in the same
+places.
+
+The variable-hop runs use a second set-up (``unified_env``): a tiny
+UnifiedRetriever written as a reference-layout ``.pt`` (the JAX package's
+``unified_flax_to_ckpt``) and a 512-doc corpus, encoded by both packages'
+``encode_corpus --unified`` (fp32 rows, so the two encoders' 1e-5 stays
+below the hop-1 score gaps).  Both ``eval_mhop_retrieval
+--unified`` CLIs then run over the JAX-built directory, with and without
+``--stop-skip``; the thresholds lie halfway between two adjacent stop
+probabilities of a JAX run, so no chain sits on one.  Dumps must be
+equal apart from the stop probabilities they carry (rtol 1e-5, atol
+1e-6).  ``--hnsw``: the JAX CLI builds ``index.hnsw`` in a copy of the
+int8 directory and the port loads it; dumps and metrics equal.
 
 Tolerance for the scores beside the dumps: SCORE_TOL = 5e-3.  The fp32
 encodes agree to 1e-5, but each query is cast to the index dtype, and an
@@ -32,6 +46,8 @@ values.
 import contextlib
 import io
 import json
+import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -46,14 +62,18 @@ from multihop_dense_retrieval_tpu.cli import eval_mhop_retrieval as jretr
 from multihop_dense_retrieval_tpu.core.config import \
     EncoderConfig as JaxEncoderConfig
 from multihop_dense_retrieval_tpu.models import MhopRetriever as JaxRetriever
+from multihop_dense_retrieval_tpu.models import UnifiedRetriever as JaxUnified
+from multihop_dense_retrieval_tpu.models.export import unified_flax_to_ckpt
 from multihop_dense_retrieval_tpu.search import beam as jbeam
 from multihop_dense_retrieval_tpu_torch.cli import common as tcommon
+from multihop_dense_retrieval_tpu_torch.cli import encode_corpus as tencode
 from multihop_dense_retrieval_tpu_torch.cli import eval_mhop_fever as tfever
 from multihop_dense_retrieval_tpu_torch.cli import eval_mhop_retrieval as tretr
 from multihop_dense_retrieval_tpu_torch.core.config import EncoderConfig
 from multihop_dense_retrieval_tpu_torch.models import \
     retriever_state_dict_from_jax
 from multihop_dense_retrieval_tpu_torch.ops import mips as tm
+from multihop_dense_retrieval_tpu_torch.ops.mips import NEG_INF
 from multihop_dense_retrieval_tpu_torch.search import beam as tbeam
 from tests import synth
 
@@ -130,6 +150,9 @@ def _run(main, searcher_cls, args, monkeypatch):
 
 
 def _check_results(jseen, tseen, topk):
+    """Ids and certificates equal; scores within SCORE_TOL, each adjacent
+    pair's JAX gap above the two differences (pairs of pruned chains, both
+    NEG_INF, aside: equal scores, and their ids already compared)."""
     assert len(jseen) == len(tseen) > 0
     for j, t in zip(jseen, tseen):
         assert set(j) == set(t)
@@ -138,16 +161,49 @@ def _check_results(jseen, tseen, topk):
             if key in j:
                 np.testing.assert_array_equal(t[key], j[key], err_msg=key)
         for key in ("path_scores", "hop1_cand_scores"):
+            dead = j[key] <= NEG_INF / 2
+            np.testing.assert_array_equal(t[key][dead], j[key][dead])
             np.testing.assert_allclose(t[key], j[key], rtol=0,
                                        atol=SCORE_TOL, err_msg=key)
             diff = np.abs(t[key] - j[key])
             gaps = -np.diff(j[key], axis=1)
-            assert (gaps > diff[:, :-1] + diff[:, 1:]).all(), key
+            ok = (gaps > diff[:, :-1] + diff[:, 1:]) | dead[:, 1:]
+            assert ok.all(), key
+        for key in ("stop_probs", "top_stop_probs"):
+            if key in j:
+                np.testing.assert_allclose(t[key], j[key], rtol=1e-5,
+                                           atol=1e-6, err_msg=key)
         assert j["path_scores"].shape[1] == topk
 
 
+def _record_pruning(monkeypatch):
+    """The port engine's prune masks of a run."""
+    kept = []
+    prune = tbeam.BeamSearcher._prune_active
+
+    def recording(self, *a):
+        out = prune(self, *a)
+        kept.append(out)
+        return out
+
+    monkeypatch.setattr(tbeam.BeamSearcher, "_prune_active", recording)
+    return kept
+
+
+def _check_pruned(kept, extra):
+    """With a margin, some candidates (never all) were pruned."""
+    if "--hop2-prune-margin" not in extra:
+        assert all(k is None for k in kept)
+        return
+    mask = torch.cat(kept)
+    assert not bool(mask.all()) and bool(mask.any())
+
+
 FEVER = {"bf16": ("bf16", []), "bf16_pca": ("bf16", ["--pca"]),
-         "int8": ("int8", [])}
+         "int8": ("int8", []),
+         "int8_prune_auto": ("int8", ["--hop2-prune-margin", "auto"]),
+         "bf16_pca_prune_fixed": ("bf16", ["--pca", "--hop2-prune-margin",
+                                           "0.5"])}
 
 
 @pytest.mark.parametrize("case", sorted(FEVER))
@@ -165,6 +221,7 @@ def test_eval_mhop_fever_matches_jax(env, case, monkeypatch):
     two_phase = tm.mips_topk_two_phase
     monkeypatch.setattr(tm, "mips_topk_two_phase", lambda *a, **kw: (
         tcalls.append(tuple(a[1].shape)), two_phase(*a, **kw))[1])
+    kept = _record_pruning(monkeypatch)
     _, tline, tseen = _run(tfever.main, tbeam.BeamSearcher,
                            args + ["--save-path", tpath, "--device", "cpu"],
                            monkeypatch)
@@ -177,12 +234,17 @@ def test_eval_mhop_fever_matches_jax(env, case, monkeypatch):
     _check_results(jseen, tseen, 10)
     # hop 2 (B = batch 4 x beam 2 = 8, k = 10) took the two-phase search
     # unless the prefilter served it
-    assert tcalls == ([] if extra else [(8, 32)] * len(tseen))
-    if extra:
+    pca = "--pca" in extra
+    assert tcalls == ([] if pca else [(8, 32)] * len(tseen))
+    if pca:
         assert any(r["pca_cert2"].any() for r in tseen)
+    _check_pruned(kept, extra)
 
 
-RETRIEVAL = {"bf16_pca": ("bf16", ["--pca"]), "int8": ("int8", [])}
+RETRIEVAL = {"bf16_pca": ("bf16", ["--pca"]), "int8": ("int8", []),
+             "int8_prune_auto": ("int8", ["--hop2-prune-margin", "auto"]),
+             "bf16_pca_prune_q9": ("bf16", ["--pca", "--hop2-prune-margin",
+                                            "auto:0.9"])}
 
 
 @pytest.mark.parametrize("case", sorted(RETRIEVAL))
@@ -196,9 +258,11 @@ def test_eval_mhop_retrieval_matches_jax(env, case, monkeypatch):
     jpath, tpath = str(tmp / f"jr_{case}.jsonl"), str(tmp / f"tr_{case}.jsonl")
     (jagg, jout), _, jseen = _run(jretr.main, jbeam.BeamSearcher,
                                   args + ["--save-path", jpath], monkeypatch)
+    kept = _record_pruning(monkeypatch)
     (tagg, tout), _, tseen = _run(
         tretr.main, tbeam.BeamSearcher,
         args + ["--save-path", tpath, "--device", "cpu"], monkeypatch)
+    _check_pruned(kept, extra)
     assert tout == jout and len(tout) == 12
     assert tagg == jagg and set(tagg) >= {"overall", "bridge", "comparison"}
     with open(jpath) as f, open(tpath) as g:
@@ -227,13 +291,19 @@ def test_load_json_flex_matches_jax(tmp_path, layout):
 
 
 def test_unported_options_raise(tmp_path):
+    """Only sharding still raises; the beam-4 options and --hnsw are
+    ported, and their flag combinations fail as in the JAX CLI."""
     base = [str(tmp_path / "q.jsonl"), str(tmp_path), "--device", "cpu"]
-    for flags in (["--hnsw"], ["--unified"], ["--stop-skip", "0.5"],
-                  ["--index-shards", "2"], ["--hop2-prune-margin", "auto"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP item"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+        tretr.main(base + ["--index-shards", "2"])
+    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+        tfever.main(base + ["--index-shards", "2", "--hop2-prune-margin",
+                            "0.5"])
+    for flags in (["--stop-skip", "0.5"], ["--hnsw", "--pca"],
+                  ["--hnsw", "--unified"], ["--hop2-prune-margin", "-1"],
+                  ["--hop2-prune-margin", "auto:1.5"]):
+        with pytest.raises(SystemExit):
             tretr.main(base + flags)
-    with pytest.raises(NotImplementedError, match="ROADMAP item"):
-        tfever.main(base + ["--hop2-prune-margin", "0.5"])
     # electra-large is ported (the reader's preset) and no longer raises
     assert tcommon.resolve_encoder_config("electra-large") == \
         EncoderConfig.electra_large()
@@ -258,3 +328,147 @@ def test_reference_checkpoint_names_load(env, tmp_path):
     mask = torch.ones_like(ids)
     with torch.inference_mode():
         assert torch.equal(a.encode_seq(ids, mask), b.encode_seq(ids, mask))
+
+
+# ---- --hnsw ---------------------------------------------------------------
+
+
+def test_eval_hnsw_loads_the_jax_built_graph(env, monkeypatch):
+    """The JAX CLI builds <dir>/index.hnsw (M 32, ef_construction 200)
+    from the int8 rows and their scales; the port's CLI loads that file and
+    gives the same chains, dumps and metrics."""
+    tmp = env["tmp"]
+    index_dir = str(tmp / "hnsw")
+    shutil.copytree(env["dirs"]["int8"], index_dir)
+    args = [str(tmp / "qas.jsonl"), index_dir, "--tokenizer", "hash",
+            "--model-name", "tiny", "--checkpoint", env["ckpt"],
+            "--beam-size", "3", "--topk", "3", "--batch-size", "4",
+            "--hnsw", "--ef-search", "64"]
+    jpath, tpath = str(tmp / "jh.jsonl"), str(tmp / "th.jsonl")
+    (jagg, jout), _, jseen = _run(jretr.main, jretr._HnswBeamSearcher,
+                                  args + ["--save-path", jpath], monkeypatch)
+    graph = os.path.join(index_dir, "index.hnsw")
+    stamp = os.stat(graph).st_mtime_ns
+    (tagg, tout), _, tseen = _run(
+        tretr.main, tretr.HnswBeamSearcher,
+        args + ["--save-path", tpath, "--device", "cpu"], monkeypatch)
+    assert os.stat(graph).st_mtime_ns == stamp        # loaded, not rebuilt
+    assert tout == jout and len(tout) == 12 and tagg == jagg
+    with open(jpath) as f, open(tpath) as g:
+        assert f.read() == g.read()
+    _check_results(jseen, tseen, 3)
+
+
+# ---- --unified, --stop-skip ------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def unified_env(tmp_path_factory):
+    mp = pytest.MonkeyPatch()
+    mp.setitem(jcommon.MODEL_PRESETS, "tiny", _tiny_fp32(JaxEncoderConfig))
+    mp.setitem(tcommon.MODEL_PRESETS, "tiny", _tiny_fp32(EncoderConfig))
+    tmp = tmp_path_factory.mktemp("torch_cli_unified")
+    rng = np.random.RandomState(SEED + 1)
+    docs = synth.make_corpus(rng, 512, empty_every=37)
+    synth.write_jsonl(tmp / "corpus.jsonl", docs)
+    synth.write_jsonl(tmp / "qas.jsonl",
+                      synth.make_mhop_rows(rng, docs, n_rows=16))
+    model = JaxUnified(jcommon.resolve_encoder_config("tiny"),
+                       stop_on_pooled=True)
+    ids = jnp.ones((1, 8), jnp.int32)
+    params = model.init(jax.random.PRNGKey(SEED), ids, ids,
+                        method=model.encode_qsp)
+    # a wider stop head spreads the random model's stop probabilities
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, x: x * WIDEN if "stop_head" in jax.tree_util.keystr(path)
+        else x, params)
+    ckpt = str(tmp / "unified.pt")
+    torch.save({k: torch.from_numpy(np.array(v)) for k, v in
+                unified_flax_to_ckpt(jax.device_get(params)["params"]).items()},
+               ckpt)
+    flags = ["--tokenizer", "hash", "--model-name", "tiny", "--checkpoint",
+             ckpt, "--unified", "--batch-size", "128", "--chunk-rows", "128",
+             "--max-c-len", "64", "--index-dtype", "float32"]
+    dirs = {"jax": str(tmp / "jax"), "torch": str(tmp / "torch")}
+    encode_corpus.main([str(tmp / "corpus.jsonl"), dirs["jax"]] + flags)
+    tencode.main([str(tmp / "corpus.jsonl"), dirs["torch"], "--device",
+                  "cpu"] + flags)
+    yield dict(tmp=tmp, ckpt=ckpt, dirs=dirs)
+    mp.undo()
+
+
+def test_encode_corpus_unified_matches_jax(unified_env):
+    """tokens.npz, id2doc.json and the index layout bit-equal; the fp32
+    rows within atol 1e-5 (the frameworks' fp32 encodes differ by that
+    much: summation order)."""
+    j, t = unified_env["dirs"]["jax"], unified_env["dirs"]["torch"]
+    za, zb = (np.load(os.path.join(d, "tokens.npz")) for d in (j, t))
+    assert za.files == zb.files
+    for key in za.files:
+        np.testing.assert_array_equal(za[key], zb[key], err_msg=key)
+    with open(os.path.join(j, "id2doc.json")) as f, \
+            open(os.path.join(t, "id2doc.json")) as g:
+        assert json.load(f) == json.load(g)
+    ja, ta = (np.load(os.path.join(d, "index.npz")) for d in (j, t))
+    assert ja.files == ta.files
+    for key in ("n_docs", "chunk_rows", "multi_vector", "dtype"):
+        assert ja[key] == ta[key], key
+    assert str(ja["dtype"]) == "float32"
+    np.testing.assert_allclose(ta["payload"], ja["payload"], rtol=0,
+                               atol=1e-5)
+
+
+def _between(values, share):
+    """A threshold halfway between two adjacent values, with about
+    ``share`` of them above it (the widest gap within 15 points)."""
+    p = np.sort(np.asarray(values).ravel())[::-1]
+    n = len(p)
+    lo = max(1, int(round((share - 0.15) * n)))
+    hi = min(n - 1, int(round((share + 0.15) * n)))
+    m = max(range(lo, hi + 1), key=lambda i: p[i - 1] - p[i])
+    assert p[m - 1] - p[m] > 1e-4, "stop probabilities tie"
+    return float((p[m - 1] + p[m]) / 2)
+
+
+def _strip_stop_probs(rows):
+    return [{k: v for k, v in r.items() if k != "stop_probs"} for r in rows]
+
+
+def test_eval_unified_stop_skip_matches_jax(unified_env, monkeypatch):
+    tmp = unified_env["tmp"]
+    base = [str(tmp / "qas.jsonl"), unified_env["dirs"]["jax"],
+            "--tokenizer", "hash", "--model-name", "tiny", "--checkpoint",
+            unified_env["ckpt"], "--unified", "--beam-size", "4", "--topk",
+            "4", "--batch-size", "8", "--max-q-sp-len", "96",
+            "--hop2-buckets", "32,48,64,96", "--hop2-tile-fracs",
+            "0.25,0.375,0.25,0.125"]
+    _, _, probe = _run(jretr.main, jbeam.BeamSearcher, base, monkeypatch)
+    p_top = np.concatenate([r["stop_probs"][np.arange(len(r["stop_probs"])),
+                                            r["hop1_cand_scores"].argmax(1)]
+                            for r in probe])
+    top = np.concatenate([r["top_stop_probs"] for r in probe])
+    thresholds = ["--stop-threshold", str(_between(top, 0.5)),
+                  "--stop-skip", str(_between(p_top, 0.6))]
+    for name, extra in (("unified", thresholds[:2]),
+                        ("stop_skip", thresholds),
+                        ("stop_skip_prune", thresholds
+                         + ["--hop2-prune-margin", "auto:0.9"])):
+        args = base + extra
+        jpath, tpath = (str(tmp / f"{p}_{name}.jsonl") for p in "jt")
+        (jagg, jout), _, jseen = _run(jretr.main, jbeam.BeamSearcher,
+                                      args + ["--save-path", jpath],
+                                      monkeypatch)
+        (tagg, tout), _, tseen = _run(
+            tretr.main, tbeam.BeamSearcher,
+            args + ["--save-path", tpath, "--device", "cpu"], monkeypatch)
+        assert tagg == jagg and len(tout) == len(jout) == 16
+        assert _strip_stop_probs(tout) == _strip_stop_probs(jout)
+        np.testing.assert_allclose([r["stop_probs"] for r in tout],
+                                   [r["stop_probs"] for r in jout],
+                                   rtol=1e-5, atol=1e-6)
+        _check_results(jseen, tseen, 4)
+        sizes = {len(c) for r in tout for c in r["candidate_chains"]}
+        assert sizes == {1, 2}, (name, sizes)
+        if name != "unified":
+            # stopped questions' other rows were skipped (stop prob 0.5)
+            assert any((r["stop_probs"] == 0.5).any() for r in tseen)

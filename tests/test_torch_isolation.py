@@ -141,9 +141,13 @@ def test_model_inits_without_device_raise_when_cuda_is_absent(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         common.init_retriever(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
+        common.init_retriever(cfg, unified=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         common.init_reader("tiny")
     assert next(common.init_retriever(cfg, device="cpu").parameters()
                 ).device.type == "cpu"
+    assert next(common.init_retriever(cfg, unified=True, device="cpu")
+                .parameters()).device.type == "cpu"
     _, reader = common.init_reader("tiny", device="cpu")
     assert next(reader.parameters()).device.type == "cpu"
 

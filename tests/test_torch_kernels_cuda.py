@@ -811,3 +811,148 @@ def test_fused_encoder_on_card_matches_cpu(dev):
     torch.cuda.synchronize()
     assert mips.LAUNCHES["fused_attention"] == cfg.num_layers
     torch.testing.assert_close(gpu.cpu(), cpu, atol=1e-4, rtol=1e-4)
+
+
+# ---- beam-4 serving on the card (pruning, the stop-skip cascade) ----------
+
+
+def _beam4_engine(dev, **cfg_kw):
+    """A 2-layer, 128-wide fp32 UnifiedRetriever over an 8192-row int8
+    index with PCA (R=32, 512-row chunks) and a 60-wide token store, all
+    on the card: (engine, the tokenized questions)."""
+    from multihop_dense_retrieval_tpu_torch.core.config import (EncoderConfig,
+                                                                SearchConfig)
+    from multihop_dense_retrieval_tpu_torch.data import TokenizerSpec
+    from multihop_dense_retrieval_tpu_torch.index import DenseIndex
+    from multihop_dense_retrieval_tpu_torch.models import UnifiedRetriever
+    from multihop_dense_retrieval_tpu_torch.search import BeamSearcher
+
+    cfg = EncoderConfig.tiny(vocab_size=512, max_position_embeddings=140,
+                             hidden_size=128, num_heads=2,
+                             intermediate_size=256)
+    torch.manual_seed(0)
+    model = UnifiedRetriever(cfg, cls_only=True)
+    for lin in (model.stop_head,):
+        torch.nn.init.normal_(lin.weight, std=0.5)
+    model = model.to(dev).eval()
+    g = torch.Generator().manual_seed(2)
+    n, width, b = 8192, 60, 32
+    emb = torch.randn(n, 128, generator=g)
+    index = DenseIndex.build(emb.numpy(), chunk_rows=4096, dtype="int8",
+                             pca_dims=32, pca_cand_rows=512, device=dev)
+    text_lens = torch.randint(1, width + 1, (n,), generator=g)
+    text_ids = torch.randint(10, 500, (n, width), generator=g)
+    text_ids[torch.arange(width)[None] >= text_lens[:, None]] = 1
+    spec = TokenizerSpec(cls_id=0, sep_id=2, pad_id=1, vocab_size=512)
+    engine = BeamSearcher(
+        encode_fn=model.encode_seq, encode_qsp_fn=model.encode_qsp,
+        index=index, text_ids=text_ids, text_lens=text_lens,
+        empty=torch.zeros(n, dtype=torch.bool), spec=spec, device=dev,
+        config=SearchConfig(beam_size_1=4, beam_size_2=4, topk=16,
+                            max_q_len=24, max_q_sp_len=128, use_pca=True,
+                            pca_k_chunks=4, hop2_buckets=(48, 64, 96, 128),
+                            hop2_tile_fracs=(0.25, 0.25, 0.25, 0.25),
+                            **cfg_kw))
+    lens = torch.randint(3, 22, (b,), generator=g)
+    raw = torch.randint(10, 500, (b, 22), generator=g)
+    raw[torch.arange(22)[None] >= lens[:, None]] = 1
+    ids = torch.full((b, 24), 1)
+    mask = torch.zeros((b, 24), dtype=torch.int32)
+    for i, m in enumerate(lens.tolist()):
+        ids[i, :m + 2] = torch.cat([torch.tensor([0]), raw[i, :m],
+                                    torch.tensor([2])])
+        mask[i, :m + 2] = 1
+    q = ({"input_ids": ids.numpy(), "attention_mask": mask.numpy()},
+         raw.numpy(), lens.numpy())
+    return engine, q
+
+
+def _hold_hops_to_exact_scan(engine, q):
+    """Run one search recording every MIPS call, and hold each to the
+    exact int8 scan on its own query vectors: a scan hop bit-equal; a PCA
+    hop's certified queries return the exact top-1 (scores within the two
+    epilogue orders' ulp)."""
+    seen = []
+    hop_mips = engine._mips
+
+    def recorded(queries, k, pca=True):
+        res = hop_mips(queries, k, pca)
+        seen.append((queries, k, res))
+        return res
+
+    engine._mips = recorded
+    out = engine.search(*q)
+    torch.cuda.synchronize()
+    index = engine.index
+    for queries, k, (vals, docs, cert) in seen:
+        qi, qs = mips.quantize_rows(queries)
+        ev, ei = mips.mips_scan_int8_plain(qi, qs, index.vectors,
+                                           index.scales, k, index.n_docs)
+        if cert is None:
+            assert torch.equal(vals, ev) and torch.equal(docs, ei.long())
+            continue
+        c = cert
+        assert torch.equal(docs[c, 0], ei[c, 0].long())
+        torch.testing.assert_close(vals[c, 0], ev[c, 0], rtol=1e-6, atol=0)
+    return out
+
+
+@pytest.mark.parametrize("margin", [0.0, -0.5, -0.9])
+def test_beam4_cascade_on_card_holds_to_exact_scan(dev, margin):
+    """Pruning (auto:Q) and the stop-skip cascade on the card, at about
+    half the questions stopped: every hop equals the exact scan on its own
+    vectors; every live chain's hop-1 candidate meets the margin rule on
+    the engine's own d1; a stopped question keeps exactly its top-1
+    candidate's beam2 chains; a skipped row's stop probability is 0.5."""
+    from multihop_dense_retrieval_tpu_torch.ops.mips import NEG_INF
+
+    base, q = _beam4_engine(dev)
+    probe = base.search(*q)
+    slot = probe["hop1_cand_scores"].argmax(1)
+    p_top = probe["stop_probs"][range(len(slot)), slot]
+    thr = float(sorted(p_top)[len(p_top) // 2])
+    engine, _ = _beam4_engine(dev, stop_skip_threshold=thr,
+                              hop2_prune_margin=margin)
+    mips.reset_launch_counts()
+    out = _hold_hops_to_exact_scan(engine, q)
+    for name in ("mips_scan_int8", "pca_chunk_max", "pca_rescan_int8"):
+        assert mips.LAUNCHES[name] > 0, name
+    d1 = out["hop1_cand_scores"]
+    top1 = d1.max(1, keepdims=True)
+    gaps = (top1 - d1).ravel()
+    gaps.sort()
+    bsz, beam1 = d1.shape
+    if margin < 0:
+        m = gaps[bsz + int((gaps.size - bsz - 1) * -margin)]
+        kept = d1 >= top1 - m
+    else:
+        kept = d1 > NEG_INF / 2
+    stopped = out["stop_probs"][range(bsz), d1.argmax(1)] >= thr
+    assert stopped.any() and not stopped.all()
+    live = out["path_scores"] > NEG_INF / 2
+    for b in range(bsz):
+        slots = [list(out["hop1_cand_ids"][b]).index(h)
+                 for h in out["hop1_ids"][b][live[b]]]
+        assert all(kept[b, s] for s in slots)
+        if stopped[b]:
+            assert live[b].sum() == 4 and set(slots) == {int(d1[b].argmax())}
+    assert (out["stop_probs"] == 0.5).any()
+
+
+def test_hnsw_binding_beside_cuda_tensors(dev):
+    """The host HNSW tier in a process that holds CUDA tensors: vectors
+    made on the card, the graph searched on the host, recall@10 >= 0.85
+    against the exact scores computed on the card."""
+    from multihop_dense_retrieval_tpu_torch.index.hnsw import HNSWIndex
+
+    g = _gen(dev, 9)
+    vecs = torch.randn(4096, 64, device=dev, generator=g)
+    queries = torch.randn(64, 64, device=dev, generator=g)
+    idx = HNSWIndex(64, M=16, ef_construction=100)
+    idx.add(vecs.cpu().numpy())
+    scores, ids = idx.search(queries.cpu().numpy(), 10, 128)
+    exact = (queries @ vecs.t()).topk(10).indices.cpu().numpy()
+    torch.cuda.synchronize()
+    recall = sum(len(set(a) & set(b)) for a, b in zip(ids, exact)) / ids.size
+    assert recall >= 0.85, recall
+    assert vecs.is_cuda and queries.is_cuda

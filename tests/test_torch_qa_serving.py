@@ -15,6 +15,12 @@ fp32 in both (the CLIs' own default is bf16), the tiny reader is fp32.
 
 Answers, supporting facts, chains and EM/F1 must be equal; timings are
 not compared.
+
+The variable-hop runs (``--unified``) use a tiny UnifiedRetriever written
+as a reference-layout ``.pt`` and its own fp32 index directory (the JAX
+package's ``encode_corpus --unified``); ``--stop-threshold`` lies halfway
+between two adjacent stop probabilities of a JAX run, so some chains are
+one passage and none sits on the threshold.
 """
 
 import argparse
@@ -33,11 +39,14 @@ from multihop_dense_retrieval_tpu.cli import common as jcommon
 from multihop_dense_retrieval_tpu.cli import demo as jdemo
 from multihop_dense_retrieval_tpu.cli import encode_corpus
 from multihop_dense_retrieval_tpu.cli import end2end as jend2end
+from multihop_dense_retrieval_tpu.cli import eval_mhop_retrieval as jretr
 from multihop_dense_retrieval_tpu.cli import parity as jparity
 from multihop_dense_retrieval_tpu.cli import train_qa as jtrain_qa
 from multihop_dense_retrieval_tpu.core.config import \
     EncoderConfig as JaxEncoderConfig
 from multihop_dense_retrieval_tpu.models import MhopRetriever as JaxRetriever
+from multihop_dense_retrieval_tpu.models import UnifiedRetriever as JaxUnified
+from multihop_dense_retrieval_tpu.models.export import unified_flax_to_ckpt
 from multihop_dense_retrieval_tpu_torch.cli import common as tcommon
 from multihop_dense_retrieval_tpu_torch.cli import demo as tdemo
 from multihop_dense_retrieval_tpu_torch.cli import end2end as tend2end
@@ -98,8 +107,25 @@ def env(tmp_path_factory):
                         "--checkpoint", retriever, "--batch-size", "16",
                         "--chunk-rows", "16", "--max-c-len", "32",
                         "--index-dtype", "float32"])
+    umodel = JaxUnified(jcommon.resolve_encoder_config("tiny"),
+                        stop_on_pooled=True)
+    uparams = _widen(umodel.init(jax.random.PRNGKey(3),
+                                 jnp.ones((1, 8), jnp.int32),
+                                 jnp.ones((1, 8), jnp.int32),
+                                 method=umodel.encode_qsp))
+    unified = str(tmp / "unified.pt")
+    torch.save({k: torch.from_numpy(np.array(v)) for k, v in
+                unified_flax_to_ckpt(jax.device_get(uparams)["params"])
+                .items()}, unified)
+    unified_dir = str(tmp / "unified_index")
+    encode_corpus.main([str(tmp / "corpus.jsonl"), unified_dir,
+                        "--tokenizer", "hash", "--model-name", "tiny",
+                        "--checkpoint", unified, "--unified",
+                        "--batch-size", "16", "--chunk-rows", "16",
+                        "--max-c-len", "32", "--index-dtype", "float32"])
     yield dict(tmp=tmp, index_dir=index_dir, retriever=retriever,
-               reader=reader, rows=rows)
+               reader=reader, rows=rows, unified=unified,
+               unified_dir=unified_dir)
     mp.undo()
 
 
@@ -136,10 +162,52 @@ def test_end2end_matches_jax(env, extra, capsys):
 
 
 def test_end2end_refuses_unported_options(env):
-    for extra in (["--unified"], ["--stop-threshold", "0.3"],
-                  ["--index-shards", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP item"):
-            tend2end.main(_e2e_args(env, "--device", "cpu", *extra))
+    """Only sharding is left to port (--unified is served below)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+        tend2end.main(_e2e_args(env, "--device", "cpu", "--unified",
+                                "--index-shards", "2"))
+
+
+@pytest.fixture(scope="module")
+def stop_threshold(env):
+    """Halfway between two adjacent top_stop_probs of the JAX engine at
+    end2end's settings, with about half of the chains above it."""
+    _, rows = jretr.main([str(env["tmp"] / "qas.jsonl"), env["unified_dir"],
+                          "--tokenizer", "hash", "--model-name", "tiny",
+                          "--checkpoint", env["unified"], "--unified",
+                          "--beam-size", "2", "--topk", "2",
+                          "--batch-size", "4", "--max-q-len", "24",
+                          "--max-q-sp-len", "64", "--chunk-rows", "16"])
+    p = np.sort([x for r in rows for x in r["stop_probs"]])[::-1]
+    m = max(range(3, len(p) - 3), key=lambda i: p[i - 1] - p[i])
+    assert p[m - 1] - p[m] > 1e-4, "stop probabilities tie"
+    return str((p[m - 1] + p[m]) / 2)
+
+
+def _unified_args(env, thr):
+    return ["--retriever-checkpoint", env["unified"], "--unified",
+            "--stop-threshold", thr]
+
+
+def test_end2end_unified_matches_jax(env, stop_threshold, monkeypatch):
+    """Chains whose stop probability exceeds the threshold reach the
+    reader as one passage, in both packages alike."""
+    tmp = env["tmp"]
+    chains = []
+    retrieve = tend2end.retrieve_chains
+    monkeypatch.setattr(tend2end, "retrieve_chains", lambda *a, **kw: (
+        chains.append(retrieve(*a, **kw)), chains[-1])[1])
+    args = [a if a != env["index_dir"] else env["unified_dir"]
+            for a in _e2e_args(env)]
+    args += _unified_args(env, stop_threshold)
+    exp = jend2end.main(args + ["--save-path", str(tmp / "ju.jsonl")])
+    got = tend2end.main(args + ["--device", "cpu", "--save-path",
+                                str(tmp / "tu.jsonl")])
+    for key in ("n", "answer_em", "answer_f1"):
+        assert got[key] == exp[key], key
+    assert _lines(tmp / "tu.jsonl") == _lines(tmp / "ju.jsonl")
+    sizes = {len(c) for q in chains[0] for c in q}
+    assert sizes == {1, 2}, sizes
 
 
 def _demo_args(env, *extra):
@@ -167,6 +235,17 @@ def test_demo_question_matches_jax(env, extra, capsys):
     assert _strip_times(got) == _strip_times(exp)
     assert isinstance(got["answer"], str) and len(got["chains"]) == 2
     assert got["retrieval_s"] > 0 and got["reading_s"] > 0
+
+
+def test_demo_unified_matches_jax(env, stop_threshold, capsys):
+    extra = ["--question", "which thing links w3 w10?",
+             *_unified_args(env, stop_threshold)]
+    args = [a if a != env["index_dir"] else env["unified_dir"]
+            for a in _demo_args(env, *extra)]
+    exp = jdemo.main(args)
+    got = tdemo.main(args + ["--device", "cpu"])
+    assert _strip_times(got) == _strip_times(exp)
+    assert len(got["chains"]) == 2
 
 
 # ---- the HTTP server ------------------------------------------------------
@@ -444,3 +523,34 @@ def test_parity_qa_block_matches_jax(env, tmp_path):
     got = tparity.run_qa_block(SimpleNamespace(device="cpu", **kw), log)
     assert set(got) == set(tparity.EXPECTED_QA)
     assert got == exp
+
+
+def test_serve_unified_answers(env, stop_threshold):
+    """serve --unified: the server starts over the unified pipeline and
+    answers as the JAX pipeline does."""
+    ns = dict(PIPE, index_dir=env["unified_dir"],
+              retriever_checkpoint=env["unified"],
+              reader_checkpoint=env["reader"], unified=True,
+              stop_threshold=float(stop_threshold))
+    pipe = tdemo.DemoPipeline(argparse.Namespace(device="cpu", **ns))
+    jpipe = jdemo.DemoPipeline(argparse.Namespace(**ns))
+    srv = tserve.make_server(pipe, "127.0.0.1", 0, max_batch=4,
+                             batch_wait_ms=25)
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    try:
+        url = f"http://127.0.0.1:{srv.server_port}"
+        sizes = set()
+        for q in ("what links things?", "which thing links w3 w10?",
+                  "another question about w7?"):
+            code, out = _post(f"{url}/answer", {"question": q})
+            assert code == 200
+            assert _strip_times(out) == _strip_times(
+                jpipe.answer_batch([q], pad_to=4)[0])
+            sizes.update(len(c) for c in out["chains"])
+        assert sizes <= {1, 2}
+    finally:
+        srv.shutdown()
+        srv.engine_worker.stop()
+        t.join(timeout=30)
+    assert not t.is_alive() and not srv.engine_worker.is_alive()
