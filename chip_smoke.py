@@ -1,6 +1,6 @@
 """Build the PyTorch port's CUDA kernels and drive its search, corpus-
-encoding and question-answering paths on one GPU.  Run from the repository
-root:  python3 chip_smoke.py
+encoding, question-answering and training paths on one GPU.  Run from the
+repository root:  python3 chip_smoke.py
 
 Phases (each prints a line and flushes; any failure exits non-zero):
   1. build   — nvcc compiles every kernel from ops/csrc (one process each).
@@ -110,6 +110,25 @@ Phases (each prints a line and flushes; any failure exits non-zero):
                   build rows/s), the second loads it (the CLI's q/s);
                   hop-1 recall@4 against kernel 1's exact scan >= 0.85;
                   the library outside native/.
+               j. retriever training (no kernel on its path: the counts
+                  must stay 0).  j0: one train step on the card and one
+                  on the CPU from the same weights and batch (2 layers at
+                  roberta-base width, fp32, B=4 ragged at 70/350/300):
+                  losses within 1e-5 relative, gradients within 1e-6 +
+                  1e-4 of each tensor's largest, parameters within
+                  adam_bound.  j1: roberta-base (bf16 compute, fp32
+                  master weights and Adam) at batch 16 and the reference
+                  widths, the optimizer of RetrieverTrainConfig's
+                  defaults: examples/s and ms/step (CUDA events, the
+                  median of 10 steps after 3), peak allocated memory,
+                  one profiled step; every loss finite.  j2: j1 with
+                  --remat at batch 64.  j3: cli/train_retriever for one
+                  epoch of 256 synthetic rows (synth_doc_lens passages,
+                  hash tokenizer), then cli/train_momentum from its
+                  checkpoint_best.pt with the 76,800 x 768 queue over 64
+                  rows; the momentum checkpoint served through
+                  cli/common.init_retriever gives the trained encoder_q's
+                  vectors bit for bit.
   4. result  — one JSON line of kernel records, the card's name and power
                limit, and the final {"ok": true, ...} line.
 Exits with code 2 and no result when CUDA is not available.
@@ -164,6 +183,14 @@ H_ENGINES = (("h0", "mhop", 0.0, None), ("h1", "mhop", -0.5, None),
              ("h6", "unified", -0.9, 60))
 # leg i (the HNSW host tier): questions, graph parameters
 N_HNSW_Q, HNSW_M, HNSW_EF_C = 2 * B, 32, 200
+# leg j (retriever training): the reference's widths (q, q_sp, passages),
+# the train-step batches without and with remat (bench.py::_train_bench's
+# B=16), warm-up and timed steps, the CLIs' rows (stage 1, its dev file,
+# the momentum stage) and the momentum queue
+J_WIDTHS = (("q", 70), ("q_sp", 350), ("c1", 300), ("c2", 300),
+            ("neg1", 300), ("neg2", 300))
+J_B, J_REMAT_B, J_WARM, J_ITERS = 16, 64, 3, 10
+J_ROWS, J_DEV_ROWS, J_MOM_ROWS, J_QUEUE = 256, 64, 64, 76800
 # (what, B, Wq, W, dtype) of the kernel-8 checks; the first is the record
 ATTN_CASES = (("corpus square", C_BATCH, C_LEN, C_LEN, torch.bfloat16),
               ("corpus cls layer", C_BATCH, 1, C_LEN, torch.bfloat16),
@@ -1003,6 +1030,7 @@ def run_main_path(port, mips, dev, gen, smi, table_path=None, iters=50):
                                             dev, smi, tmp))
         launches.update(run_qa_serving(mips, dev, smi, tmp))
         launches.update(run_hnsw_tier(port, mips, dev, smi, tmp))
+    launches.update(run_training(port, mips, dev, smi))
     return launches
 
 
@@ -1365,6 +1393,267 @@ def run_hnsw_tier(port, mips, dev, smi, tmp):
         f"[{smi}]")
     assert recall >= 0.85, f"HNSW hop-1 recall@{B4} {recall} < 0.85"
     return {}
+
+
+# ---- leg j: retriever training ------------------------------------------------
+
+
+def train_batch(rng, b, full=True):
+    """A training batch at the reference widths (q 70, q_sp 350, c 300):
+    random ids in [5, VOCAB - 5), full masks as bench.py::_train_bench
+    makes them, or ragged lengths (at least 8 tokens, padded with 1)."""
+    out = {}
+    for name, width in J_WIDTHS:
+        lens = (np.full(b, width) if full
+                else rng.randint(8, width + 1, size=b))
+        mask = (np.arange(width)[None] < lens[:, None]).astype(np.int32)
+        ids = rng.randint(5, VOCAB - 5, size=(b, width))
+        out[f"{name}_input_ids"] = np.where(mask > 0, ids, 1).astype(np.int32)
+        out[f"{name}_mask"] = mask
+    return out
+
+
+def adam_bound(g, delta, p, lr, eps, tight=1e-3, steps=1):
+    """|Δparam| / lr allowed between two Adam runs of ``steps`` steps from
+    the same parameters ``p``, whose first clipped gradients ``g`` agree
+    to ``delta``: the first update g / (|g| + eps) moves by
+    2·eps·δ / (|g| + eps)², capped at 2.5 a step (a sign flip), plus
+    ``tight``, plus two fp32 ulps of ``p`` (the sum p + Δ rounds there:
+    0.012 lr for an N(0, 1) embedding at lr 2e-5).  numpy arrays or torch
+    tensors; the CPU parity tests and the card test hold the port to it
+    too."""
+    ulp = float(np.finfo(np.float32).eps) * abs(p) / lr
+    return (tight + 2 * eps * delta / (abs(g) + eps) ** 2).clip(
+        max=2.5 * steps) + 2 * ulp
+
+
+def check_train_step_on_card(T, models, cfgmod, dev, smi):
+    """j0: one train step on the card and one on the CPU from the same
+    weights and batch (2 layers at roberta-base width, fp32 compute, TF32
+    off): loss rel 1e-5; gradients within 1e-6 + 1e-4 of each tensor's
+    largest; parameters within ``adam_bound`` in units of lr."""
+    torch.manual_seed(0)
+    base = models.MhopRetriever(
+        cfgmod.EncoderConfig.roberta_base(num_layers=2, dtype="float32"),
+        cls_only=True, fp32_params=True)
+    tcfg = cfgmod.RetrieverTrainConfig(warmup_ratio=0.0)
+    batch = train_batch(np.random.RandomState(31), 4, full=False)
+    out = []
+    for d in (torch.device("cpu"), dev):
+        state = T.TrainState.create(
+            models.MhopRetriever(base.config, cls_only=True,
+                                 fp32_params=True).to(d),
+            T.make_optimizer(tcfg, 10))
+        state.model.load_state_dict(base.state_dict())
+        grads = {}
+        update = state.opt.update
+
+        def kept(state=state, update=update, grads=grads):
+            grads.update({n: p.grad.detach().cpu().clone()
+                          for n, p in state.model.named_parameters()})
+            return update()
+
+        state.opt.update = kept
+        t = time.perf_counter()
+        state, loss = T.make_train_step()(state, T.to_device(batch, d))
+        out.append((float(loss), grads,
+                    {k: v.cpu() for k, v in state.model.state_dict().items()},
+                    time.perf_counter() - t))
+    (lc, gc, pc, tc), (lg, gg, pg, tg) = out
+    assert abs(lg - lc) <= 1e-5 * abs(lc), (lg, lc)
+    lr, n_loose = tcfg.learning_rate, 0
+    # the worst share of each tolerance used, with its tensor
+    worst_g, worst_p = (0.0, ""), (0.0, "")
+    # Adam steps on the clipped gradients: its sensitivity is theirs
+    norm = torch.sqrt(sum((g.double() ** 2).sum() for g in gc.values()))
+    clip = min(1.0, tcfg.max_grad_norm / norm.item())
+    for name, g in gc.items():
+        tol = 1e-6 + 1e-4 * g.abs().max().item()
+        err = (gg[name] - g).abs().max().item()
+        assert err <= tol, (name, err, tol)
+        worst_g = max(worst_g, (err / tol, name))
+        diff = (pg[name] - pc[name]).abs() / lr
+        bound = adam_bound(g * clip, tol * clip, pc[name], lr,
+                           tcfg.adam_eps)
+        assert (diff <= bound).all(), (name, (diff - bound).max().item())
+        worst_p = max(worst_p, ((diff / bound).max().item(), name))
+        n_loose += int((diff > 1e-3).sum())
+    n = sum(v.numel() for v in pc.values())
+    c = base.config
+    widths = "/".join(str(w) for _, w in J_WIDTHS)
+    say(f"  leg j0 card vs CPU train step ({c.num_layers} x {c.hidden_size}, "
+        f"B=4 ragged at {widths}, fp32): loss {lg:.6f} vs {lc:.6f}; "
+        f"gradient norm {norm.item():.4g} (clip x{clip:.4g}); worst "
+        f"gradient error {worst_g[0]:.3f} of its tolerance ({worst_g[1]}); "
+        f"worst parameter {worst_p[0]:.3f} of its Adam bound "
+        f"({worst_p[1]}); {n_loose} of {n} elements beyond 1e-3 lr; CPU "
+        f"{tc:.2f} s, card {tg:.2f} s (first call) [{smi}]")
+
+
+def time_train_steps(T, models, cfgmod, dev, smi, what, b, remat):
+    """j1 / j2: roberta-base (12 x 768, bf16 compute, fp32 master weights
+    and Adam), B rows at the reference widths, Adam with the clip and the
+    warmup of RetrieverTrainConfig's defaults; CUDA events around each
+    step, the median of J_ITERS after J_WARM."""
+    torch.manual_seed(11)
+    model = models.MhopRetriever(cfgmod.EncoderConfig.roberta_base(),
+                                 cls_only=True, fp32_params=True,
+                                 remat=remat).to(dev)
+    state = T.TrainState.create(model, T.make_optimizer(
+        cfgmod.RetrieverTrainConfig(batch_size=b), 1000))
+    batch = T.to_device(train_batch(np.random.RandomState(11), b), dev)
+    step = T.make_train_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seen, events = [], []
+    for i in range(J_WARM + J_ITERS):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        state, loss = step(state, batch)
+        ev[1].record()
+        seen.append(loss)
+        if i >= J_WARM:
+            events.append(ev)
+    torch.cuda.synchronize()
+    ms = np.array([a.elapsed_time(e) for a, e in events])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _, _, kernels = device_kernels(lambda: step(state, batch))
+    losses = torch.stack(seen).float().cpu().numpy()
+    assert np.isfinite(losses).all(), f"{what}: non-finite losses {losses}"
+    med = float(np.median(ms))
+    busy = sum(t for t, _ in kernels)
+    gemm = sum(t for t, k in kernels if any(
+        m in k.lower() for m in ("gemm", "xmma", "cutlass", "nvjet")))
+    say(f"  leg {what} train step (roberta-base, bf16 compute, fp32 master "
+        f"weights, B={b}, remat={int(remat)}): {b / med * 1e3:.1f} "
+        f"examples/s, median {med:.2f} ms/step (min {ms.min():.2f}, max "
+        f"{ms.max():.2f}) over {J_ITERS} steps after {J_WARM}; peak "
+        f"allocated {peak:.2f} GiB; losses {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; one profiled step: device busy {busy:.2f} ms "
+        f"(matmuls {gemm:.2f}), idle share {idle_share(busy, med):.3f}, "
+        f"top kernels {[(round(t, 2), k[:48]) for t, k in kernels[:4]]} "
+        f"[{smi}]")
+    return {"examples_per_s": b / med * 1e3, "ms": med, "peak_gib": peak}
+
+
+def write_train_rows(path, rng, n):
+    """n multi-hop rows in data/mhop_dataset.py's format: a 6-20 word
+    question, bridge or comparison, two positives and four negatives, each
+    passage a two-word title and synth_doc_lens words (20-300)."""
+    vocab = np.array([f"w{i}" for i in range(1 << 16)])
+
+    def para():
+        words = vocab[rng.randint(len(vocab), size=synth_doc_lens(rng, 1)[0])]
+        return {"title": f"doc {rng.randint(1 << 30)}",
+                "text": " ".join(words)}
+
+    with open(path, "w") as f:
+        for i in range(n):
+            pos = [para(), para()]
+            q = " ".join(vocab[rng.randint(len(vocab),
+                                           size=rng.randint(6, 21))])
+            f.write(json.dumps({
+                "_id": f"q{i}", "question": q + "?",
+                "type": "bridge" if i % 2 else "comparison",
+                "pos_paras": pos, "neg_paras": [para() for _ in range(4)],
+                "bridge": pos[1]["title"]}) + "\n")
+
+
+def run_training_clis(cfgmod, dev, smi, tmp):
+    """j3: cli/train_retriever for one epoch of J_ROWS rows at roberta-base
+    (batch J_B, the reference widths, the defaults' lr, warmup and clip),
+    then cli/train_momentum from its checkpoint_best.pt with the reference
+    queue of J_QUEUE x 768 for one epoch of J_MOM_ROWS rows; the momentum
+    checkpoint, loaded through cli/common.init_retriever (bf16 serving
+    weights), must give the trainer's final encoder_q's vectors bit for
+    bit."""
+    from multihop_dense_retrieval_tpu_torch.cli import (common,
+                                                        train_momentum,
+                                                        train_retriever)
+
+    rng = np.random.RandomState(41)
+    for name, n in (("train", J_ROWS), ("dev", J_DEV_ROWS),
+                    ("momentum", J_MOM_ROWS)):
+        write_train_rows(f"{tmp}/{name}.jsonl", rng, n)
+    common_args = ["--tokenizer", "hash", "--model-name", "roberta-base",
+                   "--train-batch-size", str(J_B),
+                   "--predict-batch-size", str(J_DEV_ROWS),
+                   "--num-epochs", "1", "--predict-file", f"{tmp}/dev.jsonl"]
+    lines = _Lines()
+    logger = logging.getLogger("mdr_torch")
+    logger.addHandler(lines)
+    secs = []
+    try:
+        t = time.perf_counter()
+        res1, stage1 = train_retriever.main(common_args + [
+            "--train-file", f"{tmp}/train.jsonl", "--output-dir",
+            f"{tmp}/stage1"])
+        secs.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        res2, stage2 = train_momentum.main(common_args + [
+            "--train-file", f"{tmp}/momentum.jsonl", "--output-dir",
+            f"{tmp}/stage2", "--init-checkpoint",
+            f"{tmp}/stage1/checkpoint_best.pt", "--queue-size",
+            str(J_QUEUE)])
+        secs.append(time.perf_counter() - t)
+    finally:
+        logger.removeHandler(lines)
+    assert stage1.state.step == J_ROWS // J_B
+    assert stage2.state.step == J_MOM_ROWS // J_B
+    assert stage2.state.queue.shape == (J_QUEUE, D)
+    assert stage2.state.queue_ptr == 2 * J_B * stage2.state.step
+    for res in (res1, res2):
+        assert np.isfinite(res["final_loss"]) and res["best_mrr"] > 0, res
+    served = common.init_retriever(
+        cfgmod.EncoderConfig.roberta_base(),
+        checkpoint=f"{tmp}/stage2/checkpoint_last.pt", device=dev)
+    assert all(p.dtype == torch.bfloat16 for n, p in
+               served.encoder.named_parameters() if "dense" in n
+               or n.endswith(("query.weight", "key.weight", "value.weight")))
+    trained = stage2.state.model.eval()
+    rows = train_batch(np.random.RandomState(43), 8, full=False)
+    with torch.inference_mode():
+        for view in ("q", "q_sp", "c1"):
+            ids = torch.from_numpy(rows[f"{view}_input_ids"]).to(dev)
+            mask = torch.from_numpy(rows[f"{view}_mask"]).to(dev)
+            a = trained.encode_seq(ids, mask)
+            b = served.encode_seq(ids, mask)
+            assert torch.equal(a, b), \
+                f"{view}: served vectors differ by {(a - b).abs().max()}"
+    epochs = [x for x in lines.lines if x.startswith("epoch 0")]
+    say(f"  leg j3 training CLIs (roberta-base, hash tokenizer, widths "
+        f"70/350/300, batch {J_B}): train_retriever {J_ROWS} rows in "
+        f"{secs[0]:.1f} s (\"{epochs[0]}\"), train_momentum from its "
+        f"checkpoint_best.pt with a {J_QUEUE} x {D} queue, {J_MOM_ROWS} rows "
+        f"in {secs[1]:.1f} s (\"{epochs[1]}\"); the momentum checkpoint "
+        f"served by init_retriever equals the trained encoder_q bit for "
+        f"bit on 3 x 8 rows [{smi}]")
+    return secs
+
+
+def run_training(port, mips, dev, smi):
+    """Leg (j): retriever training, which launches none of the eight
+    kernels (the encoder trains on attention_impl="xla"; the loss is plain
+    matrix products)."""
+    from multihop_dense_retrieval_tpu_torch.train import trainer as T
+
+    cfgmod, models = port[0], port[3]
+    torch.cuda.empty_cache()
+    mips.reset_launch_counts()
+    check_train_step_on_card(T, models, cfgmod, dev, smi)
+    time_train_steps(T, models, cfgmod, dev, smi, "j1", J_B, remat=False)
+    torch.cuda.empty_cache()
+    time_train_steps(T, models, cfgmod, dev, smi, "j2", J_REMAT_B,
+                     remat=True)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        run_training_clis(cfgmod, dev, smi, tmp)
+    counts = leg_counts(mips)
+    launched = {k: n for k, n in counts.items() if k != "routes" and n}
+    assert not launched, f"kernels launched while training: {launched}"
+    say(f"  leg j launches: {json.dumps(counts)}")
+    return {"training": counts}
 
 
 def write_corpus(path, rng):

@@ -22,7 +22,7 @@ from typing import Optional
 import torch
 
 from ..core.config import EncoderConfig, default_hop2_tiling
-from ..core.device import resolve_device
+from ..core.device import process_index, resolve_device
 from ..data.tokenization import HashTokenizer, HFTokenizer
 from ..models import (MhopRetriever, QAReader, UnifiedRetriever,
                       unified_state_dict_from_reference)
@@ -54,10 +54,7 @@ def load_json_flex(path: str):
 def is_primary() -> bool:
     """True on the process that owns shared-filesystem writes: rank 0 of
     ``torch.distributed`` when it is initialised, else always."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank() == 0
-    return True
+    return process_index() == 0
 
 
 MODEL_PRESETS = {
@@ -249,15 +246,23 @@ def load_retriever_params(checkpoint: str):
 
 
 def init_retriever(config: EncoderConfig, *, unified: bool = False,
-                   checkpoint: str = "", seed: int = 0, device=None):
+                   checkpoint: str = "", seed: int = 0, device=None,
+                   fp32_params: bool = False, remat: bool = False):
     """The retriever in eval mode on ``device`` (``cuda`` unless named):
     loaded from ``checkpoint``, or random weights from ``seed`` without one
     (the caller's global RNG state is left as it was).  The last layer
-    computes the CLS position only (``cls_only``).  ``unified``: a
+    computes the CLS position only (``cls_only``; a loss reads only the
+    CLS vector, so training's gradients are the same).  ``unified``: a
     ``UnifiedRetriever``, whose head layout a reference checkpoint decides
     (``project`` only for roberta names, the stop head on the tanh
-    pooler); its seeded weights are made on the device itself."""
+    pooler); its seeded weights are made on the device itself.  The
+    training CLIs ask for ``fp32_params`` (fp32 master weights) and, for
+    the multi-hop retriever as in the JAX package, ``remat``, which the
+    UnifiedRetriever lacks: asking for both raises."""
     dev = resolve_device(device)
+    if unified and remat:
+        raise ValueError("remat is not supported for the unified retriever "
+                         "(UnifiedRetriever takes no remat)")
     if unified:
         sd, kw = None, {}
         if checkpoint:
@@ -268,13 +273,15 @@ def init_retriever(config: EncoderConfig, *, unified: bool = False,
         with torch.random.fork_rng(devices=devices):
             torch.manual_seed(seed)
             with dev:
-                model = UnifiedRetriever(config, cls_only=True, **kw)
+                model = UnifiedRetriever(config, cls_only=True,
+                                         fp32_params=fp32_params, **kw)
         if sd is not None:
             model.load_state_dict(sd)
         return model.eval()
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        model = MhopRetriever(config, cls_only=True)
+        model = MhopRetriever(config, cls_only=True, fp32_params=fp32_params,
+                              remat=remat)
     if checkpoint:
         model.load_state_dict(load_retriever_params(checkpoint))
     return model.to(dev).eval()

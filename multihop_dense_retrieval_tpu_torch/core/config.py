@@ -86,6 +86,32 @@ class EncoderConfig:
 
 
 @_frozen
+class RetrieverTrainConfig:
+    """Hyperparameters for contrastive retriever training (the reference
+    trainer's flags, scripts/train_mhop.py:125-190)."""
+
+    batch_size: int = 150
+    eval_batch_size: int = 256
+    learning_rate: float = 2e-5
+    weight_decay: float = 0.0
+    adam_eps: float = 1e-8
+    warmup_ratio: float = 0.1
+    max_grad_norm: float = 2.0
+    num_epochs: int = 50
+    gradient_accumulation: int = 1
+    seed: int = 3
+    max_q_len: int = 70
+    max_q_sp_len: int = 350
+    max_c_len: int = 300
+    # momentum / memory-bank stage (scripts/train_momentum.py)
+    momentum: bool = False
+    queue_size: int = 76800
+    momentum_m: float = 0.999
+    # unified variable-hop stage
+    unified: bool = False
+
+
+@_frozen
 class SearchConfig:
     """2-hop beam search settings; see the JAX package's SearchConfig for
     the measured rationale behind each default."""

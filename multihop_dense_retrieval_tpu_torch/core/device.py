@@ -23,3 +23,13 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "CUDA is not available; pass device='cpu' explicitly to run "
             "the plain PyTorch path")
     return dev
+
+
+def process_index() -> int:
+    """Rank of this process in ``torch.distributed`` when it is
+    initialised, else 0: the process that owns shared-filesystem writes is
+    rank 0."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return 0

@@ -101,15 +101,22 @@ def _tensors(out: StateDict) -> Dict[str, torch.Tensor]:
 
 
 def retriever_state_dict_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
-    """MhopRetriever or MultiVectorCtxEncoder Flax params (numpy leaves) →
-    the port's state dict (no ``project.*`` where the tree has no
-    projection head: ``MultiVectorCtxEncoder(project=False)``)."""
+    """MhopRetriever, MultiVectorCtxEncoder, SingleRetriever or NQRetriever
+    Flax params (numpy leaves) → the port's state dict (no ``project.*``
+    where the tree has no projection head: ``MultiVectorCtxEncoder(
+    project=False)``, ``NQRetriever(use_projection=False)``; the question
+    tower ``encoder_q`` / ``project_q`` of an unshared SingleRetriever)."""
     if "params" in params and "encoder" not in params:
         params = params["params"]
-    out = encoder_state_dict_from_jax(params["encoder"], prefix="encoder.")
-    if "project" in params:
-        _dense(out, "project.0", params["project"]["dense"])
-        _layer_norm(out, "project.1", params["project"]["layer_norm"])
+    out = {}
+    for tower in ("", "_q"):
+        if f"encoder{tower}" in params:
+            out.update(encoder_state_dict_from_jax(params[f"encoder{tower}"],
+                                                   prefix=f"encoder{tower}."))
+        if f"project{tower}" in params:
+            head = params[f"project{tower}"]
+            _dense(out, f"project{tower}.0", head["dense"])
+            _layer_norm(out, f"project{tower}.1", head["layer_norm"])
     return _tensors(out)
 
 

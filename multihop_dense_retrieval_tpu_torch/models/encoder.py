@@ -5,9 +5,11 @@ step, so a checkpoint gives the same vectors in both:
 
   * dense weights and biases are stored in ``config.dtype`` (Flax keeps
     them fp32 and rounds them to the compute dtype in every product, so a
-    checkpoint rounded once at load gives the same numbers); embeddings
-    and LayerNorm parameters stay fp32; activations run in
-    ``config.dtype``;
+    checkpoint rounded once at load gives the same numbers); with
+    ``fp32_params`` (training: fp32 master weights for the optimizer) they
+    stay fp32 and ``dense`` rounds them at use, as Flax does, a no-op for
+    weights already in the compute dtype; embeddings and LayerNorm
+    parameters stay fp32; activations run in ``config.dtype``;
   * each embedding lookup is cast to the compute dtype before
     ``word + pos + typ``;
   * RoBERTa position ids come from ``input_ids != pad_id`` (not the mask);
@@ -36,7 +38,10 @@ step, so a checkpoint gives the same vectors in both:
   * ``cls_only`` runs the last layer's queries and FFN for position 0;
     ``return_all_hiddens`` returns every layer's output (embeddings first)
     for the layerwise multi-vector encoder, and then runs the last layer
-    in full.
+    in full;
+  * ``remat`` recomputes each layer in the backward pass
+    (``torch.utils.checkpoint``, as ``nn.remat`` in JAX): less activation
+    memory for more FLOPs, the same numbers.
 
 Module and parameter names are those of HF RoBERTa/BERT, so a reference
 ``.pt`` loads with ``load_state_dict``; an HF pooler in the checkpoint is
@@ -49,6 +54,7 @@ import math
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.config import EncoderConfig
 from ..ops.fused_attention import fused_attention
@@ -77,8 +83,9 @@ def _act(name: str):
 
 def dense(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
     """Flax ``Dense(dtype=...)``: product in the compute dtype (that of
-    ``x`` and of the stored weights), then bias add."""
-    return torch.matmul(x, lin.weight.t()) + lin.bias
+    ``x``; the weights are rounded to it, a no-op where they are stored
+    in it), then bias add."""
+    return torch.matmul(x, lin.weight.to(x.dtype).t()) + lin.bias.to(x.dtype)
 
 
 def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
@@ -106,10 +113,13 @@ class Embeddings(nn.Module):
         self.dtype = c.torch_dtype
 
     def forward(self, input_ids, token_type_ids, position_ids):
+        # F.embedding rather than indexing: the same rows, and a backward
+        # that sums each row's gradient in a fixed order on the CPU
         dt = self.dtype
-        word = self.word_embeddings.weight[input_ids].to(dt)
-        pos = self.position_embeddings.weight[position_ids].to(dt)
-        typ = self.token_type_embeddings.weight[token_type_ids].to(dt)
+        emb = nn.functional.embedding
+        word = emb(input_ids, self.word_embeddings.weight).to(dt)
+        pos = emb(position_ids, self.position_embeddings.weight).to(dt)
+        typ = emb(token_type_ids, self.token_type_embeddings.weight).to(dt)
         return layer_norm(word + pos + typ, self.LayerNorm).to(dt)
 
 
@@ -219,7 +229,8 @@ class TransformerEncoder(nn.Module):
     every layer's hidden state, the embeddings' output first."""
 
     def __init__(self, config: EncoderConfig, cls_only: bool = False,
-                 return_all_hiddens: bool = False):
+                 return_all_hiddens: bool = False, fp32_params: bool = False,
+                 remat: bool = False):
         super().__init__()
         if config.attention_impl not in ("xla", "fused", "flash"):
             raise NotImplementedError(
@@ -228,6 +239,7 @@ class TransformerEncoder(nn.Module):
         self.config = config
         self.cls_only = cls_only
         self.return_all_hiddens = return_all_hiddens
+        self.remat = remat
         self.embeddings = Embeddings(config)
         # HF ELECTRA keeps the projection beside the embeddings, at the
         # model's top level
@@ -236,9 +248,10 @@ class TransformerEncoder(nn.Module):
             self.embeddings_project = nn.Linear(config.embedding_size,
                                                 config.hidden_size)
         self.encoder = LayerStack(config)
-        for mod in self.modules():
-            if isinstance(mod, nn.Linear):
-                mod.to(config.torch_dtype)
+        if not fp32_params:
+            for mod in self.modules():
+                if isinstance(mod, nn.Linear):
+                    mod.to(config.torch_dtype)
         self._register_load_state_dict_pre_hook(_drop_unused_keys,
                                                  with_module=True)
 
@@ -264,7 +277,11 @@ class TransformerEncoder(nn.Module):
             last = i == len(layers) - 1
             qp = 1 if (self.cls_only and last
                        and not self.return_all_hiddens) else None
-            x = layer(x, attn_bias, attention_mask, q_positions=qp)
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(layer, x, attn_bias, attention_mask, qp,
+                               use_reentrant=False)
+            else:
+                x = layer(x, attn_bias, attention_mask, q_positions=qp)
             if self.return_all_hiddens:
                 hiddens.append(x)
         return hiddens if self.return_all_hiddens else x

@@ -1,6 +1,12 @@
 """The multi-hop bi-encoder retriever (shared encoder + projection head),
-the variable-hop retriever with a stop head, and the multi-vector corpus
-encoder.
+the variable-hop retriever with a stop head, the single-hop and NQ
+retrievers that the trainer drives, and the multi-vector corpus encoder.
+
+``forward(batch)`` of each retriever encodes a training batch's views (the
+JAX modules' ``__call__``); ``encode_seq`` is the one-view entry point
+that search and corpus encoding use.  ``fp32_params`` keeps the encoder's
+dense weights fp32 (the trainer's master weights); ``remat`` recomputes
+each encoder layer in the backward pass.
 
 Parameter names match the reference's RobertaRetriever state dict:
 ``encoder.*`` (an HF RoBERTa/BERT model), ``project.0`` (Linear) and
@@ -12,6 +18,8 @@ these names).
 """
 
 from __future__ import annotations
+
+from typing import Dict
 
 import torch
 import torch.nn as nn
@@ -33,21 +41,74 @@ class ProjectionHead(nn.Sequential):
         return layer_norm(x, ln)
 
 
+def _view(encode, batch, pref):
+    return encode(batch[f"{pref}input_ids"], batch[f"{pref}mask"],
+                  batch.get(f"{pref}type_ids"))
+
+
 class MhopRetriever(nn.Module):
     """Shared encoder for questions, question⊕passage rows and passages;
-    ``encode_seq`` is the entry point search uses (fp32 vectors out)."""
+    ``encode_seq`` is the entry point search uses (fp32 vectors out),
+    ``forward`` encodes the six views of a training batch."""
 
-    def __init__(self, config: EncoderConfig, cls_only: bool = False):
+    def __init__(self, config: EncoderConfig, cls_only: bool = False,
+                 fp32_params: bool = False, remat: bool = False):
         super().__init__()
         self.config = config
-        self.encoder = TransformerEncoder(config, cls_only=cls_only)
+        self.encoder = TransformerEncoder(config, cls_only=cls_only,
+                                          fp32_params=fp32_params,
+                                          remat=remat)
         self.project = ProjectionHead(config)
 
     def encode_seq(self, input_ids, mask, token_type_ids=None):
         hidden = self.encoder(input_ids, mask, token_type_ids)
         return self.project(hidden[:, 0, :])
 
-    forward = encode_seq
+    encode_q = encode_seq
+
+    def forward(self, batch: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        enc = self.encode_seq
+        return {"q": _view(enc, batch, "q_"),
+                "q_sp1": _view(enc, batch, "q_sp_"),
+                "c1": _view(enc, batch, "c1_"),
+                "c2": _view(enc, batch, "c2_"),
+                "neg_1": _view(enc, batch, "neg1_"),
+                "neg_2": _view(enc, batch, "neg2_")}
+
+
+class SingleRetriever(nn.Module):
+    """Single-hop DPR-style bi-encoder (the JAX package's
+    ``SingleRetriever``): ``shared=True`` one tower, ``shared=False``
+    separate question (``encoder_q``, ``project_q``) and passage towers."""
+
+    def __init__(self, config: EncoderConfig, shared: bool = True,
+                 fp32_params: bool = False):
+        super().__init__()
+        self.config = config
+        self.shared = shared
+        self.encoder = TransformerEncoder(config, fp32_params=fp32_params)
+        self.project = ProjectionHead(config)
+        if not shared:
+            self.encoder_q = TransformerEncoder(config,
+                                                fp32_params=fp32_params)
+            self.project_q = ProjectionHead(config)
+
+    def encode_ctx(self, input_ids, mask, token_type_ids=None):
+        hidden = self.encoder(input_ids, mask, token_type_ids)
+        return self.project(hidden[:, 0, :])
+
+    def encode_q(self, input_ids, mask, token_type_ids=None):
+        if self.shared:
+            return self.encode_ctx(input_ids, mask, token_type_ids)
+        hidden = self.encoder_q(input_ids, mask, token_type_ids)
+        return self.project_q(hidden[:, 0, :])
+
+    def forward(self, batch: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        return {"q": _view(self.encode_q, batch, "q_"),
+                "c": _view(self.encode_ctx, batch, "c_"),
+                "neg": _view(self.encode_ctx, batch, "neg_")}
 
 
 class UnifiedRetriever(nn.Module):
@@ -63,12 +124,14 @@ class UnifiedRetriever(nn.Module):
     of the stop logits is "stop"."""
 
     def __init__(self, config: EncoderConfig, use_projection: bool = True,
-                 stop_on_pooled: bool = False, cls_only: bool = False):
+                 stop_on_pooled: bool = False, cls_only: bool = False,
+                 fp32_params: bool = False):
         super().__init__()
         self.config = config
         self.use_projection = use_projection
         self.stop_on_pooled = stop_on_pooled
-        self.encoder = TransformerEncoder(config, cls_only=cls_only)
+        self.encoder = TransformerEncoder(config, cls_only=cls_only,
+                                          fp32_params=fp32_params)
         if use_projection:
             self.project = ProjectionHead(config)
         self.stop_head = nn.Linear(config.hidden_size, 2)
@@ -93,8 +156,53 @@ class UnifiedRetriever(nn.Module):
             + self.stop_head.bias
         return self._vec(cls), logits
 
-    forward = encode_seq
     encode_q = encode_seq
+
+    def forward(self, batch: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        q_sp1, stop_logits = _view(self.encode_qsp, batch, "q_sp_")
+        enc = self.encode_seq
+        return {"q": _view(enc, batch, "q_"), "q_sp1": q_sp1,
+                "stop_logits": stop_logits,
+                "c1": _view(enc, batch, "c1_"),
+                "c2": _view(enc, batch, "c2_"),
+                "neg_1": _view(enc, batch, "neg1_"),
+                "neg_2": _view(enc, batch, "neg2_")}
+
+
+class NQRetriever(nn.Module):
+    """NQ/WebQ single-hop retriever with the error-recovery view (the JAX
+    package's ``NQRetriever``): ``q_neg1`` re-encodes question ⊕ a wrongly
+    retrieved passage as a second-chance query.  Without
+    ``use_projection`` the vector is the raw CLS state in fp32, as the
+    reference's RobertaNQRetriever returns it, and the module has no
+    projection head (the JAX module creates none it never calls)."""
+
+    def __init__(self, config: EncoderConfig, use_projection: bool = False,
+                 fp32_params: bool = False):
+        super().__init__()
+        self.config = config
+        self.use_projection = use_projection
+        self.encoder = TransformerEncoder(config, fp32_params=fp32_params)
+        if use_projection:
+            self.project = ProjectionHead(config)
+
+    def encode_seq(self, input_ids, mask, token_type_ids=None):
+        cls = self.encoder(input_ids, mask, token_type_ids)[:, 0, :]
+        return self.project(cls) if self.use_projection else cls.float()
+
+    encode_q = encode_seq
+
+    def forward(self, batch: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        enc = self.encode_seq
+        out = {"q": _view(enc, batch, "q_"), "c": _view(enc, batch, "c_"),
+               "neg": _view(enc, batch, "neg_"),
+               "q_neg1": _view(enc, batch, "q_neg1_")}
+        if "dense_neg1_input_ids" in batch:
+            out["dense_neg1"] = _view(enc, batch, "dense_neg1_")
+            out["dense_neg2"] = _view(enc, batch, "dense_neg2_")
+        return out
 
 
 class MultiVectorCtxEncoder(nn.Module):

@@ -1,0 +1,673 @@
+"""Retriever training: the optimizer, the train states, the step functions
+and the epoch loop (the JAX package's ``train/trainer.py``).
+
+  * The optimizer is the JAX package's optax chain, algebra for algebra:
+    a global-norm clip (optax's rule: ``(g / norm) * max_norm`` only when
+    ``norm >= max_norm``), coupled weight decay on every parameter but
+    biases and LayerNorm parameters, Adam (eps after the bias correction)
+    and a linear warmup + linear decay schedule that gives lr 0 at the
+    first update when there is a warmup.  ``gradient_accumulation = k``
+    is ``optax.MultiSteps``: the running mean of k micro-batch gradients,
+    one optimizer step per k calls, the schedule counting optimizer steps.
+  * A train state holds the model, whose fp32 parameters are the master
+    weights (the encoder computes in ``config.dtype``), the optimizer
+    state and the step count.  ``MomentumTrainState`` adds the frozen key
+    encoder (a deep copy, run under ``torch.no_grad``) and the (K, h)
+    queue with its pointer; ``TokenQueueTrainState`` a queue of token
+    rows that the current encoder re-encodes every step.
+  * A step is a plain function ``step(state, batch) -> (state, loss)``
+    that updates the state in place; the loss stays on the device.
+  * ``RetrieverTrainer.run`` is the epoch loop: in-batch MRR after every
+    epoch, ``checkpoint_last.pt`` / ``checkpoint_best.pt`` as state dicts
+    in the reference layout (the serving CLIs' ``--checkpoint`` reads
+    them), and a full-state save after every epoch for a preemption
+    resume.
+
+The encoder must run ``attention_impl="xla"`` (or ``"flash"``, the same
+path): kernel 8 (``"fused"``) has no backward, and ``jax.grad`` through
+the JAX package's Pallas kernel raises as well.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from ..core.config import RetrieverTrainConfig
+from ..models.retriever import UnifiedRetriever
+from . import losses
+
+
+# --------------------------------------------------------------------------
+# Optimizer
+# --------------------------------------------------------------------------
+
+
+def no_decay_names(model: nn.Module):
+    """Names of the parameters that get no weight decay: every bias and
+    every LayerNorm parameter (the reference's no-decay group)."""
+    out = set()
+    for mod_name, mod in model.named_modules():
+        for name, _ in mod.named_parameters(recurse=False):
+            if name == "bias" or isinstance(mod, nn.LayerNorm):
+                out.add(f"{mod_name}.{name}" if mod_name else name)
+    return out
+
+
+def _linear(init: float, end: float, steps: int, count: int) -> float:
+    """``optax.linear_schedule(init, end, steps)(count)``, in fp32 as optax
+    computes it."""
+    c = np.float32(min(max(count, 0), steps))
+    frac = np.float32(1) - c / np.float32(steps)
+    return float(np.float32(init - end) * frac + np.float32(end))
+
+
+def linear_warmup_schedule(lr: float, warmup_steps: int, total_steps: int
+                           ) -> Callable[[int], float]:
+    """count (optimizer updates so far) -> learning rate."""
+    if warmup_steps <= 0:
+        total = max(total_steps, 1)
+        return lambda count: _linear(lr, 0.0, total, count)
+    decay = max(total_steps - warmup_steps, 1)
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:
+            return _linear(0.0, lr, warmup_steps, count)
+        return _linear(lr, 0.0, decay, count - warmup_steps)
+
+    return schedule
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads, max_norm: float) -> torch.Tensor:
+    """optax's ``clip_by_global_norm``, in place, without a host sync:
+    every gradient becomes ``(g / norm) * max_norm`` when the global norm
+    is >= ``max_norm`` and stays as it is below.  Returns the norm."""
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    keep = norm < max_norm
+    torch._foreach_div_(grads, torch.where(keep, 1.0, norm))
+    torch._foreach_mul_(grads, torch.where(keep, 1.0, max_norm))
+    return norm
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    """The optimizer's hyperparameters (the optax chain, before ``init``)."""
+
+    cfg: RetrieverTrainConfig
+    total_steps: int
+
+    @property
+    def schedule(self) -> Callable[[int], float]:
+        cfg = self.cfg
+        return linear_warmup_schedule(
+            cfg.learning_rate, int(self.total_steps * cfg.warmup_ratio),
+            self.total_steps)
+
+    def init(self, model: nn.Module) -> "OptState":
+        return OptState(self, model)
+
+
+class OptState:
+    """Adam over a model's trainable parameters in two groups (coupled
+    decay, no decay), the schedule as a ``LambdaLR`` stepped after every
+    update, and the gradient accumulator."""
+
+    def __init__(self, tx: Optimizer, model: nn.Module):
+        cfg = tx.cfg
+        skip = no_decay_names(model)
+        named = [(n, p) for n, p in model.named_parameters()
+                 if p.requires_grad]
+        self.params = [p for _, p in named]
+        groups = [{"params": [p for n, p in named if n not in skip],
+                   "weight_decay": cfg.weight_decay},
+                  {"params": [p for n, p in named if n in skip],
+                   "weight_decay": 0.0}]
+        # lr 1.0 times the schedule's value: the group's lr IS the schedule
+        self.adam = torch.optim.Adam(groups, lr=1.0, betas=(0.9, 0.999),
+                                     eps=cfg.adam_eps)
+        self.sched = torch.optim.lr_scheduler.LambdaLR(self.adam, tx.schedule)
+        self.max_grad_norm = cfg.max_grad_norm
+        self.k = max(cfg.gradient_accumulation, 1)
+        self.mini_step = 0
+        self.acc = None
+
+    @property
+    def count(self) -> int:
+        """Optimizer updates so far."""
+        return self.sched.last_epoch
+
+    def update(self) -> bool:
+        """Consume the gradients in the parameters' ``.grad``; returns
+        whether the parameters moved (False on a non-final micro-step)."""
+        for p in self.params:
+            if p.grad is None:        # a parameter the loss never reached
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self.params]
+        if self.k > 1:
+            if self.acc is None:
+                self.acc = [torch.zeros_like(g) for g in grads]
+            n = self.mini_step
+            for a, g in zip(self.acc, grads):
+                a.copy_(a + (g - a) / (n + 1))
+            self.mini_step = (n + 1) % self.k
+            if self.mini_step:
+                self.adam.zero_grad(set_to_none=True)
+                return False
+            for g, a in zip(grads, self.acc):
+                g.copy_(a)
+                a.zero_()
+        clip_by_global_norm(grads, self.max_grad_norm)
+        self.adam.step()
+        self.sched.step()
+        self.adam.zero_grad(set_to_none=True)
+        return True
+
+    def state_dict(self) -> Dict:
+        return {"adam": self.adam.state_dict(),
+                "sched": self.sched.state_dict(),
+                "mini_step": self.mini_step,
+                "acc": self.acc if self.acc is not None else []}
+
+    def load_state_dict(self, sd: Dict):
+        self.adam.load_state_dict(sd["adam"])
+        self.sched.load_state_dict(sd["sched"])
+        self.mini_step = int(sd["mini_step"])
+        self.acc = [a.to(p.device) for a, p in zip(sd["acc"], self.params)] \
+            or None
+
+
+def make_optimizer(cfg: RetrieverTrainConfig, total_steps: int) -> Optimizer:
+    return Optimizer(cfg, total_steps)
+
+
+# --------------------------------------------------------------------------
+# Train states
+# --------------------------------------------------------------------------
+
+
+def _check_trainable(model: nn.Module):
+    if model.config.attention_impl == "fused":
+        raise ValueError(
+            "attention_impl='fused' cannot be trained: kernel 8 has no "
+            "backward (the JAX package's Pallas kernel has none either, and "
+            "jax.grad through it raises); train with attention_impl='xla'")
+
+
+def _device(model: nn.Module) -> torch.device:
+    return next(model.parameters()).device
+
+
+class TrainState:
+    """The model (its parameters are the trained state), the optimizer
+    state and the step count."""
+
+    def __init__(self, model: nn.Module, opt: OptState):
+        self.model = model
+        self.opt = opt
+        self.step = 0
+
+    @classmethod
+    def create(cls, model: nn.Module, tx: Optimizer) -> "TrainState":
+        _check_trainable(model)
+        return cls(model, tx.init(model))
+
+    def state_dict(self) -> Dict:
+        return {"params": self.model.state_dict(),
+                "opt_state": self.opt.state_dict(), "step": self.step}
+
+    def load_state_dict(self, sd: Dict):
+        self.model.load_state_dict(sd["params"])
+        self.opt.load_state_dict(sd["opt_state"])
+        self.step = int(sd["step"])
+
+
+def _frozen_copy(model: nn.Module) -> nn.Module:
+    model_k = copy.deepcopy(model).eval()
+    model_k.requires_grad_(False)
+    return model_k
+
+
+class MomentumTrainState(TrainState):
+    """``model`` is encoder_q (trained); ``model_k`` is encoder_k (a frozen
+    copy, or an EMA of encoder_q); ``queue`` the (K, h) memory bank.  The
+    queue starts as N(0, 1) draws from a ``torch.Generator`` seeded with
+    ``seed`` on the model's device (the JAX package draws it with
+    ``jax.random``, which torch cannot reproduce)."""
+
+    def __init__(self, model, opt, model_k, queue, queue_ptr=0):
+        super().__init__(model, opt)
+        self.model_k = model_k
+        self.queue = queue
+        self.queue_ptr = queue_ptr
+
+    @classmethod
+    def create(cls, model, tx, queue_size: int, hidden: int, seed: int = 0
+               ) -> "MomentumTrainState":
+        _check_trainable(model)
+        dev = _device(model)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        queue = torch.randn((queue_size, hidden), generator=gen, device=dev,
+                            dtype=torch.float32)
+        return cls(model, tx.init(model), _frozen_copy(model), queue)
+
+    def state_dict(self) -> Dict:
+        return dict(super().state_dict(), params_k=self.model_k.state_dict(),
+                    queue=self.queue, queue_ptr=self.queue_ptr)
+
+    def load_state_dict(self, sd: Dict):
+        super().load_state_dict(sd)
+        self.model_k.load_state_dict(sd["params_k"])
+        self.queue.copy_(sd["queue"])
+        self.queue_ptr = int(sd["queue_ptr"])
+
+
+class TokenQueueTrainState(TrainState):
+    """Single-hop momentum state: a memory bank of raw TOKEN rows that the
+    CURRENT encoder re-encodes every step (the reference's
+    MomentumRetriever), so its vectors never go stale.  Slots start as
+    empty-but-valid ``[CLS][SEP]`` rows (an all-zero mask would be a
+    softmax over nothing)."""
+
+    def __init__(self, model, opt, queue_ids, queue_mask, queue_type,
+                 queue_ptr=0):
+        super().__init__(model, opt)
+        self.queue_ids = queue_ids
+        self.queue_mask = queue_mask
+        self.queue_type = queue_type
+        self.queue_ptr = queue_ptr
+
+    @classmethod
+    def create(cls, model, tx, queue_size: int, max_c_len: int,
+               cls_id: int = 101, sep_id: int = 102
+               ) -> "TokenQueueTrainState":
+        _check_trainable(model)
+        dev = _device(model)
+        ids = torch.zeros((queue_size, max_c_len), dtype=torch.int32,
+                          device=dev)
+        ids[:, 0], ids[:, 1] = cls_id, sep_id
+        mask = torch.zeros_like(ids)
+        mask[:, :2] = 1
+        return cls(model, tx.init(model), ids, mask, torch.zeros_like(ids))
+
+    def state_dict(self) -> Dict:
+        return dict(super().state_dict(), queue_ids=self.queue_ids,
+                    queue_mask=self.queue_mask, queue_type=self.queue_type,
+                    queue_ptr=self.queue_ptr)
+
+    def load_state_dict(self, sd: Dict):
+        super().load_state_dict(sd)
+        for name in ("queue_ids", "queue_mask", "queue_type"):
+            getattr(self, name).copy_(sd[name])
+        self.queue_ptr = int(sd["queue_ptr"])
+
+
+def _enqueue_tokens(state: TokenQueueTrainState, ids, mask, type_ids):
+    """Write the batch's context token rows into the queue at its pointer
+    (wrapping, as ``losses.enqueue``), cut or zero-padded to the queue's
+    width.  A batch larger than the queue keeps its LAST K rows."""
+    K, L = state.queue_ids.shape
+    if ids.shape[0] > K:
+        ids, mask, type_ids = ids[-K:], mask[-K:], type_ids[-K:]
+    n, lb = ids.shape
+
+    def fit(x):
+        x = x.to(state.queue_ids.dtype)
+        return x[:, :L] if lb >= L else nn.functional.pad(x, (0, L - lb))
+
+    idx = (state.queue_ptr + torch.arange(n, device=ids.device)) % K
+    state.queue_ids[idx] = fit(ids)
+    state.queue_mask[idx] = fit(mask)
+    state.queue_type[idx] = fit(type_ids)
+    state.queue_ptr = (state.queue_ptr + n) % K
+    return state
+
+
+# --------------------------------------------------------------------------
+# Steps
+# --------------------------------------------------------------------------
+
+
+def to_device(batch: Dict, dev: torch.device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(v).to(dev, non_blocking=True)
+            for k, v in batch.items()}
+
+
+def _apply(state: TrainState, loss: torch.Tensor):
+    loss.backward()
+    state.opt.update()
+    state.step += 1
+    return loss.detach()
+
+
+def make_train_step(*, unified: bool = False, task: str = None) -> Callable:
+    """Returns ``step(state, batch) -> (state, loss)``.
+
+    task: "mhop" (default) | "unified" | "single" (DPR) | "nq" (the
+    error-recovery variants)."""
+    task = task or ("unified" if unified else "mhop")
+
+    def loss_fn(model, batch):
+        outputs = model(batch)
+        if task == "unified":
+            return losses.unified_loss(outputs, batch["stop_targets"])
+        if task == "single":
+            return losses.single_loss(outputs)
+        if task == "nq":
+            return losses.nq_mhop_loss(outputs)
+        return losses.mhop_loss(outputs)
+
+    def step(state: TrainState, batch):
+        return state, _apply(state, loss_fn(state.model, batch))
+
+    return step
+
+
+def _encode(model, batch, keys):
+    return {name: model.encode_seq(batch[f"{pref}input_ids"],
+                                   batch[f"{pref}mask"])
+            for name, pref in keys}
+
+
+def make_momentum_train_step(*, enable_ema: bool = False,
+                             momentum_m: float = 0.999,
+                             task: str = "mhop") -> Callable:
+    """Stage-2 memory-bank step.  The queue scores use the PRE-update
+    queue; the batch's context vectors (from the key encoder) are enqueued
+    after the optimizer step.  ``enable_ema=False`` matches the shipped
+    reference (a frozen key encoder).
+
+    task="nq" is the BertNQMomentumRetriever composition: queries (q,
+    q_neg1) through the trained encoder, contexts (c, neg) through the key
+    encoder, queue negatives in the recovery loss; the model is then an
+    NQRetriever."""
+    if task == "nq":
+        q_keys = [("q", "q_"), ("q_neg1", "q_neg1_")]
+        ctx_keys = [("c", "c_"), ("neg", "neg_")]
+        loss_of = losses.nq_mhop_loss
+        def enqueue_of(ctx):
+            return ctx["c"]
+    else:
+        q_keys = [("q", "q_"), ("q_sp1", "q_sp_")]
+        ctx_keys = [("c1", "c1_"), ("c2", "c2_"), ("neg_1", "neg1_"),
+                    ("neg_2", "neg2_")]
+        loss_of = losses.mhop_loss
+        def enqueue_of(ctx):
+            return torch.cat([ctx["c1"], ctx["c2"]])
+
+    def step(state: MomentumTrainState, batch):
+        with torch.no_grad():
+            ctx = _encode(state.model_k, batch, ctx_keys)
+        outputs = dict(ctx)
+        outputs.update(_encode(state.model, batch, q_keys))
+        loss = _apply(state, loss_of(outputs, queue=state.queue))
+        state.queue, state.queue_ptr = losses.enqueue(
+            state.queue, state.queue_ptr, enqueue_of(ctx))
+        if enable_ema:
+            losses.momentum_update(state.model, state.model_k, momentum_m)
+        return state, loss
+
+    return step
+
+
+def make_single_momentum_train_step() -> Callable:
+    """Single-hop momentum step: the token queue is re-encoded with the
+    current encoder (no gradient), its vectors are appended as extra
+    negatives, and the batch's context TOKENS are enqueued after the
+    update.  The model is a SingleRetriever."""
+
+    def step(state: TokenQueueTrainState, batch):
+        outputs = state.model(batch)
+        with torch.no_grad():
+            queue_c = state.model.encode_ctx(state.queue_ids, state.queue_mask,
+                                             state.queue_type)
+        loss = _apply(state, losses.single_loss(outputs, queue_c=queue_c))
+        tt = batch.get("c_type_ids")
+        if tt is None:
+            tt = torch.zeros_like(batch["c_input_ids"])
+        _enqueue_tokens(state, batch["c_input_ids"], batch["c_mask"], tt)
+        return state, loss
+
+    return step
+
+
+def make_momentum_eval_step() -> Callable:
+    """Momentum-stage eval: queries via encoder_q, contexts via encoder_k
+    (the reference's eval-mode forward)."""
+
+    @torch.no_grad()
+    def step(model_q, model_k, batch):
+        outputs = {}
+        for name, pref, model in (
+                ("q", "q_", model_q), ("q_sp1", "q_sp_", model_q),
+                ("c1", "c1_", model_k), ("c2", "c2_", model_k),
+                ("neg_1", "neg1_", model_k), ("neg_2", "neg2_", model_k)):
+            outputs[name] = model.encode_seq(batch[f"{pref}input_ids"],
+                                             batch[f"{pref}mask"])
+        return losses.mhop_eval(outputs)
+
+    return step
+
+
+def make_eval_step(*, unified: bool = False, task: str = None) -> Callable:
+    """Returns ``step(model, batch)`` -> per-sample reciprocal ranks."""
+    task = task or ("unified" if unified else "mhop")
+
+    @torch.no_grad()
+    def step(model, batch):
+        outputs = model(batch)
+        if task == "unified":
+            return losses.unified_eval(outputs, batch["stop_targets"])
+        if task == "single":
+            rrs = losses.single_eval(outputs)["rrs"]
+            return {"rrs_1": rrs, "rrs_2": rrs}
+        return losses.mhop_eval(outputs)
+
+    return step
+
+
+# --------------------------------------------------------------------------
+# Loop
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class EpochStats:
+    train_loss: float
+    mrr_1: float
+    mrr_2: float
+
+    @property
+    def mrr_avg(self):
+        return (self.mrr_1 + self.mrr_2) / 2
+
+
+def evaluate_mrr(eval_step, model, loader) -> Dict[str, float]:
+    """In-batch MRR over an eval loader.  The padded rows of the last
+    batch (``valid`` False) are dropped.  Unified task: single-hop rows
+    carry a random negative as their unused c2, so mrr_2 averages the
+    multi-hop rows only (``is_mhop``); the stop head's accuracy is
+    reported too."""
+    dev = _device(model)
+    rrs1, rrs2, stop_accs = [], [], []
+    for batch in loader:
+        valid = batch.pop("valid", None)
+        out = {k: v.cpu().numpy()
+               for k, v in eval_step(model, to_device(batch, dev)).items()}
+        r1, r2 = out["rrs_1"], out["rrs_2"]
+        mhop = out.get("is_mhop", np.ones_like(r1, bool))
+        sacc = out.get("stop_acc")
+        if valid is not None:
+            r1, r2, mhop = r1[valid], r2[valid], mhop[valid]
+            sacc = None if sacc is None else sacc[valid]
+        rrs1.extend(r1.tolist())
+        rrs2.extend(r2[mhop].tolist())
+        if sacc is not None:
+            stop_accs.extend(sacc.tolist())
+    mrr_1 = float(np.mean(rrs1)) if rrs1 else 0.0
+    mrr_2 = float(np.mean(rrs2)) if rrs2 else 0.0
+    out = {"mrr_1": mrr_1, "mrr_2": mrr_2, "mrr_avg": (mrr_1 + mrr_2) / 2}
+    if stop_accs:
+        out["stop_acc"] = float(np.mean(stop_accs))
+    return out
+
+
+def reference_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The model's parameters under the reference checkpoint's names, as
+    ``cli/common.init_retriever`` (and the JAX package's) read them: the
+    retriever's own names, except that a UnifiedRetriever keeps its
+    transformer under ``encoder_c.``, its stop head as ``stop`` and its
+    tanh pooler as ``encoder_c.pooler.dense``."""
+    sd = model.state_dict()
+    if not isinstance(model, UnifiedRetriever):
+        return sd
+    renames = (("encoder.", "encoder_c."), ("stop_head.", "stop."),
+               ("pooler.", "encoder_c.pooler.dense."))
+    out = {}
+    for key, val in sd.items():
+        for old, new in renames:
+            if key.startswith(old):
+                key = new + key[len(old):]
+                break
+        out[key] = val
+    return out
+
+
+class RetrieverTrainer:
+    """Epoch loop with an eval after every epoch and best-checkpoint
+    tracking; the steps are the functions above, this class sequences them
+    and talks to the host (loader, logging, checkpoint files).
+
+    With ``cfg.momentum`` this is the stage-2 memory-bank trainer: the
+    state carries encoder_k and the queue, and only encoder_q is written
+    to ``checkpoint_*.pt``.  The model trains on the device its
+    parameters are on."""
+
+    def __init__(self, model: nn.Module, cfg: RetrieverTrainConfig,
+                 train_loader, eval_loader, *,
+                 total_steps: Optional[int] = None,
+                 output_dir: Optional[str] = None, log_fn=print,
+                 hidden_size: Optional[int] = None, enable_ema: bool = False):
+        from ..core import checkpoint as ckpt
+
+        self.cfg = cfg
+        self.train_loader = train_loader
+        self.eval_loader = eval_loader
+        self.output_dir = output_dir
+        self.log = log_fn
+        self._ckpt = ckpt
+        self.device = _device(model)
+        # optimizer steps, not micro-batches
+        total = total_steps or (len(train_loader) * cfg.num_epochs
+                                // max(cfg.gradient_accumulation, 1))
+        self.tx = make_optimizer(cfg, total)
+        if cfg.momentum and cfg.unified:
+            raise ValueError("momentum training drives the mhop contrastive "
+                             "loss; unified (stop-head) training has no "
+                             "momentum variant — pick one (the reference "
+                             "has no such combination either)")
+        if cfg.momentum:
+            hidden = hidden_size or model.config.hidden_size
+            self.state = MomentumTrainState.create(
+                model, self.tx, queue_size=cfg.queue_size, hidden=hidden,
+                seed=cfg.seed)
+            self.train_step = make_momentum_train_step(
+                enable_ema=enable_ema, momentum_m=cfg.momentum_m)
+            mstep = make_momentum_eval_step()
+            self.eval_step = lambda model, batch: mstep(
+                model, self.state.model_k, batch)
+        else:
+            self.state = TrainState.create(model, self.tx)
+            self.train_step = make_train_step(unified=cfg.unified)
+            self.eval_step = make_eval_step(unified=cfg.unified)
+        self.best_mrr = 0.0
+
+    def _save_model(self, name: str):
+        self._ckpt.save_pytree(f"{self.output_dir}/{name}.pt",
+                               reference_state_dict(self.state.model))
+
+    def run(self, resume: bool = True) -> Dict[str, float]:
+        writer = None
+        checkpointer = None
+        start_epoch = 0
+        if self.output_dir:
+            from ..utils.meters import MetricWriter
+            from .preemption import PreemptionCheckpointer
+
+            writer = MetricWriter(f"{self.output_dir}/tb")
+            checkpointer = PreemptionCheckpointer(
+                f"{self.output_dir}/preempt")
+            try:
+                checkpointer.install_signal_handler()
+            except ValueError:
+                pass  # not on the main thread (tests)
+            if resume:
+                state, meta = checkpointer.maybe_restore()
+                if state is not None:
+                    self.state.load_state_dict(state)
+                    start_epoch = meta["epoch"] + 1
+                    self.best_mrr = meta["best_metric"]
+                    if meta.get("rng_state"):
+                        # replay the data order an uninterrupted run sees
+                        self.train_loader.set_rng_state(meta["rng_state"])
+                    self.log(f"resumed from epoch {meta['epoch']} "
+                             f"(best_mrr={self.best_mrr:.4f})")
+        smoothed = None
+        history = []
+        # the scalars' x-axis continues across resumes
+        step_no = start_epoch * len(self.train_loader)
+        model = self.state.model
+        for epoch in range(start_epoch, self.cfg.num_epochs):
+            losses_seen = []
+            model.train()
+            for batch in self.train_loader:
+                batch.pop("valid", None)
+                self.state, loss = self.train_step(
+                    self.state, to_device(batch, self.device))
+                # keep the device tensor: a float() here would sync the
+                # host into every step
+                losses_seen.append(loss)
+                step_no += 1
+                if writer:
+                    # the writer's path pays the one sync it needs
+                    lval = float(loss)
+                    smoothed = (lval if smoothed is None
+                                else 0.99 * smoothed + 0.01 * lval)
+                    writer.add_scalar("batch_train_loss", lval, step_no)
+                    writer.add_scalar("smoothed_train_loss", smoothed, step_no)
+            losses_seen = (torch.stack(losses_seen).float().cpu().tolist()
+                           if losses_seen else [])
+            model.eval()
+            mrrs = evaluate_mrr(self.eval_step, model, self.eval_loader)
+            stats = EpochStats(float(np.mean(losses_seen)),
+                               mrrs["mrr_1"], mrrs["mrr_2"])
+            history.append(stats)
+            if writer:
+                writer.add_scalar("dev_mrr", stats.mrr_avg, epoch)
+            self.log(f"epoch {epoch}: loss={stats.train_loss:.4f} "
+                     f"mrr1={stats.mrr_1:.4f} mrr2={stats.mrr_2:.4f}")
+            if self.output_dir:
+                self._save_model("checkpoint_last")
+                if stats.mrr_avg > self.best_mrr:
+                    self.best_mrr = stats.mrr_avg
+                    self._save_model("checkpoint_best")
+            else:
+                self.best_mrr = max(self.best_mrr, stats.mrr_avg)
+            if checkpointer:
+                checkpointer.save(self.state.state_dict(), epoch=epoch,
+                                  best_metric=self.best_mrr,
+                                  rng_state=self.train_loader.rng_state())
+                if checkpointer.preempted:
+                    self.log("preemption signal received — state saved, "
+                             "exiting for requeue")
+                    break
+        if writer:
+            writer.close()
+        return {"best_mrr": self.best_mrr,
+                "final_loss": history[-1].train_loss if history else 0.0}

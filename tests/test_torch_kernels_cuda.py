@@ -956,3 +956,62 @@ def test_hnsw_binding_beside_cuda_tensors(dev):
     recall = sum(len(set(a) & set(b)) for a, b in zip(ids, exact)) / ids.size
     assert recall >= 0.85, recall
     assert vecs.is_cuda and queries.is_cuda
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    """One train step of a 2-layer, 64-wide retriever (fp32 compute, TF32
+    off) on the card and on the CPU from the same weights and batch, as
+    chip_smoke.py's leg j0 holds it: the loss within 1e-5 relative, the
+    gradients within 1e-6 + 1e-4 of each tensor's largest, and each
+    parameter within ``chip_smoke.adam_bound`` of that gradient tolerance
+    on the clipped gradients."""
+    import numpy as np
+
+    from chip_smoke import adam_bound
+    from multihop_dense_retrieval_tpu_torch.core.config import (
+        EncoderConfig, RetrieverTrainConfig)
+    from multihop_dense_retrieval_tpu_torch.models import MhopRetriever
+    from multihop_dense_retrieval_tpu_torch.train import trainer as T
+
+    torch.manual_seed(0)
+    cfg = EncoderConfig.tiny(vocab_size=96, max_position_embeddings=40,
+                             hidden_size=64, intermediate_size=128)
+    base = MhopRetriever(cfg, cls_only=True, fp32_params=True)
+    rng = np.random.RandomState(0)
+    batch = {}
+    for name, width in (("q", 12), ("q_sp", 24), ("c1", 16), ("c2", 16),
+                        ("neg1", 16), ("neg2", 16)):
+        lens = rng.randint(4, width + 1, size=4)
+        mask = (np.arange(width)[None] < lens[:, None]).astype(np.int32)
+        batch[f"{name}_input_ids"] = np.where(
+            mask > 0, rng.randint(4, 96, size=(4, width)), 1).astype(np.int32)
+        batch[f"{name}_mask"] = mask
+    tcfg = RetrieverTrainConfig(learning_rate=1e-3, warmup_ratio=0.0)
+    out = []
+    for d in (torch.device("cpu"), dev):
+        model = MhopRetriever(cfg, cls_only=True, fp32_params=True).to(d)
+        model.load_state_dict(base.state_dict())
+        state = T.TrainState.create(model, T.make_optimizer(tcfg, 10))
+        grads = {}
+        update = state.opt.update
+
+        def kept(model=model, update=update, grads=grads):
+            grads.update({n: p.grad.cpu().clone()
+                          for n, p in model.named_parameters()})
+            return update()
+
+        state.opt.update = kept
+        _, loss = T.make_train_step()(state, T.to_device(batch, d))
+        out.append((float(loss), grads,
+                    {k: v.cpu() for k, v in model.state_dict().items()}))
+    (lc, gc, pc), (lg, gg, pg) = out
+    assert abs(lg - lc) <= 1e-5 * abs(lc), (lg, lc)
+    norm = torch.sqrt(sum((g.double() ** 2).sum() for g in gc.values()))
+    clip = min(1.0, tcfg.max_grad_norm / norm.item())
+    lr, eps = tcfg.learning_rate, tcfg.adam_eps
+    for name, g in gc.items():
+        scale = g.abs().max().item()
+        assert (gg[name] - g).abs().max().item() <= 1e-6 + 1e-4 * scale, name
+        bound = adam_bound(g * clip, (1e-6 + 1e-4 * scale) * clip,
+                           pc[name], lr, eps)
+        assert ((pg[name] - pc[name]).abs() / lr <= bound).all(), name

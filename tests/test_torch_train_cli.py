@@ -1,0 +1,200 @@
+"""The port's training CLIs, ``cli/train_retriever`` and
+``cli/train_momentum``, on ``--device cpu``: the JAX package's
+tests/test_variant_cli.py and tests/test_workflow.py, ported (stage 1 →
+momentum from the stage-1 checkpoint → encode_corpus → eval_mhop_retrieval,
+all through the port's CLIs); the checkpoints' reference layout, read by
+both packages' ``init_retriever`` with equal vectors (fp32, atol 1e-5, as
+tests/test_torch_encoder.py); and the flags that must raise.
+"""
+
+import json
+import os
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from multihop_dense_retrieval_tpu.cli import common as jcommon
+from multihop_dense_retrieval_tpu_torch.cli import common
+from multihop_dense_retrieval_tpu_torch.cli import (encode_corpus,
+                                                    eval_mhop_retrieval,
+                                                    train_momentum,
+                                                    train_retriever)
+from multihop_dense_retrieval_tpu_torch.core import checkpoint as ckpt
+from tests import synth
+
+SMALL = ["--tokenizer", "hash", "--model-name", "tiny", "--device", "cpu",
+         "--train-batch-size", "4", "--predict-batch-size", "4",
+         "--num-epochs", "1", "--learning-rate", "1e-4",
+         "--max-q-len", "12", "--max-q-sp-len", "32", "--max-c-len", "24"]
+
+
+def _files(tmp_path, name="t.jsonl"):
+    rng = np.random.RandomState(0)
+    docs = synth.make_corpus(rng, 32)
+    rows = synth.make_mhop_rows(rng, docs, n_rows=8)
+    synth.write_jsonl(tmp_path / name, rows)
+    return str(tmp_path / name), docs, rows
+
+
+def _same_vectors(ckpt_path, unified):
+    """The checkpoint through both packages' init_retriever, fp32: equal
+    vectors for the same ids."""
+    rng = np.random.RandomState(1)
+    ids = rng.randint(4, 500, size=(3, 10)).astype(np.int32)
+    mask = np.ones((3, 10), np.int32)
+    mask[1, 6:] = 0
+    jcfg = jcommon.resolve_encoder_config("tiny", dtype="float32")
+    jmodel, jparams = jcommon.init_retriever(jcfg, unified=unified,
+                                             checkpoint=ckpt_path)
+    exp = np.asarray(jmodel.apply(jparams, jnp.asarray(ids),
+                                  jnp.asarray(mask),
+                                  method=jmodel.encode_seq), np.float32)
+    model = common.init_retriever(
+        common.resolve_encoder_config("tiny", dtype="float32"),
+        unified=unified, checkpoint=ckpt_path, device="cpu")
+    with torch.no_grad():
+        got = model.encode_seq(torch.from_numpy(ids),
+                               torch.from_numpy(mask)).numpy()
+    np.testing.assert_allclose(got, exp, rtol=0, atol=1e-5)
+    return model
+
+
+def test_train_unified_cli(tmp_path):
+    """--unified: the stop-head variant on a UnifiedDataset; its
+    checkpoint is in the reference UnifiedRetriever layout (encoder_c.,
+    stop., project.0/1) that both packages load."""
+    rng = np.random.RandomState(0)
+    docs = synth.make_corpus(rng, 24)
+    rows = synth.make_mhop_rows(rng, docs, n_rows=8)
+    rows[1]["type"] = "single"
+    rows[1]["pos_paras"] = rows[1]["pos_paras"][:1]
+    synth.write_jsonl(tmp_path / "t.jsonl", rows)
+    out = str(tmp_path / "u")
+    res, _ = train_retriever.main([
+        "--train-file", str(tmp_path / "t.jsonl"),
+        "--predict-file", str(tmp_path / "t.jsonl"), "--unified",
+        "--output-dir", out] + SMALL)
+    assert res["best_mrr"] > 0
+    sd = ckpt.restore_pytree(f"{out}/checkpoint_last.pt")
+    assert "stop.weight" in sd and "project.0.weight" in sd
+    assert all(k.startswith(("encoder_c.", "stop.", "project."))
+               for k in sd)
+    model = _same_vectors(f"{out}/checkpoint_last.pt", unified=True)
+    assert model.use_projection and not model.stop_on_pooled
+
+
+def test_train_momentum_fever_cli(tmp_path):
+    rows = []
+    for i in range(8):
+        rows.append({
+            "claim": f"claim number {i} about things",
+            "evidence": [[{"title": f"A{i}", "text": f"evi text {i}"},
+                          {"title": f"B{i}", "text": f"second text {i}"}]],
+            "tfidf_neg": [{"title": f"N{i}", "text": "neg text"}],
+            "linked_neg": [{"title": f"L{i}", "text": "neg two"}]})
+    synth.write_jsonl(tmp_path / "fever_train.jsonl", rows)
+    res, _ = train_momentum.main([
+        "--train-file", str(tmp_path / "fever_train.jsonl"),
+        "--predict-file", str(tmp_path / "fever_train.jsonl"),
+        "--queue-size", "32"] + SMALL)
+    assert np.isfinite(res["final_loss"])
+
+
+def test_full_training_to_eval_workflow(tmp_path, capsys):
+    """Stage 1 → stage-2 momentum from the stage-1 checkpoint → corpus
+    encoding with the trained weights → 2-hop retrieval eval, all through
+    the port's CLIs on the CPU.  Both stages' checkpoints load into the
+    JAX package's init_retriever with the port's vectors."""
+    train, docs, rows = _files(tmp_path, "train.jsonl")
+    synth.write_jsonl(tmp_path / "corpus.jsonl",
+                      [{"title": d["title"], "text": d["text"]}
+                       for d in docs])
+    out1 = str(tmp_path / "stage1")
+    train_retriever.main(["--train-file", train, "--predict-file", train,
+                          "--output-dir", out1] + SMALL)
+    stage1 = os.path.join(out1, "checkpoint_best.pt")
+    assert os.path.isfile(stage1)
+    assert os.path.isfile(os.path.join(out1, "preempt", "trainer_state"))
+    _same_vectors(stage1, unified=False)
+
+    out2 = str(tmp_path / "stage2")
+    res2, trainer = train_momentum.main([
+        "--train-file", train, "--predict-file", train,
+        "--init-checkpoint", stage1, "--queue-size", "32",
+        "--output-dir", out2] + SMALL)
+    assert np.isfinite(res2["final_loss"])
+    stage2 = os.path.join(out2, "checkpoint_last.pt")
+    # encoder_q only, in the stage-1 layout
+    assert set(ckpt.restore_pytree(stage2)) == set(
+        ckpt.restore_pytree(stage1))
+    _same_vectors(stage2, unified=False)
+    state = ckpt.restore_pytree(os.path.join(out2, "preempt",
+                                             "trainer_state"))
+    assert state["queue"].shape == (32, 32) and state["queue_ptr"] == 16
+    # main hands back the trainer whose state it saved
+    assert trainer.state.queue_ptr == 16
+    assert torch.equal(trainer.state.queue.cpu(), state["queue"])
+
+    idx_dir = str(tmp_path / "index")
+    encode_corpus.main([str(tmp_path / "corpus.jsonl"), idx_dir,
+                        "--checkpoint", stage2, "--batch-size", "8",
+                        "--chunk-rows", "16", "--max-c-len", "24",
+                        "--tokenizer", "hash", "--model-name", "tiny",
+                        "--device", "cpu"])
+    capsys.readouterr()
+    eval_mhop_retrieval.main([train, idx_dir, "--checkpoint", stage2,
+                              "--beam-size", "3", "--topk", "3",
+                              "--batch-size", "4", "--chunk-rows", "16",
+                              "--tokenizer", "hash", "--model-name", "tiny",
+                              "--max-q-len", "12", "--max-q-sp-len", "32",
+                              "--device", "cpu"])
+    agg = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert 0.0 <= agg["avg_p_em"] <= 1.0
+    assert agg["n"] == len(rows)
+
+
+@pytest.mark.parametrize("cli", [train_retriever, train_momentum])
+def test_data_parallel_raises_item_12(tmp_path, cli):
+    train, _, _ = _files(tmp_path)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+        cli.main(["--train-file", train, "--predict-file", train,
+                  "--data-parallel", "2"] + SMALL)
+
+
+def test_unified_remat_raises(tmp_path):
+    """The UnifiedRetriever has no remat: --unified --remat raises rather
+    than train without it."""
+    train, _, _ = _files(tmp_path)
+    with pytest.raises(ValueError, match="remat"):
+        train_retriever.main(["--train-file", train, "--predict-file", train,
+                              "--unified", "--remat"] + SMALL)
+
+
+@pytest.mark.parametrize("cli", [train_retriever, train_momentum])
+def test_default_device_without_cuda_raises(monkeypatch, tmp_path, cli):
+    """The training CLIs default to --device cuda: without CUDA they raise
+    before reading anything, and never train on the CPU on their own."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    missing = str(tmp_path / "missing.jsonl")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["--train-file", missing, "--predict-file", missing,
+                  "--tokenizer", "hash", "--model-name", "tiny"])
+
+
+@pytest.mark.parametrize("name", ["train_retriever", "train_momentum"])
+def test_flags_match_the_jax_clis(name, capsys):
+    """The port's CLI has every flag of the JAX CLI, and --device."""
+    import importlib
+
+    def flags(pkg):
+        main = importlib.import_module(f"{pkg}.cli.{name}").main
+        with pytest.raises(SystemExit):
+            main(["--help"])
+        return set(re.findall(r"--[a-z][a-z0-9-]*", capsys.readouterr().out))
+
+    port = flags("multihop_dense_retrieval_tpu_torch")
+    assert port - flags("multihop_dense_retrieval_tpu") == {"--device"}
+    assert "--queue-size" in port or name == "train_retriever"
