@@ -1,6 +1,7 @@
 """Build the PyTorch port's CUDA kernels and drive its search, corpus-
-encoding, question-answering and training paths on one GPU.  Run from the
-repository root:  python3 chip_smoke.py
+encoding, question-answering and training paths (the retriever, reader
+and single-hop trainers, the grid launcher, checkpoint export) on one
+GPU.  Run from the repository root:  python3 chip_smoke.py
 
 Phases (each prints a line and flushes; any failure exits non-zero):
   1. build   — nvcc compiles every kernel from ops/csrc (one process each).
@@ -129,6 +130,29 @@ Phases (each prints a line and flushes; any failure exits non-zero):
                   rows; the momentum checkpoint served through
                   cli/common.init_retriever gives the trained encoder_q's
                   vectors bit for bit.
+               k. the rest of training (no kernel either: the counts must
+                  stay 0).  k0: one reader train step on the card and one
+                  on the CPU from the same weights and batch (2 layers at
+                  ELECTRA-large width, fp32, B=6 ragged up to 512, sp on),
+                  held as j0.  k1: the ELECTRA-large reader (24 x 1024,
+                  bf16 compute, fp32 master weights and Adam) at the JAX
+                  CLI's defaults (batch 8, 512 tokens, 10 answer slots, 40
+                  sentences, sp on), without and with --remat:
+                  examples/s, ms/step beside its FLOP bound, peak memory,
+                  one profiled step split into matmuls and the rest.  k2:
+                  cli/train_qa for one epoch of 64 synthetic questions
+                  (mini preset), then --do-predict from its
+                  checkpoint_best.pt; the checkpoint served through
+                  cli/common.init_reader gives the trained rank scores bit
+                  for bit, and cli/export_ckpt --arch reader of it
+                  strict-loads back bit for bit.  k3: cli/train_single at
+                  roberta-base and widths 50/300, batch 32 (the CLI's 128
+                  does not fit without remat), shared, then --momentum
+                  from its checkpoint; examples/s of each trainer's step.
+                  k4: cli/launch, a 2-point lr grid at the tiny preset over
+                  j3's rows, run twice (the second skips both points);
+                  cli/export_ckpt --arch mhop of j3's stage-1 checkpoint
+                  serves its vectors bit for bit.
   4. result  — one JSON line of kernel records, the card's name and power
                limit, and the final {"ok": true, ...} line.
 Exits with code 2 and no result when CUDA is not available.
@@ -191,6 +215,15 @@ J_WIDTHS = (("q", 70), ("q_sp", 350), ("c1", 300), ("c2", 300),
             ("neg1", 300), ("neg2", 300))
 J_B, J_REMAT_B, J_WARM, J_ITERS = 16, 64, 3, 10
 J_ROWS, J_DEV_ROWS, J_MOM_ROWS, J_QUEUE = 256, 64, 64, 76800
+# leg k (the rest of training): the reader trainer's JAX CLI defaults
+# (batch, max_seq_len, answer slots, sentences), the timed reader steps;
+# cli/train_qa's questions (4 chains each) and dev questions; the
+# single-hop trainer's batch (the CLI's 128 cut to 32: without remat 128 x
+# 650 tokens would not fit in 80 GB) and rows
+K_B, K_LEN, K_SLOTS, K_SENTS = 8, 512, 10, 40
+K_WARM, K_ITERS = 2, 6
+K_QA_ROWS, K_QA_DEV = 64, 16
+K3_B, K3_ROWS = 32, 128
 # (what, B, Wq, W, dtype) of the kernel-8 checks; the first is the record
 ATTN_CASES = (("corpus square", C_BATCH, C_LEN, C_LEN, torch.bfloat16),
               ("corpus cls layer", C_BATCH, 1, C_LEN, torch.bfloat16),
@@ -1030,7 +1063,10 @@ def run_main_path(port, mips, dev, gen, smi, table_path=None, iters=50):
                                             dev, smi, tmp))
         launches.update(run_qa_serving(mips, dev, smi, tmp))
         launches.update(run_hnsw_tier(port, mips, dev, smi, tmp))
-    launches.update(run_training(port, mips, dev, smi))
+    # leg k exports leg j's stage-1 checkpoint and reuses its rows
+    with tempfile.TemporaryDirectory() as tmp:
+        launches.update(run_training(port, mips, dev, smi, tmp))
+        launches.update(run_reader_training(port, mips, dev, smi, tmp))
     return launches
 
 
@@ -1427,24 +1463,18 @@ def adam_bound(g, delta, p, lr, eps, tight=1e-3, steps=1):
         max=2.5 * steps) + 2 * ulp
 
 
-def check_train_step_on_card(T, models, cfgmod, dev, smi):
-    """j0: one train step on the card and one on the CPU from the same
-    weights and batch (2 layers at roberta-base width, fp32 compute, TF32
-    off): loss rel 1e-5; gradients within 1e-6 + 1e-4 of each tensor's
-    largest; parameters within ``adam_bound`` in units of lr."""
-    torch.manual_seed(0)
-    base = models.MhopRetriever(
-        cfgmod.EncoderConfig.roberta_base(num_layers=2, dtype="float32"),
-        cls_only=True, fp32_params=True)
-    tcfg = cfgmod.RetrieverTrainConfig(warmup_ratio=0.0)
-    batch = train_batch(np.random.RandomState(31), 4, full=False)
+def card_vs_cpu_step(T, base, make_step, batch, tcfg, dev):
+    """One train step of ``base``'s architecture and weights on the CPU and
+    one on the card (``make_step()`` over a TrainState of each, the same
+    numpy ``batch``): the loss within 1e-5 relative, the gradients within
+    1e-6 + 1e-4 of each tensor's largest, the parameters within
+    ``adam_bound`` in units of lr.  Returns the readings."""
+    import copy
+
     out = []
     for d in (torch.device("cpu"), dev):
-        state = T.TrainState.create(
-            models.MhopRetriever(base.config, cls_only=True,
-                                 fp32_params=True).to(d),
-            T.make_optimizer(tcfg, 10))
-        state.model.load_state_dict(base.state_dict())
+        state = T.TrainState.create(copy.deepcopy(base).to(d),
+                                    T.make_optimizer(tcfg, 10))
         grads = {}
         update = state.opt.update
 
@@ -1455,7 +1485,7 @@ def check_train_step_on_card(T, models, cfgmod, dev, smi):
 
         state.opt.update = kept
         t = time.perf_counter()
-        state, loss = T.make_train_step()(state, T.to_device(batch, d))
+        state, loss = make_step()(state, T.to_device(batch, d))
         out.append((float(loss), grads,
                     {k: v.cpu() for k, v in state.model.state_dict().items()},
                     time.perf_counter() - t))
@@ -1478,16 +1508,33 @@ def check_train_step_on_card(T, models, cfgmod, dev, smi):
         assert (diff <= bound).all(), (name, (diff - bound).max().item())
         worst_p = max(worst_p, ((diff / bound).max().item(), name))
         n_loose += int((diff > 1e-3).sum())
-    n = sum(v.numel() for v in pc.values())
+    return {"loss": (lg, lc), "norm": norm.item(), "clip": clip,
+            "worst_g": worst_g, "worst_p": worst_p, "n_loose": n_loose,
+            "n": sum(v.numel() for v in pc.values()), "secs": (tc, tg)}
+
+
+def check_train_step_on_card(T, models, cfgmod, dev, smi):
+    """j0: one train step on the card and one on the CPU from the same
+    weights and batch (2 layers at roberta-base width, fp32 compute, TF32
+    off), as ``card_vs_cpu_step`` holds them."""
+    torch.manual_seed(0)
+    base = models.MhopRetriever(
+        cfgmod.EncoderConfig.roberta_base(num_layers=2, dtype="float32"),
+        cls_only=True, fp32_params=True)
+    r = card_vs_cpu_step(T, base, T.make_train_step,
+                         train_batch(np.random.RandomState(31), 4, full=False),
+                         cfgmod.RetrieverTrainConfig(warmup_ratio=0.0), dev)
     c = base.config
     widths = "/".join(str(w) for _, w in J_WIDTHS)
     say(f"  leg j0 card vs CPU train step ({c.num_layers} x {c.hidden_size}, "
-        f"B=4 ragged at {widths}, fp32): loss {lg:.6f} vs {lc:.6f}; "
-        f"gradient norm {norm.item():.4g} (clip x{clip:.4g}); worst "
-        f"gradient error {worst_g[0]:.3f} of its tolerance ({worst_g[1]}); "
-        f"worst parameter {worst_p[0]:.3f} of its Adam bound "
-        f"({worst_p[1]}); {n_loose} of {n} elements beyond 1e-3 lr; CPU "
-        f"{tc:.2f} s, card {tg:.2f} s (first call) [{smi}]")
+        f"B=4 ragged at {widths}, fp32): loss {r['loss'][0]:.6f} vs "
+        f"{r['loss'][1]:.6f}; gradient norm {r['norm']:.4g} (clip "
+        f"x{r['clip']:.4g}); worst gradient error {r['worst_g'][0]:.3f} of "
+        f"its tolerance ({r['worst_g'][1]}); worst parameter "
+        f"{r['worst_p'][0]:.3f} of its Adam bound ({r['worst_p'][1]}); "
+        f"{r['n_loose']} of {r['n']} elements beyond 1e-3 lr; CPU "
+        f"{r['secs'][0]:.2f} s, card {r['secs'][1]:.2f} s (first call) "
+        f"[{smi}]")
 
 
 def time_train_steps(T, models, cfgmod, dev, smi, what, b, remat):
@@ -1632,10 +1679,19 @@ def run_training_clis(cfgmod, dev, smi, tmp):
     return secs
 
 
-def run_training(port, mips, dev, smi):
+def assert_no_launches(mips, leg):
+    counts = leg_counts(mips)
+    launched = {k: n for k, n in counts.items() if k != "routes" and n}
+    assert not launched, f"kernels launched on leg {leg}: {launched}"
+    say(f"  leg {leg} launches: {json.dumps(counts)}")
+    return counts
+
+
+def run_training(port, mips, dev, smi, tmp):
     """Leg (j): retriever training, which launches none of the eight
     kernels (the encoder trains on attention_impl="xla"; the loss is plain
-    matrix products)."""
+    matrix products).  The CLIs write into ``tmp``, where leg k finds the
+    stage-1 checkpoint and the rows."""
     from multihop_dense_retrieval_tpu_torch.train import trainer as T
 
     cfgmod, models = port[0], port[3]
@@ -1647,13 +1703,375 @@ def run_training(port, mips, dev, smi):
     time_train_steps(T, models, cfgmod, dev, smi, "j2", J_REMAT_B,
                      remat=True)
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        run_training_clis(cfgmod, dev, smi, tmp)
-    counts = leg_counts(mips)
-    launched = {k: n for k, n in counts.items() if k != "routes" and n}
-    assert not launched, f"kernels launched while training: {launched}"
-    say(f"  leg j launches: {json.dumps(counts)}")
-    return {"training": counts}
+    run_training_clis(cfgmod, dev, smi, tmp)
+    return {"training": assert_no_launches(mips, "j")}
+
+
+def reader_batch(rng, b, width=K_LEN, full=True, vocab=30522):
+    """A reader training batch as data/qa_dataset.py collates it: [CLS]
+    question [SEP] context [SEP] (segment 1 on the context), the paragraph
+    mask over the context, up to K_SENTS sentence markers in it with their
+    labels, up to K_SLOTS answer slots (-1 padded; the last row covers no
+    answer), gold and negative chains; rows of ``width`` tokens (``full``)
+    or of ragged lengths from width / 4."""
+    lens = (np.full(b, width) if full
+            else rng.randint(width // 4, width + 1, size=b))
+    out = {k: np.zeros((b, width), np.int32) for k in (
+        "input_ids", "attention_mask", "token_type_ids", "paragraph_mask")}
+    for k in ("sent_offsets", "sent_mask", "sent_labels"):
+        out[k] = np.zeros((b, K_SENTS), np.int32)
+    out["starts"] = np.full((b, K_SLOTS), -1, np.int32)
+    out["ends"] = np.full((b, K_SLOTS), -1, np.int32)
+    out["label"] = (np.arange(b) % 2 == 0).astype(np.int32)
+    for i, n in enumerate(lens):
+        q = rng.randint(8, 64)
+        out["input_ids"][i, :n] = rng.randint(5, vocab - 5, size=n)
+        out["attention_mask"][i, :n] = 1
+        out["token_type_ids"][i, q:n] = 1
+        out["paragraph_mask"][i, q:n - 1] = 1
+        ns = min(K_SENTS, (n - 1 - q) // 4)
+        out["sent_offsets"][i, :ns] = np.sort(rng.choice(
+            np.arange(q, n - 1), ns, replace=False))
+        out["sent_mask"][i, :ns] = 1
+        out["sent_labels"][i, :ns] = rng.randint(0, 2, size=ns)
+        if i < b - 1:
+            na = rng.randint(1, K_SLOTS + 1)
+            st = rng.randint(q, n - 9, size=na)
+            out["starts"][i, :na] = st
+            out["ends"][i, :na] = st + rng.randint(0, 8, size=na)
+    return out
+
+
+def check_reader_step_on_card(T, TQA, models, cfgmod, dev, smi, layers=2,
+                              b=6):
+    """k0: one reader train step on the card and one on the CPU from the
+    same weights and batch (``layers`` layers at ELECTRA-large width: 1024
+    wide, 16 heads, 4096 intermediate; fp32, TF32 off; B=``b`` ragged up to
+    K_LEN, sp on), as ``card_vs_cpu_step`` holds them.  Returns the
+    readings."""
+    torch.manual_seed(0)
+    base = models.QAReader(
+        cfgmod.EncoderConfig.electra_large(num_layers=layers,
+                                           dtype="float32"),
+        sp_pred=True, fp32_params=True)
+    r = card_vs_cpu_step(T, base, TQA.make_qa_train_step,
+                         reader_batch(np.random.RandomState(51), b,
+                                      full=False),
+                         cfgmod.RetrieverTrainConfig(warmup_ratio=0.0), dev)
+    c = base.config
+    say(f"  leg k0 card vs CPU reader train step ({c.num_layers} x "
+        f"{c.hidden_size}, {c.num_heads} heads, B={b} ragged up to {K_LEN}, "
+        f"sp on, fp32): loss {r['loss'][0]:.6f} vs {r['loss'][1]:.6f}; "
+        f"gradient norm {r['norm']:.4g} (clip x{r['clip']:.4g}); worst "
+        f"gradient error {r['worst_g'][0]:.3f} of its tolerance "
+        f"({r['worst_g'][1]}); worst parameter {r['worst_p'][0]:.3f} of its "
+        f"Adam bound ({r['worst_p'][1]}); {r['n_loose']} of {r['n']} "
+        f"elements beyond 1e-3 lr; CPU {r['secs'][0]:.2f} s, card "
+        f"{r['secs'][1]:.2f} s (first call) [{smi}]")
+    return r
+
+
+def reader_step_bound_ms(c, b, width):
+    """The least time of one reader train step on the card: 6 FLOPs per
+    non-embedding parameter per token (forward and backward) plus the
+    attention products (4·B·L²·H forward, three times that with the
+    backward) at the bf16 dense peak; the step's bytes move far faster."""
+    h, f = c.hidden_size, c.intermediate_size
+    per_layer = 4 * h * h + 2 * h * f + 9 * h
+    ops = (6 * c.num_layers * per_layer * b * width
+           + 12 * c.num_layers * b * width * width * h)
+    return ops / PEAK_OPS["bf16"] * 1e3, ops
+
+
+def time_reader_steps(T, TQA, models, cfgmod, dev, smi, what, remat):
+    """k1: the ELECTRA-large reader (24 x 1024, bf16 compute, fp32 master
+    weights and Adam) at the JAX CLI's defaults (batch K_B, K_LEN tokens,
+    K_SLOTS answer slots, K_SENTS sentences, sp on, lr 5e-5 with warmup
+    0.1); CUDA events around each step, the median of K_ITERS after
+    K_WARM; peak allocated memory; one profiled step split into matmuls
+    and the rest."""
+    cfg = cfgmod.EncoderConfig.electra_large()
+    torch.manual_seed(13)
+    with dev:
+        model = models.QAReader(cfg, sp_pred=True, fp32_params=True,
+                                remat=remat)
+    n_params = sum(p.numel() for p in model.parameters())
+    state = T.TrainState.create(model, T.make_optimizer(
+        cfgmod.RetrieverTrainConfig(learning_rate=5e-5, warmup_ratio=0.1),
+        1000))
+    batch = T.to_device(reader_batch(np.random.RandomState(13), K_B), dev)
+    step = TQA.make_qa_train_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seen, events = [], []
+    for i in range(K_WARM + K_ITERS):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        state, loss = step(state, batch)
+        ev[1].record()
+        seen.append(loss)
+        if i >= K_WARM:
+            events.append(ev)
+    torch.cuda.synchronize()
+    ms = np.array([a.elapsed_time(e) for a, e in events])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _, _, kernels = device_kernels(lambda: step(state, batch))
+    losses = torch.stack(seen).float().cpu().numpy()
+    assert np.isfinite(losses).all(), f"{what}: non-finite losses {losses}"
+    med = float(np.median(ms))
+    busy = sum(t for t, _ in kernels)
+    gemm = sum(t for t, k in kernels if any(
+        m in k.lower() for m in ("gemm", "xmma", "cutlass", "nvjet")))
+    bound, ops = reader_step_bound_ms(cfg, K_B, K_LEN)
+    say(f"  leg {what} reader train step (electra-large {cfg.num_layers} x "
+        f"{cfg.hidden_size}, {n_params / 1e6:.1f}M parameters, bf16 compute, "
+        f"fp32 master weights and Adam, B={K_B} x {K_LEN}, {K_SLOTS} answer "
+        f"slots, {K_SENTS} sentences, sp on, remat={int(remat)}): "
+        f"{K_B / med * 1e3:.2f} examples/s, median {med:.2f} ms/step (min "
+        f"{ms.min():.2f}, max {ms.max():.2f}) over {K_ITERS} steps after "
+        f"{K_WARM}; FLOP bound {bound:.2f} ms ({ops / 1e12:.2f} TFLOP at the "
+        f"bf16 peak; {bound / med:.3f} of it reached); peak allocated "
+        f"{peak:.2f} GiB; losses {losses[0]:.4f} -> {losses[-1]:.4f}; one "
+        f"profiled step: device busy {busy:.2f} ms (matmuls {gemm:.2f}, the "
+        f"rest {busy - gemm:.2f}), idle share {idle_share(busy, med):.3f}, "
+        f"top kernels {[(round(t, 2), k[:48]) for t, k in kernels[:4]]} "
+        f"[{smi}]")
+    del state, model, batch
+    torch.cuda.empty_cache()
+    return {"ms": med, "examples_per_s": K_B / med * 1e3, "peak_gib": peak,
+            "busy_ms": busy, "matmul_ms": gemm}
+
+
+def write_qa_rows(path, rng, n):
+    """n reader training rows in data/qa_dataset.py's format, made as
+    tests/test_e2e.py::_qa_rows makes them but with varied text: a gold
+    chain of two passages (the answer word in the first passage's first
+    sentence, its supporting fact) and three negative chains of two
+    passages, each passage 2-4 sentences of 5-15 words."""
+    vocab = np.array([f"w{i}" for i in range(4096)])
+
+    def sents(k):
+        return [" ".join(vocab[rng.randint(len(vocab),
+                                           size=rng.randint(5, 16))]) + " ."
+                for _ in range(k)]
+
+    with open(path, "w") as f:
+        for i in range(n):
+            ans = f"answer{i}"
+            s0 = sents(rng.randint(2, 5))
+            s0[0] = f"the thing is {ans} . {s0[0]}"
+            sp = [{"title": f"G{i}a", "sents": s0, "sp_sent_ids": [0]},
+                  {"title": f"G{i}b", "sents": sents(rng.randint(2, 5)),
+                   "sp_sent_ids": [1]}]
+            negs = [[{"title": f"N{i}{j}{k}",
+                      "sents": sents(rng.randint(2, 5))} for k in "ab"]
+                    for j in range(3)]
+            q = " ".join(vocab[rng.randint(len(vocab),
+                                           size=rng.randint(6, 16))])
+            f.write(json.dumps({"question": q + "?", "_id": f"q{i}",
+                                "answer": [ans], "type": "bridge", "sp": sp,
+                                "candidate_chains": [sp] + negs}) + "\n")
+
+
+def run_reader_cli(models, dev, smi, tmp):
+    """k2: cli/train_qa for one epoch of K_QA_ROWS questions (the mini
+    preset, the CLI's defaults otherwise: batch 8, max_seq_len 512, 5
+    negatives, sp on) and --do-predict from its checkpoint_best.pt; the
+    checkpoint served through cli/common.init_reader gives the trained
+    model's rank scores bit for bit, and cli/export_ckpt --arch reader of
+    it strict-loads back with the trained parameters bit for bit."""
+    from multihop_dense_retrieval_tpu_torch.cli import (common, export_ckpt,
+                                                        train_qa)
+    from multihop_dense_retrieval_tpu_torch.data import qa_dataset
+
+    rng = np.random.RandomState(61)
+    write_qa_rows(f"{tmp}/qa_train.jsonl", rng, K_QA_ROWS)
+    write_qa_rows(f"{tmp}/qa_dev.jsonl", rng, K_QA_DEV)
+    base = ["--tokenizer", "hash", "--model-name", "mini",
+            "--predict-file", f"{tmp}/qa_dev.jsonl"]
+    t = time.perf_counter()
+    res, state = train_qa.main(base + [
+        "--train-file", f"{tmp}/qa_train.jsonl", "--output-dir",
+        f"{tmp}/qa", "--num-epochs", "1"])
+    train_s = time.perf_counter() - t
+    assert state.step == K_QA_ROWS * 4 // 8, state.step
+    assert res["n_questions"] == K_QA_DEV, res["n_questions"]
+    best = f"{tmp}/qa/checkpoint_best.pt"
+    t = time.perf_counter()
+    pred, _ = train_qa.main(base + ["--do-predict", "--checkpoint", best])
+    predict_s = time.perf_counter() - t
+    assert pred["chain_em"] == res["chain_em"], (pred["chain_em"],
+                                                 res["chain_em"])
+    cfg, served = common.init_reader("mini", best, device=dev)
+    trained = state.model.eval()
+    ds = qa_dataset.QADataset(common.resolve_reader_tokenizer("hash", cfg),
+                              f"{tmp}/qa_dev.jsonl", train=False)
+    net = qa_dataset.qa_collate([ds[i] for i in range(16)])["net_inputs"]
+    with torch.inference_mode():
+        rank = [m({k: torch.from_numpy(v).to(dev)
+                   for k, v in net.items()})["rank_score"]
+                for m in (trained, served)]
+    assert torch.equal(rank[0], rank[1]), \
+        f"served rank scores differ by {(rank[0] - rank[1]).abs().max()}"
+    export_ckpt.main(["--checkpoint", best, "--arch", "reader", "--out",
+                      f"{tmp}/qa/reader.pt"])
+    back = models.QAReader(cfg)
+    back.load_state_dict(torch.load(f"{tmp}/qa/reader.pt",
+                                    weights_only=True))
+    want = trained.state_dict()
+    for k, v in back.state_dict().items():
+        assert torch.equal(v, want[k].cpu()), f"exported {k} differs"
+    say(f"  leg k2 cli/train_qa (mini preset, hash tokenizer, "
+        f"{K_QA_ROWS} questions x 4 chains, batch 8, max_seq_len 512): "
+        f"{state.step} steps + predict in {train_s:.1f} s, chain_em "
+        f"{res['chain_em']:.3f}; --do-predict from checkpoint_best.pt in "
+        f"{predict_s:.1f} s, the same chain_em; served rank scores = the "
+        f"trained model's bit for bit; export_ckpt --arch reader "
+        f"strict-loads back bit for bit [{smi}]")
+
+
+def write_sp_rows(path, rng, n):
+    """n single-hop rows in data/sp_datasets.py's format: a 6-20 word
+    question, one positive and 1-2 negative passages of synth_doc_lens
+    words."""
+    vocab = np.array([f"w{i}" for i in range(1 << 16)])
+
+    def para():
+        words = vocab[rng.randint(len(vocab), size=synth_doc_lens(rng, 1)[0])]
+        return {"title": f"doc {rng.randint(1 << 30)}",
+                "text": " ".join(words)}
+
+    with open(path, "w") as f:
+        for _ in range(n):
+            q = " ".join(vocab[rng.randint(len(vocab),
+                                           size=rng.randint(6, 21))])
+            f.write(json.dumps({
+                "question": q + "?", "pos_paras": [para()],
+                "neg_paras": [para() for _ in range(rng.randint(1, 3))]})
+                + "\n")
+
+
+def time_cli_steps(T, trainer, dev, iters=5):
+    """Examples/s of a CLI trainer's own step at its end: CUDA events
+    around ``iters`` steps on one of its loader's batches, the median."""
+    batch = next(iter(trainer.train_loader))
+    batch.pop("valid", None)
+    batch = T.to_device(batch, dev)
+    ms = []
+    for _ in range(iters):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        trainer.state, loss = trainer.train_step(trainer.state, batch)
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+        assert torch.isfinite(loss).all()
+    med = float(np.median(ms))
+    return trainer.train_loader.bs / med * 1e3, med
+
+
+def run_single_cli(T, dev, smi, tmp):
+    """k3: cli/train_single at roberta-base and the reference widths
+    (max_q_len 50, max_c_len 300), batch K3_B, one epoch of K3_ROWS rows
+    shared, then one with --momentum (the default 256-row token queue)
+    from its checkpoint_best.pt; examples/s of each trainer's own step."""
+    from multihop_dense_retrieval_tpu_torch.cli import train_single
+
+    rng = np.random.RandomState(71)
+    write_sp_rows(f"{tmp}/sp_train.jsonl", rng, K3_ROWS)
+    write_sp_rows(f"{tmp}/sp_dev.jsonl", rng, K3_B)
+    base = ["--tokenizer", "hash", "--model-name", "roberta-base",
+            "--train-file", f"{tmp}/sp_train.jsonl", "--predict-file",
+            f"{tmp}/sp_dev.jsonl", "--train-batch-size", str(K3_B),
+            "--predict-batch-size", str(K3_B), "--num-epochs", "1"]
+    out = {}
+    for name, extra in (
+            ("shared", ["--output-dir", f"{tmp}/single"]),
+            ("momentum", ["--momentum", "--init-checkpoint",
+                          f"{tmp}/single/checkpoint_best.pt"])):
+        t = time.perf_counter()
+        res, trainer = train_single.main(base + extra)
+        secs = time.perf_counter() - t
+        assert trainer.state.step == K3_ROWS // K3_B, trainer.state.step
+        assert np.isfinite(res["final_loss"]) and res["best_mrr"] > 0, res
+        eps, ms = time_cli_steps(T, trainer, dev)
+        out[name] = eps
+        say(f"  leg k3 cli/train_single {name} (roberta-base, widths 50/300, "
+            f"batch {K3_B}): {K3_ROWS} rows in {secs:.1f} s (loss "
+            f"{res['final_loss']:.4f}, mrr {res['best_mrr']:.4f}); its step "
+            f"{ms:.2f} ms, {eps:.1f} examples/s [{smi}]")
+        del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_launch_and_export(cfgmod, dev, smi, tmp):
+    """k4: cli/launch over leg j3's rows, a 2-point lr grid at the tiny
+    preset (2 layers), then the same launch again, which must skip both
+    points; cli/export_ckpt --arch mhop of leg j3's stage-1 checkpoint,
+    whose vectors, served through cli/common.init_retriever, equal the
+    stage-1 checkpoint's bit for bit."""
+    from multihop_dense_retrieval_tpu_torch.cli import (common, export_ckpt,
+                                                        launch)
+
+    argv = ["--grid-lr", "2e-5,1e-4", "--grid-warmup", "0.1",
+            "--train-file", f"{tmp}/train.jsonl", "--predict-file",
+            f"{tmp}/dev.jsonl", "--output-dir", f"{tmp}/sweep",
+            "--tokenizer", "hash", "--model-name", "tiny",
+            "--train-batch-size", str(J_B), "--predict-batch-size",
+            str(J_DEV_ROWS), "--num-epochs", "1"]
+    secs = []
+    for _ in range(2):
+        t = time.perf_counter()
+        best = launch.main(argv)
+        secs.append(time.perf_counter() - t)
+        with open(f"{tmp}/sweep/sweep_results.jsonl") as f:
+            lines = [json.loads(x) for x in f]
+        assert [r["lr"] for r in lines] == [2e-5, 1e-4], lines
+        assert best == max(lines, key=lambda r: r["best_mrr"]), best
+    out = f"{tmp}/q_encoder.pt"
+    sd = export_ckpt.main(["--checkpoint", f"{tmp}/stage1/checkpoint_best.pt",
+                           "--arch", "mhop", "--out", out])
+    assert not sd["encoder.pooler.dense.weight"].any()
+    cfg = cfgmod.EncoderConfig.roberta_base()
+    served = [common.init_retriever(cfg, checkpoint=c, device=dev)
+              for c in (f"{tmp}/stage1/checkpoint_best.pt", out)]
+    rows = train_batch(np.random.RandomState(47), 8, full=False)
+    with torch.inference_mode():
+        for view in ("q", "q_sp", "c1"):
+            ids = torch.from_numpy(rows[f"{view}_input_ids"]).to(dev)
+            mask = torch.from_numpy(rows[f"{view}_mask"]).to(dev)
+            a, b = (m.encode_seq(ids, mask) for m in served)
+            assert torch.equal(a, b), \
+                f"{view}: exported vectors differ by {(a - b).abs().max()}"
+    say(f"  leg k4 cli/launch (tiny preset, 2 x 1 x 1 grid over {J_ROWS} "
+        f"rows): {secs[0]:.1f} s, best {json.dumps(best)}; the requeued "
+        f"launch skipped both points in {secs[1]:.2f} s; export_ckpt --arch "
+        f"mhop of j3's stage-1 checkpoint ({len(sd)} tensors, zero pooler) "
+        f"serves its vectors bit for bit on 3 x 8 rows [{smi}]")
+
+
+def run_reader_training(port, mips, dev, smi, tmp):
+    """Leg (k): the rest of training, which launches none of the eight
+    kernels either: the reader's train step on the card against the CPU's
+    (k0), ELECTRA-large at the JAX CLI's defaults with and without remat
+    (k1), cli/train_qa (k2), cli/train_single (k3), cli/launch and
+    cli/export_ckpt (k4, over leg j's files in ``tmp``)."""
+    from multihop_dense_retrieval_tpu_torch.train import qa as TQA
+    from multihop_dense_retrieval_tpu_torch.train import trainer as T
+
+    cfgmod, models = port[0], port[3]
+    torch.cuda.empty_cache()
+    mips.reset_launch_counts()
+    check_reader_step_on_card(T, TQA, models, cfgmod, dev, smi)
+    for what, remat in (("k1", False), ("k1 remat", True)):
+        time_reader_steps(T, TQA, models, cfgmod, dev, smi, what, remat)
+    run_reader_cli(models, dev, smi, tmp)
+    run_single_cli(T, dev, smi, tmp)
+    run_launch_and_export(cfgmod, dev, smi, tmp)
+    return {"reader_training": assert_no_launches(mips, "k")}
 
 
 def write_corpus(path, rng):
@@ -2419,9 +2837,13 @@ def device_kernels(fn):
         out = fn()
         torch.cuda.synchronize()
     events = prof.key_averages()
+    # ranges (the search steps, the optimizer's own annotation) hold the
+    # kernels listed beside them: counting them too would count twice
     kernels = sorted(((dev_ms(e), e.key) for e in events
                       if e.device_type == torch.autograd.DeviceType.CUDA
-                      and e.key not in RANGES), reverse=True)
+                      and e.key not in RANGES
+                      and not getattr(e, "is_user_annotation", False)
+                      and not e.key.startswith("Optimizer.")), reverse=True)
     return out, events, kernels
 
 

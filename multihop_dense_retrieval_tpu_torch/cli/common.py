@@ -288,13 +288,18 @@ def init_retriever(config: EncoderConfig, *, unified: bool = False,
 
 
 def init_reader(model_name: str, checkpoint: str = "", sp_pred: bool = True,
-                seed: int = 0, scores_dtype: str = "float32", device=None):
-    """(config, QAReader in eval mode on ``device``, ``cuda`` unless
-    named): loaded from a reference ``QAModel`` ``.pt``, or random weights
-    from ``seed`` made on the device itself without one (the caller's RNG
-    state is left as it was).  ``scores_dtype`` is the attention scores'
-    dtype; the serving CLIs default to bf16.  The JAX counterpart is
-    ``init_reader`` in the JAX package's ``cli/train_qa.py``."""
+                seed: int = 0, scores_dtype: str = "float32", device=None,
+                fp32_params: bool = False, remat: bool = False,
+                train: bool = False):
+    """(config, QAReader on ``device``, ``cuda`` unless named): loaded
+    from a reference ``QAModel`` ``.pt``, or random weights from ``seed``
+    made on the device itself without one (the caller's RNG state is left
+    as it was).  ``scores_dtype`` is the attention scores' dtype; the
+    serving CLIs default to bf16.  In eval mode, or in train mode with
+    ``train``; the reader trainer asks for ``fp32_params`` (fp32 master
+    weights) and may ask for ``remat``.  Orbax directories raise, as in
+    ``load_retriever_params``.  The JAX counterpart is ``init_reader`` in
+    the JAX package's ``cli/train_qa.py``."""
     dev = resolve_device(device)
     if model_name not in READER_PRESETS:
         raise ValueError(f"unknown reader preset {model_name}; "
@@ -304,10 +309,11 @@ def init_reader(model_name: str, checkpoint: str = "", sp_pred: bool = True,
     with torch.random.fork_rng(devices=devices):
         torch.manual_seed(seed)
         with dev:
-            model = QAReader(cfg, sp_pred=sp_pred)
+            model = QAReader(cfg, sp_pred=sp_pred, fp32_params=fp32_params,
+                             remat=remat)
     if checkpoint:
         model.load_state_dict(load_retriever_params(checkpoint))
-    return cfg, model.eval()
+    return cfg, model.train(train)
 
 
 def resolve_reader_tokenizer(spec: str, config: EncoderConfig):

@@ -12,6 +12,11 @@ The port of the JAX package's ``models/reader.py``:
     a width-truncated rank pass produces and which feed nothing it
     returns, are clamped to the last column.
 
+``fp32_params`` keeps the encoder's dense weights fp32 (the trainer's
+master weights) and ``remat`` recomputes each encoder layer in the
+backward pass, as for the retrievers; serving builds the reader with both
+off.
+
 Parameter names are the reference ``QAModel``'s (``encoder.*`` HF layout,
 ``pooler.dense``, ``qa_outputs``, ``rank``, ``sp``), so its ``.pt`` state
 dict loads with ``load_state_dict``.  A BERT reader's HF pooler
@@ -51,12 +56,14 @@ def _reference_names(module, state_dict, prefix, *args):
 
 
 class QAReader(nn.Module):
-    def __init__(self, config: EncoderConfig, sp_pred: bool = True):
+    def __init__(self, config: EncoderConfig, sp_pred: bool = True,
+                 fp32_params: bool = False, remat: bool = False):
         super().__init__()
         self.config = config
         self.sp_pred = sp_pred
         h = config.hidden_size
-        self.encoder = TransformerEncoder(config)
+        self.encoder = TransformerEncoder(config, fp32_params=fp32_params,
+                                          remat=remat)
         self.pooler = Pooler(h)
         self.qa_outputs = nn.Linear(h, 2)
         self.rank = nn.Linear(h, 1)

@@ -849,6 +849,15 @@ def mips_topk_pca(index, proj, rot, bounds, queries, k: int,
           + qpnorm[:, None] * bounds[1][None, :]
           + qperr[:, None] * bounds[2][None, :]
           + qerr[:, None] * bounds[3][None, :])
+    if maxp.is_cuda:
+        # kernel 3's tensor-core sums may sit below the true maxima by up to
+        # the fp32 summation bound R·2^-22·Σ|qp_j·p_j| <= R·2^-22·|qp|·|p|:
+        # without it a near tie across the boundary certified a wrong row
+        # (tests/test_torch_kernels_cuda.py::
+        # test_pca_certificate_holds_at_kernel_3_near_ties).  The CPU
+        # twin keeps the JAX package's bound.
+        ub = ub + (qp_store.shape[1] * 2.0 ** -22) * torch.linalg.norm(
+            qp_store.float(), dim=1)[:, None] * bounds[2][None, :]
     ub_vals, ub_ids = topk_lower_index(ub, k_chunks + 1)
     chunk_ids = ub_ids[:, :k_chunks].to(torch.int32)
     ub_next = ub_vals[:, k_chunks]

@@ -1,12 +1,24 @@
-"""QA reader steps and span decoding (PyTorch).
+"""QA reader loss, steps and span decoding (PyTorch; the JAX package's
+``train/qa.py``).
 
-The inference half of the JAX package's ``train/qa.py``: ``decode_spans``
-and the rank / predict steps.  ``qa_loss`` and the train step come with
-training (ROADMAP item 11).
+Loss = rank BCE (sum) + marginal span NLL + sp_weight · sp BCE, all fp32:
 
-A step is a plain function over the module: ``step(batch)`` takes the
-collated ``net_inputs`` (numpy or tensors), moves the inputs the reader
-reads onto the module's device and returns tensors there.
+  * span supervision is a padded set of answer-occurrence slots per chain
+    (starts/ends with -1 padding); the span loss marginalizes over all
+    occurrences: -log Σ_slots exp(-(CE_start + CE_end)) per row, summed
+    over rows with at least one valid slot (a slot whose CE sum is exactly
+    0, as both -1 slots give, counts as log-prob -1e30);
+  * rows with no covered answer (all slots -1) contribute 0;
+  * sp BCE over the sentence-marker slots, masked by ``sent_mask`` and by
+    the gold-chain ``label``.  As in the JAX package this masks where the
+    reference multiplies each sentence's BCE by its token offset
+    (qa_model.py:78), which reads as a stand-in for a 0/1 valid-slot mask.
+
+A predict or rank step is a plain function over the module: ``step(batch)``
+takes the collated ``net_inputs`` (numpy or tensors), moves the inputs the
+reader reads onto the module's device and returns tensors there.  The
+train step is ``step(state, batch) -> (state, loss)`` over
+``train/trainer.py``'s ``TrainState``, as ``make_train_step``.
 """
 
 from __future__ import annotations
@@ -15,6 +27,9 @@ from typing import Callable, Dict
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+from .trainer import _apply
 
 NEG_INF = -1e30
 
@@ -40,6 +55,60 @@ def decode_spans(start_logits: torch.Tensor, end_logits: torch.Tensor,
     end_pos = span[rows, start_pos].argmax(dim=1)
     span_score = best_end_for_start.amax(dim=1)
     return start_pos, end_pos, span_score
+
+
+def _ce_with_ignore(logits: torch.Tensor, targets: torch.Tensor
+                    ) -> torch.Tensor:
+    """(B, A) cross entropies of (B, L) logits against each of the A target
+    columns; a target of -1 gives 0 (torch's ``ignore_index=-1``)."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, 1, targets.long().clamp(min=0))
+    return torch.where(targets == -1, 0.0, logz[:, None] - gold)
+
+
+def _sigmoid_bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``optax.sigmoid_binary_cross_entropy``, element by element."""
+    return -labels * F.logsigmoid(logits) - (1 - labels) * F.logsigmoid(
+        -logits)
+
+
+def qa_loss(outputs: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
+            *, sp_weight: float = 0.05, sp_pred: bool = True) -> torch.Tensor:
+    start_logits = outputs["start_logits"].float()             # (B, L)
+    end_logits = outputs["end_logits"].float()
+    label = batch["label"].reshape(-1).float()                  # (B,)
+    rank_loss = _sigmoid_bce(outputs["rank_score"].float().reshape(-1),
+                             label).sum()
+    loss_tensor = (_ce_with_ignore(start_logits, batch["starts"])
+                   + _ce_with_ignore(end_logits, batch["ends"]))  # (B, A)
+    log_prob = torch.where(loss_tensor == 0.0, NEG_INF, -loss_tensor)
+    marginal = torch.exp(log_prob).sum(dim=1)                   # (B,)
+    has_span = marginal > 0
+    span_loss = -torch.where(
+        has_span, torch.log(torch.where(has_span, marginal, 1.0)), 0.0).sum()
+    total = rank_loss + span_loss
+    if sp_pred and outputs["sp_score"] is not None:
+        sp_bce = _sigmoid_bce(outputs["sp_score"].float(),
+                              batch["sent_labels"].float())
+        sp_bce = sp_bce * batch["sent_mask"].float() * label[:, None]
+        total = total + sp_weight * sp_bce.sum()
+    return total
+
+
+def make_qa_train_step(*, sp_weight: float = 0.05,
+                       sp_pred: bool = True) -> Callable:
+    """``step(state, batch) -> (state, loss)``: the reader's forward pass
+    over a collated batch already on the model's device (``net_inputs``
+    with the supervision keys), ``qa_loss``, backward and one optimizer
+    update of ``state`` (in place)."""
+
+    def step(state, batch):
+        outputs = state.model(batch)
+        return state, _apply(state, qa_loss(outputs, batch,
+                                            sp_weight=sp_weight,
+                                            sp_pred=sp_pred))
+
+    return step
 
 
 def _device_of(model: torch.nn.Module) -> torch.device:

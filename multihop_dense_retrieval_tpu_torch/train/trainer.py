@@ -39,6 +39,7 @@ import torch
 import torch.nn as nn
 
 from ..core.config import RetrieverTrainConfig
+from ..models.export import unified_reference_names
 from ..models.retriever import UnifiedRetriever
 from . import losses
 
@@ -527,16 +528,7 @@ def reference_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
     sd = model.state_dict()
     if not isinstance(model, UnifiedRetriever):
         return sd
-    renames = (("encoder.", "encoder_c."), ("stop_head.", "stop."),
-               ("pooler.", "encoder_c.pooler.dense."))
-    out = {}
-    for key, val in sd.items():
-        for old, new in renames:
-            if key.startswith(old):
-                key = new + key[len(old):]
-                break
-        out[key] = val
-    return out
+    return unified_reference_names(sd)
 
 
 class RetrieverTrainer:

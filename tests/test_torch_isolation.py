@@ -175,3 +175,25 @@ def test_qa_cli_without_device_raises_when_cuda_is_absent(monkeypatch,
         argv = ["--data-dir", str(tmp_path)]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(argv + ["--tokenizer", "hash"])
+
+
+@pytest.mark.parametrize("cli", ["train_qa", "train_single", "launch"])
+def test_training_cli_without_device_raises_when_cuda_is_absent(
+        monkeypatch, tmp_path, cli):
+    """The reader trainer, the single-hop trainer and the grid launcher
+    (through train_retriever) default to --device cuda: without CUDA they
+    raise before reading anything, and never train on the CPU on their
+    own."""
+    import importlib
+
+    main = importlib.import_module(f"{PORT}.cli.{cli}").main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    missing = str(tmp_path / "missing.jsonl")
+    argv = ["--predict-file", missing, "--tokenizer", "hash",
+            "--model-name", "tiny"]
+    if cli != "train_qa":
+        argv += ["--train-file", missing]
+    if cli == "launch":
+        argv += ["--output-dir", str(tmp_path / "sweep")]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(argv)

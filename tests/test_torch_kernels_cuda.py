@@ -1015,3 +1015,118 @@ def test_train_step_on_card_matches_cpu(dev):
         bound = adam_bound(g * clip, (1e-6 + 1e-4 * scale) * clip,
                            pc[name], lr, eps)
         assert ((pg[name] - pc[name]).abs() / lr <= bound).all(), name
+
+
+def test_reader_train_step_on_card_matches_cpu(dev):
+    """chip_smoke.py's leg k0 as a test: one reader train step (2 layers at
+    ELECTRA-large width, fp32 compute, TF32 off, B=6 ragged up to 512, sp
+    on) on the card and on the CPU from the same weights and batch: the
+    loss within 1e-5 relative, the gradients within 1e-6 + 1e-4 of each
+    tensor's largest, each parameter within ``chip_smoke.adam_bound``."""
+    import chip_smoke
+    from multihop_dense_retrieval_tpu_torch import models
+    from multihop_dense_retrieval_tpu_torch.core import config
+    from multihop_dense_retrieval_tpu_torch.train import qa as TQA
+    from multihop_dense_retrieval_tpu_torch.train import trainer as T
+
+    r = chip_smoke.check_reader_step_on_card(T, TQA, models, config, dev,
+                                             "test")
+    assert r["worst_g"][0] <= 1 and r["worst_p"][0] <= 1
+
+
+def _near_tie_index(seed, b=192, r=128, d=768, cand=512, n_chunks=64,
+                    k_chunks=8):
+    """A bf16 index and queries on which the PCA certificate has no slack
+    but kernel 3's own error: rows and queries live in the first ``r``
+    coordinates and the rotation is the identity there, so the residual
+    and projection-storage bounds are 0 and the queries (bf16 values) lose
+    nothing to rounding.  Each query has ``k_chunks`` + 1 planted rows in
+    distinct chunks whose float64 scores tie to within m·ε (m in -4..4,
+    ε from 2^-14 to 2^-25 of the score, exact ties included), set through
+    three control coordinates whose query weights are 1, 2^-8 and 2^-16;
+    every other row scores far below them.  The certificate boundary (the
+    k_chunks-th against the next chunk's maximum) therefore falls inside
+    these near ties."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    bf = mips.bf16_round
+    x = np.zeros((n_chunks * cand, d), np.float32)
+    x[:, :r] = bf(rng.randn(len(x), r) * 0.1)
+    q = np.zeros((b, d), np.float32)
+    q[:, :r - 3] = bf(rng.randn(b, r - 3))
+    q[:, r - 3:r] = [1.0, 2.0 ** -8, 2.0 ** -16]
+    used = set()
+    for i in range(b):
+        rows = []
+        for c in rng.choice(n_chunks, k_chunks + 1, replace=False):
+            row = c * cand + rng.randint(cand)
+            while row in used:
+                row = c * cand + rng.randint(cand)
+            used.add(row)
+            rows.append(row)
+        base = bf(0.5 * q[i, :r - 3] + 0.05 * rng.randn(k_chunks + 1, r - 3))
+        part = base.astype(np.float64) @ q[i, :r - 3].astype(np.float64)
+        target = part.max() + 1.0
+        eps = target * 2.0 ** -(14 + i % 12)
+        need = target + rng.randint(-4, 5, size=k_chunks + 1) * eps - part
+        y1 = bf(need)
+        need = need - y1
+        y2 = bf(need * 2.0 ** 8)
+        need = need - y2.astype(np.float64) * 2.0 ** -8
+        y3 = bf(need * 2.0 ** 16)
+        x[rows, :r - 3] = base
+        x[rows, r - 3], x[rows, r - 2], x[rows, r - 1] = y1, y2, y3
+    return x, q, np.eye(d, r, dtype=np.float32)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_pca_certificate_holds_at_kernel_3_near_ties(dev, monkeypatch, seed):
+    """Kernel 3's tensor-core chunk maxima against the certificate of
+    ``mips_topk_pca`` (bf16 index, kernels 3 and 5): with every other
+    bound term 0 and planted near ties across the certificate boundary,
+    no certified query may have a row outside the chunks it rescanned
+    whose float64 score is above the value it returned.  The queries
+    whose margin at the boundary lies within kernel 3's largest error on
+    this data (the cases the test can see; there must be some) and the
+    certified ones are printed.  Without kernel 3's error bound in the
+    upper bounds every seed here certified wrong queries (three at seed
+    0, margins down to -1.0e-5 at scores near 63)."""
+    import numpy as np
+
+    cand = 512
+    x, q, rot = _near_tie_index(seed, cand=cand)
+    proj, bounds = mips.build_pca_prefilter(x, rot, cand_rows=cand)
+    assert bounds[:2].max() < 1e-30       # no residual, no storage error
+    seen = {}
+    rescan = mips.rescan
+
+    def recorded(chunk_ids, *args):
+        seen["chunks"] = chunk_ids.cpu().numpy()
+        return rescan(chunk_ids, *args)
+
+    monkeypatch.setattr(mips, "rescan", recorded)
+    proj_d = torch.from_numpy(proj).to(dev, torch.bfloat16)
+    vals, ids, cert = mips.mips_topk_pca(
+        torch.from_numpy(x).to(dev, torch.bfloat16), proj_d,
+        torch.from_numpy(rot).to(dev), torch.from_numpy(bounds).to(dev),
+        torch.from_numpy(q).to(dev), 1, k_chunks=8, cand_rows=cand)
+    maxp = mips.pca_chunk_max(torch.from_numpy(q[:, :rot.shape[1]]).to(
+        dev, torch.bfloat16), proj_d, cand).cpu().numpy()
+    torch.cuda.synchronize()
+    exact = (q.astype(np.float64) @ x.astype(np.float64).T).reshape(
+        len(q), -1, cand).max(2)                       # (B, chunks)
+    err = np.abs(maxp - exact).max()
+    outside = exact.copy()
+    np.put_along_axis(outside, seen["chunks"].astype(np.int64), -np.inf,
+                      axis=1)
+    v = vals.cpu().numpy()[:, 0].astype(np.float64)
+    cert = cert.cpu().numpy()
+    margin = v - outside.max(1)
+    sharp = int((np.abs(margin) < err).sum())
+    print(f"kernel 3 max error {err:.3g}; {sharp} of {len(q)} queries "
+          f"within it of the next chunk; certified {cert.sum()}, smallest "
+          f"certified margin {margin[cert].min():.3g}")
+    assert cert.any() and sharp > 0
+    bad = np.flatnonzero(cert & (margin < 0))
+    assert not len(bad), (bad, margin[bad])

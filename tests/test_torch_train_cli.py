@@ -184,17 +184,55 @@ def test_default_device_without_cuda_raises(monkeypatch, tmp_path, cli):
                   "--tokenizer", "hash", "--model-name", "tiny"])
 
 
-@pytest.mark.parametrize("name", ["train_retriever", "train_momentum"])
-def test_flags_match_the_jax_clis(name, capsys):
-    """The port's CLI has every flag of the JAX CLI, and --device."""
+def _help_flags(pkg, name, capsys, options_only=False):
+    """The flags a CLI's --help names (``options_only``: those of its
+    option lines, not those its description mentions)."""
     import importlib
 
-    def flags(pkg):
-        main = importlib.import_module(f"{pkg}.cli.{name}").main
-        with pytest.raises(SystemExit):
-            main(["--help"])
-        return set(re.findall(r"--[a-z][a-z0-9-]*", capsys.readouterr().out))
+    main = importlib.import_module(f"{pkg}.cli.{name}").main
+    with pytest.raises(SystemExit):
+        main(["--help"])
+    pattern = (r"^\s+(?:-\w, )?(--[a-z][a-z0-9-]*)" if options_only
+               else r"--[a-z][a-z0-9-]*")
+    return set(re.findall(pattern, capsys.readouterr().out, re.M))
 
-    port = flags("multihop_dense_retrieval_tpu_torch")
-    assert port - flags("multihop_dense_retrieval_tpu") == {"--device"}
-    assert "--queue-size" in port or name == "train_retriever"
+
+@pytest.mark.parametrize("name", ["train_retriever", "train_momentum",
+                                  "train_single", "train_qa", "launch"])
+def test_flags_match_the_jax_clis(name, capsys):
+    """The port's CLI has every flag of the JAX CLI, and --device (the
+    launcher's own flags are the grid's; --device is one of the base
+    train arguments it hands to train_retriever)."""
+    port = _help_flags("multihop_dense_retrieval_tpu_torch", name, capsys)
+    jax_flags = _help_flags("multihop_dense_retrieval_tpu", name, capsys)
+    assert jax_flags <= port
+    assert port - jax_flags == ({"--device"} if name != "launch" else set())
+    assert "--queue-size" in port or name not in ("train_momentum",
+                                                  "train_single")
+
+
+def test_export_ckpt_flags_match_the_jax_cli(tmp_path, capsys):
+    """export_ckpt has the JAX CLI's flags; its one difference is what
+    --checkpoint takes: the port's .pt (the JAX CLI refuses one and reads
+    orbax directories, which the port's refuses)."""
+    from multihop_dense_retrieval_tpu.cli import export_ckpt as jexport_ckpt
+    from multihop_dense_retrieval_tpu_torch.cli import export_ckpt
+
+    flags = [_help_flags(pkg, "export_ckpt", capsys, options_only=True)
+             for pkg in ("multihop_dense_retrieval_tpu_torch",
+                         "multihop_dense_retrieval_tpu")]
+    assert flags[0] == flags[1] == {"--help", "--checkpoint", "--arch",
+                                    "--out"}
+    model = common.init_retriever(common.resolve_encoder_config("tiny"),
+                                  device="cpu")
+    pt = str(tmp_path / "checkpoint_best.pt")
+    ckpt.save_pytree(pt, model.state_dict())
+    argv = ["--checkpoint", pt, "--arch", "mhop", "--out",
+            str(tmp_path / "out.pt")]
+    with pytest.raises(SystemExit, match="already a torch state dict"):
+        jexport_ckpt.main(argv)
+    assert "encoder.pooler.dense.weight" in export_ckpt.main(argv)
+    os.makedirs(tmp_path / "orbax_dir")
+    argv[1] = str(tmp_path / "orbax_dir")
+    with pytest.raises(SystemExit, match="orbax"):
+        export_ckpt.main(argv)
