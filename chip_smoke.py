@@ -1,6 +1,7 @@
 """Build the PyTorch port's CUDA kernels and drive its search, corpus-
 encoding, question-answering and training paths (the retriever, reader
-and single-hop trainers, the grid launcher, checkpoint export) on one
+and single-hop trainers, the grid launcher, checkpoint export), its
+single-hop bulk retrieval and offline-eval CLIs and its quickstart on one
 GPU.  Run from the repository root:  python3 chip_smoke.py
 
 Phases (each prints a line and flushes; any failure exits non-zero):
@@ -153,6 +154,31 @@ Phases (each prints a line and flushes; any failure exits non-zero):
                   j3's rows, run twice (the second skips both points);
                   cli/export_ckpt --arch mhop of j3's stage-1 checkpoint
                   serves its vectors bit for bit.
+               l. single-hop bulk retrieval: cli/eval_retrieval.main at
+                  its defaults (batch 256, top 100, max_q_len 50), 1,024
+                  questions whose own vectors (twice over) are planted
+                  with DenseIndex.replace over 1,024 documents whose
+                  titles are the gold answers and SP titles: recall@k
+                  1.0 at every k.  l1 over leg c's directory (262,144
+                  bf16 rows): exact (kernels 6 + 5: 2048-row chunks, kc
+                  = 100) and --pca (3 + 5); l2 over leg e2's (32,768 int8
+                  rows): exact (7 + 4: 16 chunks, every query on every
+                  chunk) and --pca (3 + 4); l3 --topk 5 over both
+                  (kernels 2, 1).  Each run's launch counts, its q/s,
+                  every kernel on its tensor-core template, and every
+                  MIPS call the CLI made (the names it imported) held to
+                  the plain exact scan (int8 in the search's epilogue
+                  order: values and ids bit-equal; bf16 rtol 1e-5; a
+                  --pca call's certified queries: the exact top 100).
+                  l2 again under utils/profiling.device_trace: the trace
+                  names the launched kernels.  Kernels 4-7 timed at
+                  these k = 100 shapes against their twins, bounds and
+                  library calls.  cli/eval_reranked over leg g2's saved
+                  predictions (every question, finite metrics) and
+                  cli/prep's three subcommands (host only).
+               m. examples/quickstart_torch.py on the card: the seven
+                  steps at the tiny preset; 8 questions answered, the
+                  exported .pt loads back; its seconds.
   4. result  — one JSON line of kernel records, the card's name and power
                limit, and the final {"ok": true, ...} line.
 Exits with code 2 and no result when CUDA is not available.
@@ -224,6 +250,9 @@ K_B, K_LEN, K_SLOTS, K_SENTS = 8, 512, 10, 40
 K_WARM, K_ITERS = 2, 6
 K_QA_ROWS, K_QA_DEV = 64, 16
 K3_B, K3_ROWS = 32, 128
+# leg l (single-hop bulk retrieval): questions, and cli/eval_retrieval's
+# defaults (batch, top k, query width)
+N_BULK_Q, BULK_BATCH, BULK_K, BULK_Q_LEN = 1024, 256, 100, 50
 # (what, B, Wq, W, dtype) of the kernel-8 checks; the first is the record
 ATTN_CASES = (("corpus square", C_BATCH, C_LEN, C_LEN, torch.bfloat16),
               ("corpus cls layer", C_BATCH, 1, C_LEN, torch.bfloat16),
@@ -363,25 +392,8 @@ def check_kernels(mips, dev, gen):
 
     # kernel 7: two-phase chunk maxima over the int8 index (leg d's shape)
     q8, _ = mips.quantize_rows(torch.randn(B_I8, D, device=dev, generator=gen))
-    ROUTES.pop("chunk_max_int8", None)
-    kout = mips.chunk_max_int8(q8, idx8, dsc, C_I8, n_valid)
-    pout = mips.chunk_max_plain(q8, idx8, C_I8, n_valid, dsc)
-    torch.cuda.synchronize()
-    assert torch.equal(kout, pout), "kernel 7 disagrees with its plain version"
-    tmpl = template("chunk_max_int8")
-    assert tmpl == "mma", f"kernel 7 took the {tmpl} template"
-    ms = cuda_ms(lambda: mips.chunk_max_int8(q8, idx8, dsc, C_I8, n_valid), 10)
-    plain = cuda_ms(lambda: mips.chunk_max_plain(q8, idx8, C_I8, n_valid, dsc),
-                    2)
-    lib = _library(lambda: (torch._int_mm(q8, idx8.t()).float()
-                            * dsc[None, :]).view(B_I8, -1, C_I8).amax(-1))
-    bnd = bound_ms(N * D + N * 4 + B_I8 * D + B_I8 * (N // C_I8) * 4,
-                   2 * B_I8 * N * D, "int8")
-    say(f"  kernel 7 record (B={B_I8}, N={N}, C={C_I8}, {tmpl}): {ms:.4f} ms "
-        f"(plain {plain:.4f} ms, _int_mm + amax {lib:.4f} ms, bound "
-        f"{bnd[0]:.4f} ms by {bnd[1]}, {bnd[0] / ms:.3f} of it); bit-equal")
-    recs["chunk_max_int8"] = dict(err=0.0, ms=ms, plain_ms=plain, bound=bnd,
-                                  library_ms=lib, template=tmpl)
+    recs["chunk_max_int8"] = check_chunk_max(mips, q8, idx8, dsc, C_I8,
+                                             n_valid, "record")
     del idx8, q8
 
     # kernel 2: bf16 scan + top-1 (the record), and the FEVER CLI's hop 1
@@ -474,6 +486,50 @@ def check_rescan(mips, q, index, dsc, cand, kc, n_valid, gen):
                 template=tmpl)
 
 
+def check_chunk_max(mips, q, index, dsc, chunk, n_valid, what):
+    """Kernel 6 (bf16) or 7 (int8, ``dsc`` given: bit-equal) against its
+    plain twin on its tensor-core template (kernel 6 within 1e-3 at D=768
+    on N(0,1) data), timed beside the twin, a library yardstick (``mm`` or
+    ``_int_mm`` with the scales, then ``amax``) and the bound."""
+    b, n = q.shape[0], index.shape[0]
+    int8 = dsc is not None
+    name = "chunk_max_int8" if int8 else "chunk_max"
+
+    def kernel():
+        return (mips.chunk_max_int8(q, index, dsc, chunk, n_valid) if int8
+                else mips.chunk_max(q, index, chunk, n_valid))
+
+    def library():
+        s = (torch._int_mm(q, index.t()).float() * dsc[None, :] if int8
+             else q @ index.t())
+        return s.view(b, -1, chunk).amax(-1)
+
+    ROUTES.pop(name, None)
+    kout = kernel()
+    pout = mips.chunk_max_plain(q, index, chunk, n_valid, dsc)
+    torch.cuda.synchronize()
+    tmpl = template(name)
+    assert tmpl == "mma", f"{name} took the {tmpl} template at {what}"
+    err = (kout - pout).abs().max().item()
+    assert torch.equal(kout, pout) if int8 else err <= 1e-3, \
+        f"{name} off by {err} at {what}"
+    ms = cuda_ms(kernel, 10)
+    plain = cuda_ms(lambda: mips.chunk_max_plain(q, index, chunk, n_valid,
+                                                 dsc), 2)
+    lib = _library(library)
+    bnd = bound_ms(n * index.shape[1] * index.element_size()
+                   + (n * 4 if int8 else 0) + q.numel() * q.element_size()
+                   + b * (n // chunk) * 4, 2 * b * n * index.shape[1],
+                   "int8" if int8 else "bf16")
+    say(f"  kernel {7 if int8 else 6} at {what} (B={b}, N={n}, C={chunk}, "
+        f"{tmpl}): {ms:.4f} ms (plain {plain:.4f} ms, "
+        f"{'_int_mm' if int8 else 'mm'} + amax {lib:.4f} ms, bound "
+        f"{bnd[0]:.4f} ms by {bnd[1]}, {bnd[0] / ms:.3f} of it); "
+        + ("bit-equal" if int8 else f"max abs err {err:.3g}"))
+    return dict(err=err, ms=ms, plain_ms=plain, bound=bnd, library_ms=lib,
+                template=tmpl)
+
+
 def check_scan(mips, q32, idxb, k, n_valid, what):
     """Kernel 2 at one shape against its plain version: values within 1e-3
     absolute and rtol 1e-5 (the kept rows rescored in fp32: fp32 sums of
@@ -540,20 +596,8 @@ def check_float_two_phase(mips, dev, gen, recs):
     n_valid = N_F - 1000
     idxb = torch.randn(N_F, D, device=dev, generator=gen).to(torch.bfloat16)
     qb = torch.randn(B_F, D, device=dev, generator=gen).to(torch.bfloat16)
-    ROUTES.pop("chunk_max", None)
-    kout = mips.chunk_max(qb, idxb, C_F, n_valid)
-    pout = mips.chunk_max_plain(qb, idxb, C_F, n_valid)
-    torch.cuda.synchronize()
-    tmpl = template("chunk_max")
-    err = (kout - pout).abs().max().item()
-    assert err <= 1e-3, f"kernel 6 off by {err} (tolerance 1e-3)"
-    ms = cuda_ms(lambda: mips.chunk_max(qb, idxb, C_F, n_valid), 10)
-    plain = cuda_ms(lambda: mips.chunk_max_plain(qb, idxb, C_F, n_valid), 3)
-    lib = _library(lambda: (qb @ idxb.t()).view(B_F, -1, C_F).amax(-1))
-    bnd = bound_ms(N_F * D * 2 + B_F * D * 2 + B_F * (N_F // C_F) * 4,
-                   2 * B_F * N_F * D, "bf16")
-    recs["chunk_max"] = dict(err=err, ms=ms, plain_ms=plain, bound=bnd,
-                             library_ms=lib, template=tmpl)
+    recs["chunk_max"] = check_chunk_max(mips, qb, idxb, None, C_F, n_valid,
+                                        "the FEVER shape")
 
     # kernel 5 at its two shapes: two-phase phase 2 (20 chunks of 2048
     # rows, the record in the kernels line) and the PCA rescan (16 chunks
@@ -1056,17 +1100,22 @@ def run_main_path(port, mips, dev, gen, smi, table_path=None, iters=50):
         launches["bf16"]["mips_scan"], "int8 kernels ran on the bf16 path"
     del bf16_engine, bf16_index, text_ids, text_lens, empty
 
-    launches.update(run_fever_cli(port, model, mips, dev, gen, smi))
-    # leg g serves from leg e2's index directory and checkpoint
-    with tempfile.TemporaryDirectory() as tmp:
-        launches.update(run_corpus_encoding(port, model.state_dict(), mips,
-                                            dev, smi, tmp))
-        launches.update(run_qa_serving(mips, dev, smi, tmp))
-        launches.update(run_hnsw_tier(port, mips, dev, smi, tmp))
+    # leg l searches leg c's directory (in ftmp) and leg e2's, and scores
+    # leg g2's predictions; leg g serves from e2's directory and checkpoint
+    with tempfile.TemporaryDirectory() as ftmp:
+        launches.update(run_fever_cli(port, model, mips, dev, gen, smi, ftmp))
+        with tempfile.TemporaryDirectory() as tmp:
+            launches.update(run_corpus_encoding(port, model.state_dict(),
+                                                mips, dev, smi, tmp))
+            launches.update(run_qa_serving(mips, dev, smi, tmp))
+            launches.update(run_hnsw_tier(port, mips, dev, smi, tmp))
+            launches.update(run_bulk_retrieval(mips, dev, gen, smi, ftmp,
+                                               tmp))
     # leg k exports leg j's stage-1 checkpoint and reuses its rows
     with tempfile.TemporaryDirectory() as tmp:
         launches.update(run_training(port, mips, dev, smi, tmp))
         launches.update(run_reader_training(port, mips, dev, smi, tmp))
+    launches.update(run_quickstart(mips, dev, smi))
     return launches
 
 
@@ -1429,6 +1478,393 @@ def run_hnsw_tier(port, mips, dev, smi, tmp):
         f"[{smi}]")
     assert recall >= 0.85, f"HNSW hop-1 recall@{B4} {recall} < 0.85"
     return {}
+
+
+# ---- leg l: single-hop bulk retrieval ------------------------------------------
+
+
+def bulk_questions(rng, first_doc):
+    """N_BULK_Q questions of 4-40 words (each fits --max-q-len 50 under the
+    hash tokenizer, a trailing "?" the CLI strips); question i's gold
+    answer and SP title are document first_doc + i's title, "doc <id>"
+    (a bare-string answer for every third question)."""
+    rows = []
+    for i in range(N_BULK_Q):
+        title = f"doc {first_doc + i}"
+        words = " ".join(f"l{w}" for w in rng.randint(
+            10 ** 6, size=rng.randint(4, 41)))
+        rows.append({"question": words + "?", "sp": [title],
+                     "answer": title if i % 3 == 0 else [title]})
+    return rows
+
+
+def plant_questions(index_dir, ckpt, rows, first_doc, dev):
+    """Encode the questions as cli/eval_retrieval does (hash tokenizer,
+    "?" stripped, --max-q-len 50, batches of 256) with the retriever at
+    ``ckpt``, and write twice each question's vector over document
+    first_doc + i of ``index_dir`` with DenseIndex.replace (the stored row,
+    its int8 scale, PCA projection and bounds follow), then save the index
+    back.  At twice its norm the planted row is its question's exact top-1
+    whatever the norms of the other rows (e2's are the same encoder's
+    passage vectors)."""
+    from multihop_dense_retrieval_tpu_torch.cli import common
+    from multihop_dense_retrieval_tpu_torch.index import DenseIndex
+
+    tok = common.resolve_tokenizer("hash")
+    model = common.init_retriever(common.resolve_encoder_config(
+        "roberta-base"), checkpoint=ckpt, device=dev)
+    qs = [r["question"][:-1] for r in rows]
+    vecs = []
+    with torch.inference_mode():
+        for s in range(0, len(qs), BULK_BATCH):
+            enc = tok.encode_batch_one(qs[s:s + BULK_BATCH], BULK_Q_LEN)
+            vecs.append(model.encode_seq(
+                torch.from_numpy(enc["input_ids"]).to(dev),
+                torch.from_numpy(enc["attention_mask"]).to(dev)
+            ).float().cpu().numpy())
+    vecs = 2 * np.concatenate(vecs)
+    index = DenseIndex.load(f"{index_dir}/index.npz", device=dev)
+    for i, v in enumerate(vecs):
+        index = index.replace(first_doc + i, v[None])
+    index.save(f"{index_dir}/index.npz")
+    with open(f"{index_dir}/bulk_qas.jsonl", "w") as f:
+        for r in rows:
+            f.write(json.dumps(r) + "\n")
+    del model, index
+
+
+def run_retrieval_cli(cli, argv, mips):
+    """cli/eval_retrieval.main(argv) with its own launch counts; every call
+    of the MIPS functions the CLI module imported (mips_topk,
+    mips_topk_pca) is recorded as (name, args, kwargs, result).  Returns
+    (metrics, counts, calls, the CLI's q/s log line)."""
+    names = ("mips_topk", "mips_topk_pca")
+    orig = {n: getattr(cli, n) for n in names}
+    calls = []
+
+    def recorded(name):
+        def call(*a, **kw):
+            res = orig[name](*a, **kw)
+            calls.append((name, a, kw, res))
+            return res
+        return call
+
+    lines = _Lines()
+    logger = logging.getLogger("mdr_torch")
+    logger.addHandler(lines)
+    for n in names:
+        setattr(cli, n, recorded(n))
+    torch.cuda.synchronize()
+    mips.reset_launch_counts()
+    printed = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(printed):
+            out = cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        for n in names:
+            setattr(cli, n, orig[n])
+        logger.removeHandler(lines)
+    counts = leg_counts(mips)
+    line = json.loads(printed.getvalue().strip().splitlines()[-1])
+    assert line == out, (line, out)
+    return out, counts, calls, [x for x in lines.lines if "q/s" in x][-1]
+
+
+def hold_int8_to_exact_scan(q, vals, docs, vecs, dsc, n_valid, mips,
+                            rescan_order, rows=None):
+    """One int8 search against the exact scan on its own fp32 query
+    vectors, in the search's epilogue order (as leg d does): the rescans
+    of the two-phase and PCA searches scale (raw * d_scale) * q_scale,
+    kernel 1 (raw * q_scale) * d_scale.  Values bit-equal, ids equal apart
+    from exact ties.  `rows` limits the check to those queries.  Returns
+    the queries held."""
+    qi, qs = mips.quantize_rows(q)
+    qf = qi.float()
+
+    def epilogue(raw, d):
+        return raw * d * qs[:, None] if rescan_order else \
+            raw * qs[:, None] * d
+
+    ev, ei = mips._scan_topk_plain(
+        lambda s, e: epilogue(qf @ vecs[s:e].float().t(), dsc[s:e][None, :]),
+        vecs.shape[0], q.shape[0], vals.shape[1], n_valid, vecs.device)
+    own = epilogue((qf[:, None, :] * vecs[docs.long()].float()).sum(-1),
+                   dsc[docs.long()])
+    if rows is not None:
+        vals, docs, ev, ei, own = (t[rows] for t in (vals, docs, ev, ei, own))
+    assert torch.equal(vals, ev), "int8 values differ from the exact scan"
+    assert bool(((docs == ei) | (own == ev)).all()), \
+        "int8 ids differ from the exact scan beyond exact ties"
+    return int(vals.shape[0])
+
+
+def hold_bulk_calls(calls, mips):
+    """Every recorded MIPS call of a run held to the plain exact scan on its
+    own query vectors (a --pca call: its certified queries).  Returns
+    (queries held, certified, PCA queries)."""
+    held = cert_n = pca_n = 0
+    for name, a, kw, res in calls:
+        if name == "mips_topk":
+            vecs, q, k = a[:3]
+            vals, docs = res
+            cert = None
+            two_phase = mips.two_phase_chunk(*vecs.shape, q.shape[0], 1, k,
+                                             kw["chunk_rows"])
+        else:
+            vecs, q = a[0], a[4]
+            vals, docs, cert = res
+            cert_n += int(cert.sum())
+            pca_n += cert.numel()
+            two_phase = True
+        assert bool(torch.isfinite(vals).all())
+        dsc, n_valid = kw["doc_scales"], kw["n_valid"]
+        if dsc is not None:
+            held += hold_int8_to_exact_scan(q, vals, docs, vecs, dsc,
+                                            n_valid, mips, bool(two_phase),
+                                            cert)
+        else:
+            held += hold_to_exact_scan(q, vals, docs, vecs, mips, cert)[0]
+    return held, cert_n, pca_n
+
+
+def time_top100_kernels(mips, dev, gen, smi):
+    """Kernels 4-7 at leg l's k = 100 shapes, on random rows (N(0,1) bf16,
+    full-range int8) of its directories' sizes, each against its twin:
+    l2 (B = 256 over 32,768 int8 rows, 16 chunks of 2048, every query on
+    every chunk) kernels 7 and 4; l1 (B = 256 over 262,144 bf16 rows, 128
+    chunks of 2048, kc = 100) kernels 6 and 5."""
+    recs = {}
+    n8, nb = N_DOCS, N_F
+    # the chunk mips_topk takes at these shapes (2048 rows for both)
+    c8 = mips.two_phase_chunk(n8, BULK_BATCH, D, 1, BULK_K)
+    cb = mips.two_phase_chunk(nb, BULK_BATCH, D, 2, BULK_K)
+    idx8 = torch.randint(-127, 128, (n8, D), device=dev, generator=gen,
+                         dtype=torch.int8)
+    dsc = torch.rand(n8, device=dev, generator=gen) * 0.02 + 1e-3
+    q8, _ = mips.quantize_rows(torch.randn(BULK_BATCH, D, device=dev,
+                                           generator=gen))
+    recs["chunk_max_int8"] = check_chunk_max(mips, q8, idx8, dsc, c8,
+                                             n8 - 300, "leg l2, k=100")
+    recs["pca_rescan_int8"] = check_rescan(mips, q8, idx8, dsc, c8,
+                                           n8 // c8, n8 - 300, gen)
+    del idx8, dsc
+    idxb = torch.randn(nb, D, device=dev, generator=gen).to(torch.bfloat16)
+    qb = torch.randn(BULK_BATCH, D, device=dev, generator=gen
+                     ).to(torch.bfloat16)
+    recs["chunk_max"] = check_chunk_max(mips, qb, idxb, None, cb, nb - 1000,
+                                        "leg l1, k=100")
+    recs["rescan"] = check_rescan(mips, qb, idxb, None, cb, BULK_K,
+                                  nb - 1000, gen)
+    say("leg l kernels at k=100: " + json.dumps(
+        {k: {"ms": r["ms"], "plain_ms": r["plain_ms"],
+             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+             "library_ms": r["library_ms"], "max_abs_err": r["err"]}
+         for k, r in recs.items()}) + f" [{smi}]")
+
+
+# kernel -> a substring of its CUDA kernels' names in a profiler trace
+TRACE_NAMES = {"mips_scan_int8": "mips_scan_i8_kernel",
+               "mips_scan": "mips_scan_mma_kernel",
+               "pca_chunk_max": "chunk_max_", "chunk_max": "chunk_max_",
+               "chunk_max_int8": "chunk_max_i8_kernel",
+               "pca_rescan_int8": "rescan_mma_kernel",
+               "rescan": "rescan_mma_kernel"}
+
+
+def run_prep_and_reranked(tmp, smi):
+    """Leg l's host-only CLIs.  cli/eval_reranked over leg g2's
+    predictions (cli/end2end --save-path) and its questions: every question
+    scored, finite metrics.  cli/prep's three subcommands on a synthetic
+    raw HotpotQA file of 8 questions, a chain dump of those questions (in
+    another order) and e2's id2doc.json."""
+    from multihop_dense_retrieval_tpu_torch.cli import eval_reranked, prep
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = eval_reranked.main([f"{tmp}/g2_preds.jsonl", f"{tmp}/qas.jsonl"])
+    assert res["all"]["n"] == N_ANSWERS, res
+    assert all(np.isfinite(v) for d in res.values() for v in d.values())
+    say(f"  l cli/eval_reranked over g2's {N_ANSWERS} predictions: "
+        f"{json.dumps(res['overall'])}")
+    raw, retrieved = [], []
+    for i in range(8):
+        t = [f"P{i}a", f"P{i}b", f"P{i}c"]
+        raw.append({"_id": f"r{i}", "question": f"which {i}?",
+                    "answer": f"ans{i}", "type": ["bridge", "comparison"][i % 2],
+                    "context": [[t[0], [f"ans{i} here.", "more."]],
+                                [t[1], ["second hop."]], [t[2], ["noise."]]],
+                    "supporting_facts": [[t[0], 0], [t[1], 0]]})
+        retrieved.append({"question": f"which {i}?", "candidate_chains": [
+            [{"title": t[0], "text": ""}, {"title": t[2], "text": ""}]]})
+    with open(f"{tmp}/raw_hotpot.json", "w") as f:
+        json.dump(raw, f)
+    with open(f"{tmp}/chains.jsonl", "w") as f:
+        for r in retrieved[::-1]:
+            f.write(json.dumps(r) + "\n")
+    with contextlib.redirect_stdout(io.StringIO()):
+        prep.main(["add-sp-label", f"{tmp}/raw_hotpot.json",
+                   f"{tmp}/chains.jsonl", f"{tmp}/with_sp.jsonl"])
+        prep.main(["hotpot-to-mhop", f"{tmp}/raw_hotpot.json",
+                   f"{tmp}/mhop.jsonl"])
+        prep.main(["index-id-map", f"{tmp}/e2/id2doc.json",
+                   f"{tmp}/idmap.json"])
+    with_sp = [json.loads(l) for l in open(f"{tmp}/with_sp.jsonl")]
+    mhop = [json.loads(l) for l in open(f"{tmp}/mhop.jsonl")]
+    assert [r["question"] for r in with_sp] == \
+        [r["question"] for r in retrieved[::-1]]
+    assert all(len(r["sp"]) == 2 and r["sp"][0]["sp_sent_ids"] == [0]
+               for r in with_sp)
+    assert len(mhop) == 8 and all(r["bridge"] == r["sp"][0] for r in
+                                  mhop if r["type"] == "bridge")
+    with open(f"{tmp}/idmap.json") as f:
+        assert len(json.load(f)) == N_DOCS
+    say(f"  l cli/prep: add-sp-label {len(with_sp)} rows, hotpot-to-mhop "
+        f"{len(mhop)} rows, index-id-map {N_DOCS} ids")
+
+
+def run_bulk_retrieval(mips, dev, gen, smi, ftmp, tmp):
+    """Leg (l): cli/eval_retrieval.main, the single-hop bulk entry point, at
+    roberta-base width with the legs' seeded weights, over N_BULK_Q
+    questions at the CLI's defaults (batch 256, top 100, max_q_len 50).
+    The questions' own vectors (twice over) are planted over 1,024
+    documents of each directory (plant_questions), whose titles are their
+    gold answers and SP titles, so recall@k must be 1.0 at every k.
+    l1: leg c's directory (262,144 bf16 rows, PCA R=128) in ``ftmp``,
+    exact (kernels 6 + 5: 128 chunks of 2048 rows, kc = 100) and --pca
+    (kernels 3 + 5).  l2: leg e2's directory (32,768 int8 rows, PCA) in
+    ``tmp``, exact (kernels 7 + 4: 16 chunks of 2048, every query on every
+    chunk) and --pca (kernels 3 + 4).  l3: --topk 5 over both (kernels 2
+    and 1).  Each run has its own launch counts and every kernel its
+    tensor-core template; every MIPS call is held to the plain exact scan
+    (int8: ids bit-equal; bf16: hold_to_exact_scan's rtol 1e-5), a --pca
+    call's certified queries included.  l2's exact run is repeated inside
+    utils/profiling.device_trace, whose trace must name the kernels it
+    launched.  Then kernels 4-7 at these k = 100 shapes
+    (time_top100_kernels), cli/eval_reranked and cli/prep
+    (run_prep_and_reranked)."""
+    from multihop_dense_retrieval_tpu_torch.cli import eval_retrieval as cli
+    from multihop_dense_retrieval_tpu_torch.utils import profiling
+
+    out = {}
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(31)
+    # (directory, first planted document, the retriever it was encoded by)
+    dirs = {"l1": (ftmp, N_F // 8, f"{ftmp}/model.pt"),
+            "l2": (f"{tmp}/e2", N_DOCS // 2, f"{tmp}/model.pt")}
+    for d, first, ckpt in dirs.values():
+        plant_questions(d, ckpt, bulk_questions(rng, first), first, dev)
+    say(f"  leg l set-up: {N_BULK_Q} questions planted in each directory in "
+        f"{time.perf_counter() - t0:.1f} s")
+    runs = (("bulk_l1_exact", "l1", [], ("chunk_max", "rescan")),
+            ("bulk_l1_pca", "l1", ["--pca"], ("pca_chunk_max", "rescan")),
+            ("bulk_l2_exact", "l2", [], ("chunk_max_int8", "pca_rescan_int8")),
+            ("bulk_l2_pca", "l2", ["--pca"],
+             ("pca_chunk_max", "pca_rescan_int8")),
+            ("bulk_l3_bf16", "l1", ["--topk", "5"], ("mips_scan",)),
+            ("bulk_l3_int8", "l2", ["--topk", "5"], ("mips_scan_int8",)))
+    for name, leg, extra, want in runs:
+        d, _, ckpt = dirs[leg]
+        argv = [f"{d}/bulk_qas.jsonl", d, "--tokenizer", "hash",
+                "--model-name", "roberta-base", "--checkpoint", ckpt,
+                "--save-path", f"{d}/{name}.jsonl"] + extra
+        t1 = time.perf_counter()
+        res, counts, calls, qps = run_retrieval_cli(cli, argv, mips)
+        secs = time.perf_counter() - t1
+        out[name] = counts
+        k = BULK_K if "--topk" not in extra else 5
+        ks = [x for x in (1, 5, 10, 20, 50, 100) if x <= k]
+        for x in ks:
+            assert res[f"answer_recall@{x}"] == res[f"sp_recall@{x}"] == 1.0, \
+                (name, res)
+        dump = [json.loads(l) for l in open(f"{d}/{name}.jsonl")]
+        assert len(dump) == N_BULK_Q and all(
+            len(r["retrieved"]) == k for r in dump)
+        assert len(calls) == N_BULK_Q // BULK_BATCH and all(
+            c[1][1 if c[0] == "mips_topk" else 4].shape[0] == BULK_BATCH
+            for c in calls), len(calls)
+        held, cert, n_pca = hold_bulk_calls(calls, mips)
+        missing = [n for n in want if counts[n] == 0]
+        assert not missing, f"kernels not launched on {name}: {missing}"
+        others = [n for n in mips.LAUNCHES if n not in want and counts[n]]
+        assert not others, f"other kernels ran on {name}: {others}"
+        note = ""
+        if n_pca:
+            note = (f"; certified {cert} of {n_pca} ({cert / n_pca:.4f}), "
+                    f"each = the exact top {k}")
+        say(f"  {name} ({' '.join(extra) or 'exact'}, top {k}): "
+            f"{res['qps']:.1f} q/s (the CLI's qps; \"{qps}\"; {secs:.2f} s "
+            f"with set-up); recall@{ks} 1.0; {held} queries held to the "
+            f"exact scan{note} [{smi}]")
+        say(f"  {name} launches: {json.dumps(counts)}")
+        del calls
+
+    # one run again inside the port's device_trace
+    d, _, ckpt = dirs["l2"]
+    log_dir = f"{tmp}/l_trace"
+    with profiling.device_trace(log_dir):
+        _, counts, calls, _ = run_retrieval_cli(cli, [
+            f"{d}/bulk_qas.jsonl", d, "--tokenizer", "hash", "--model-name",
+            "roberta-base", "--checkpoint", ckpt], mips)
+    del calls
+    traces = list(Path(log_dir).glob("*.pt.trace.json"))
+    assert len(traces) == 1, traces
+    with open(traces[0]) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"}
+    launched = [n for n in mips.LAUNCHES if counts[n]]
+    absent = [n for n in launched
+              if not any(TRACE_NAMES[n] in x for x in names)]
+    assert launched and not absent, f"trace lacks kernels {absent}"
+    say(f"  l2 under utils/profiling.device_trace: {traces[0].name} "
+        f"({traces[0].stat().st_size} bytes) names the launched kernels "
+        f"{launched}: " + ", ".join(sorted(
+            {x.split('<')[0].split('(')[0].replace('void ', '')
+             for x in names if any(v in x for v in TRACE_NAMES.values())})))
+    time_top100_kernels(mips, dev, gen, smi)
+    run_prep_and_reranked(tmp, smi)
+    say(f"  leg l: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# ---- leg m: the port's quickstart ----------------------------------------------
+
+
+def run_quickstart(mips, dev, smi):
+    """Leg (m): examples/quickstart_torch.main(["--workdir", tmp]) on the
+    card (its default device): the seven steps at the tiny preset.  It must
+    answer all 8 questions, and the exported .pt must strict-load into the
+    tiny retriever through cli/common.init_retriever."""
+    import importlib.util
+
+    from multihop_dense_retrieval_tpu_torch.cli import common
+
+    path = Path(__file__).resolve().parent / "examples" / "quickstart_torch.py"
+    spec = importlib.util.spec_from_file_location("quickstart_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        mips.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            summary = mod.main(["--workdir", tmp])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = leg_counts(mips)
+        assert summary["end2end_n"] == 8, summary
+        assert summary["answer_em"] is not None
+        assert np.isfinite(summary["momentum_final_loss"])
+        model = common.init_retriever(common.resolve_encoder_config("tiny"),
+                                      checkpoint=summary["exported_pt"],
+                                      device=dev)
+        assert next(model.parameters()).device.type == dev.type
+    say(f"  leg m examples/quickstart_torch.py: {secs:.1f} s for the seven "
+        f"steps; end2end_n {summary['end2end_n']}, answer_em "
+        f"{summary['answer_em']}, momentum_final_loss "
+        f"{summary['momentum_final_loss']:.4f}; the exported .pt loads back "
+        f"[{smi}]")
+    say(f"  leg m launches: {json.dumps(counts)}")
+    return {"quickstart": counts}
 
 
 # ---- leg j: retriever training ------------------------------------------------
@@ -2527,7 +2963,8 @@ def run_qa_serving(mips, dev, smi, tmp):
             f"{tmp}/qas.jsonl", f"{tmp}/e2", "--tokenizer", "hash",
             "--retriever-model", "roberta-base", "--retriever-checkpoint",
             f"{tmp}/model.pt", "--reader-model", "electra-large",
-            "--batch-size", str(QA_BATCH)])
+            "--batch-size", str(QA_BATCH), "--save-path",
+            f"{tmp}/g2_preds.jsonl"])
     torch.cuda.synchronize()
     secs = time.perf_counter() - t3
     out["qa_end2end"] = leg_counts(mips)
@@ -2586,7 +3023,7 @@ def run_int8_two_phase(engine, scfg, q_inputs, q_raw, q_lens, mips, search,
     (kernels 7 + 4).  Five timed batches with their own launch counts;
     hop 2 of the last is held against the exact int8 scan on its own query
     vectors, in the two-phase search's epilogue order ((raw * d_scale) *
-    q_scale): values bit-equal, ids equal (no two rows tie exactly)."""
+    q_scale): values bit-equal, ids equal apart from exact ties."""
     cfg = dataclasses.replace(scfg, use_pca=False, beam_size_1=2,
                               beam_size_2=K_F, topk=K_F, chunk_rows=4096)
     eng = search.BeamSearcher(
@@ -2602,17 +3039,9 @@ def run_int8_two_phase(engine, scfg, q_inputs, q_raw, q_lens, mips, search,
     launches = leg_counts(mips)
     q2, k, (vals, docs, _) = seen[-1]
     assert q2.shape == (B_I8, D) and k == K_F, (q2.shape, k)
-    vecs, dsc = eng.index.vectors, eng.index.scales
-    qi, qs = mips.quantize_rows(q2)
-    qf = qi.float()
-    ev, ei = mips._scan_topk_plain(
-        lambda s, e: (qf @ vecs[s:e].float().t()) * dsc[s:e][None, :]
-        * qs[:, None], vecs.shape[0], B_I8, K_F,
-        vecs.shape[0] if n_valid is None else n_valid, vecs.device)
-    assert torch.equal(vals, ev), "int8 two-phase values differ from the " \
-        "exact scan"
-    assert torch.equal(docs.to(torch.int32), ei), \
-        "int8 two-phase ids differ from the exact scan"
+    hold_int8_to_exact_scan(q2, vals, docs, eng.index.vectors,
+                            eng.index.scales, eng.index.vectors.shape[0]
+                            if n_valid is None else n_valid, mips, True)
     assert np.isfinite(out["path_scores"]).all()
     med = float(np.median(secs))
     say(f"  int8 two-phase leg (beam 2 / {K_F}, top {K_F}): median "
@@ -2712,9 +3141,10 @@ class _Lines(logging.Handler):
         self.lines.append(record.getMessage())
 
 
-def run_fever_cli(port, model, mips, dev, gen, smi):
+def run_fever_cli(port, model, mips, dev, gen, smi, tmp):
     """Leg (c): cli/eval_mhop_fever.main, the normal entry point, over an
-    index directory, twice: c1 exact (hop 1 kernel 2; hop 2 B=200, k=20
+    index directory it writes into ``tmp`` (leg l searches it after),
+    twice: c1 exact (hop 1 kernel 2; hop 2 B=200, k=20
     through the two-phase kernels 6 + 5) and c2 with --pca (hop 2 through
     kernels 3 + 5).  Each run has its own launch counts; every MIPS call's
     query vectors and results are recorded (the engine's _mips, patched
@@ -2725,96 +3155,95 @@ def run_fever_cli(port, model, mips, dev, gen, smi):
     rng = np.random.RandomState(5)
     claims = make_claims(rng)
     out = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        torch.save(model.state_dict(), f"{tmp}/model.pt")
-        planted = write_fever_index(port, claims, tmp, gen, dev)
-        say(f"  FEVER set-up: {N_F}x{D} bf16 index + PCA R={R} + {N_F}x"
-            f"{TEXT_LEN} token store + id2doc written in "
-            f"{time.perf_counter() - t0:.1f} s; {N_CLAIMS} claims")
-        base = [f"{tmp}/claims.jsonl", tmp, "--checkpoint", f"{tmp}/model.pt",
-                "--tokenizer", "hash", "--model-name", "roberta-base",
-                "--beam-size-1", "2", "--beam-size-2", str(K_F), "--topk",
-                str(K_F), "--batch-size", str(FEVER_BATCH)]
-        logger = logging.getLogger("mdr_torch")
-        for leg, extra in (("fever_c1", []), ("fever_c2", ["--pca"])):
-            calls, batches = [], []
-            orig, orig_search = search.BeamSearcher._mips, \
-                search.BeamSearcher.search
+    t0 = time.perf_counter()
+    torch.save(model.state_dict(), f"{tmp}/model.pt")
+    planted = write_fever_index(port, claims, tmp, gen, dev)
+    say(f"  FEVER set-up: {N_F}x{D} bf16 index + PCA R={R} + {N_F}x"
+        f"{TEXT_LEN} token store + id2doc written in "
+        f"{time.perf_counter() - t0:.1f} s; {N_CLAIMS} claims")
+    base = [f"{tmp}/claims.jsonl", tmp, "--checkpoint", f"{tmp}/model.pt",
+            "--tokenizer", "hash", "--model-name", "roberta-base",
+            "--beam-size-1", "2", "--beam-size-2", str(K_F), "--topk",
+            str(K_F), "--batch-size", str(FEVER_BATCH)]
+    logger = logging.getLogger("mdr_torch")
+    for leg, extra in (("fever_c1", []), ("fever_c2", ["--pca"])):
+        calls, batches = [], []
+        orig, orig_search = search.BeamSearcher._mips, \
+            search.BeamSearcher.search
 
-            def _mips(self, queries, k, pca=True):
-                res = orig(self, queries, k, pca)
-                calls.append((self.index.vectors, queries, k, res))
-                return res
+        def _mips(self, queries, k, pca=True):
+            res = orig(self, queries, k, pca)
+            calls.append((self.index.vectors, queries, k, res))
+            return res
 
-            def _search(self, *a):
-                # search() returns host arrays, so it ends after the device
-                t1 = time.perf_counter()
-                res = orig_search(self, *a)
-                batches.append((time.perf_counter() - t1, self, a))
-                return res
+        def _search(self, *a):
+            # search() returns host arrays, so it ends after the device
+            t1 = time.perf_counter()
+            res = orig_search(self, *a)
+            batches.append((time.perf_counter() - t1, self, a))
+            return res
 
-            lines = _Lines()
-            logger.addHandler(lines)
-            search.BeamSearcher._mips = _mips
-            search.BeamSearcher.search = _search
+        lines = _Lines()
+        logger.addHandler(lines)
+        search.BeamSearcher._mips = _mips
+        search.BeamSearcher.search = _search
+        torch.cuda.synchronize()
+        mips.reset_launch_counts()
+        try:
+            rows = eval_mhop_fever.main(
+                base + extra + ["--save-path", f"{tmp}/{leg}.jsonl"])
             torch.cuda.synchronize()
-            mips.reset_launch_counts()
-            try:
-                rows = eval_mhop_fever.main(
-                    base + extra + ["--save-path", f"{tmp}/{leg}.jsonl"])
-                torch.cuda.synchronize()
-            finally:
-                search.BeamSearcher._mips = orig
-                search.BeamSearcher.search = orig_search
-                logger.removeHandler(lines)
-            out[leg] = leg_counts(mips)
-            assert len(rows) == N_CLAIMS and all(
-                len(r["candidate_chains"]) == K_F for r in rows)
-            hop1 = [c for c in calls if c[2] == 2]
-            hop2 = [c for c in calls if c[2] == K_F]
-            assert len(hop1) == len(hop2) == N_CLAIMS // FEVER_BATCH, \
-                len(calls)
-            cand = torch.cat([c[3][1] for c in hop1]).cpu().numpy()
-            hit = (cand == planted[:, None]).any(1).mean()
-            assert hit == 1.0, f"{leg}: planted hop-1 hit rate {hit}"
-            checked, cert, rel = 0, [], {1: 0.0, 2: 0.0}
-            for hop, (vecs, q, k, (vals, docs, c)) in \
-                    [(1, x) for x in hop1] + [(2, x) for x in hop2]:
-                assert bool(torch.isfinite(vals).all()), leg
-                if c is not None:
-                    cert.append(c)
-                n_q, r = hold_to_exact_scan(q, vals, docs, vecs, mips,
-                                            None if c is None else c)
-                checked += n_q
-                rel[hop] = max(rel[hop], r)
-            qps = [x for x in lines.lines if "q/s" in x]
-            note = "every hop-2 query = exact scan"
-            if extra:
-                frac = torch.cat(cert).float().mean().item()
-                assert frac > 0, f"{leg}: no hop-2 query certified"
-                note = (f"hop-2 certified fraction {frac:.4f}, certified = "
-                        f"exact scan")
-            say(f"  {leg} ({' '.join(extra) or 'exact'}): CLI says "
-                f"\"{qps[-1]}\"; planted hop-1 hit rate {hit:.3f}; {note}; "
-                f"{checked} MIPS queries held to the exact scan, max relative "
-                f"difference hop 1 (kernel 2) {rel[1]:.3g}, hop 2 {rel[2]:.3g} "
-                f"[{smi}]")
-            say(f"  {leg} launches: {json.dumps(out[leg])}")
-            for name in ("mips_scan_int8", "chunk_max_int8",
-                         "pca_rescan_int8"):
-                assert out[leg][name] == 0, f"{name} ran on {leg}"
-            want = ("pca_chunk_max", "rescan") if extra else \
-                ("chunk_max", "rescan", "mips_scan")
-            missing = [n for n in want if out[leg][n] == 0]
-            assert not missing, f"kernels not launched on {leg}: {missing}"
-            secs = np.array([b[0] for b in batches])
-            say(f"  {leg} search() per batch of {FEVER_BATCH}, host clock: "
-                f"{json.dumps([round(x * 1e3, 2) for x in secs])} ms; its "
-                f"last batch profiled:")
-            profile_batch(batches[-1][1], *batches[-1][2],
-                          float(np.median(secs)) * 1e3, smi)
-            del calls, hop1, hop2, batches
+        finally:
+            search.BeamSearcher._mips = orig
+            search.BeamSearcher.search = orig_search
+            logger.removeHandler(lines)
+        out[leg] = leg_counts(mips)
+        assert len(rows) == N_CLAIMS and all(
+            len(r["candidate_chains"]) == K_F for r in rows)
+        hop1 = [c for c in calls if c[2] == 2]
+        hop2 = [c for c in calls if c[2] == K_F]
+        assert len(hop1) == len(hop2) == N_CLAIMS // FEVER_BATCH, \
+            len(calls)
+        cand = torch.cat([c[3][1] for c in hop1]).cpu().numpy()
+        hit = (cand == planted[:, None]).any(1).mean()
+        assert hit == 1.0, f"{leg}: planted hop-1 hit rate {hit}"
+        checked, cert, rel = 0, [], {1: 0.0, 2: 0.0}
+        for hop, (vecs, q, k, (vals, docs, c)) in \
+                [(1, x) for x in hop1] + [(2, x) for x in hop2]:
+            assert bool(torch.isfinite(vals).all()), leg
+            if c is not None:
+                cert.append(c)
+            n_q, r = hold_to_exact_scan(q, vals, docs, vecs, mips,
+                                        None if c is None else c)
+            checked += n_q
+            rel[hop] = max(rel[hop], r)
+        qps = [x for x in lines.lines if "q/s" in x]
+        note = "every hop-2 query = exact scan"
+        if extra:
+            frac = torch.cat(cert).float().mean().item()
+            assert frac > 0, f"{leg}: no hop-2 query certified"
+            note = (f"hop-2 certified fraction {frac:.4f}, certified = "
+                    f"exact scan")
+        say(f"  {leg} ({' '.join(extra) or 'exact'}): CLI says "
+            f"\"{qps[-1]}\"; planted hop-1 hit rate {hit:.3f}; {note}; "
+            f"{checked} MIPS queries held to the exact scan, max relative "
+            f"difference hop 1 (kernel 2) {rel[1]:.3g}, hop 2 {rel[2]:.3g} "
+            f"[{smi}]")
+        say(f"  {leg} launches: {json.dumps(out[leg])}")
+        for name in ("mips_scan_int8", "chunk_max_int8",
+                     "pca_rescan_int8"):
+            assert out[leg][name] == 0, f"{name} ran on {leg}"
+        want = ("pca_chunk_max", "rescan") if extra else \
+            ("chunk_max", "rescan", "mips_scan")
+        missing = [n for n in want if out[leg][n] == 0]
+        assert not missing, f"kernels not launched on {leg}: {missing}"
+        secs = np.array([b[0] for b in batches])
+        say(f"  {leg} search() per batch of {FEVER_BATCH}, host clock: "
+            f"{json.dumps([round(x * 1e3, 2) for x in secs])} ms; its "
+            f"last batch profiled:")
+        profile_batch(batches[-1][1], *batches[-1][2],
+                      float(np.median(secs)) * 1e3, smi)
+        del calls, hop1, hop2, batches
     return out
 
 
@@ -2908,8 +3337,9 @@ TENSOR_CORE_SOURCES = ("mips_scan_mma", "mips_scan_i8", "chunk_max_mma",
 # the legs that launch kernels 1, 2, 3, 4, 5 and 7, and those kernels, which
 # must take the tensor cores wherever they run
 MMA_LEGS = ("int8", "int8_two_phase", "fused_serving", "bf16", "fever_c1",
-            "fever_c2", "qa_serving", "qa_end2end") + tuple(
-                f"beam4_{name}" for name, *_ in H_ENGINES)
+            "fever_c2", "qa_serving", "qa_end2end", "bulk_l1_exact",
+            "bulk_l1_pca", "bulk_l2_exact", "bulk_l2_pca", "bulk_l3_bf16",
+            "bulk_l3_int8") + tuple(f"beam4_{name}" for name, *_ in H_ENGINES)
 MMA_KERNELS = ("mips_scan_int8", "mips_scan", "pca_chunk_max",
                "chunk_max_int8", "pca_rescan_int8", "rescan")
 

@@ -509,17 +509,24 @@ def _rescan_writes(ids, plan, cand):
     (96, 16, 96 * 16 * 128, 128, "distinct"),
     (7, 8, 1 << 15, 2048, "random"),       # few chunks: rows split
     (1, 1, 1 << 12, 128, "random"),
+    (256, 16, 1 << 15, 2048, "every"),     # leg l2: every query, every chunk
+    (256, 8, 1 << 15, 4096, "every"),
+    (256, 16, 1 << 15, 512, "random"),     # leg l2 --pca
+    (256, 100, 1 << 18, 2048, "ranked"),   # leg l1: kc = 100 of 128 chunks
 ])
 def test_rescan_schedule_covers_every_slot(b, kc, n, cand, layout, dtype):
     """Every (slot, row) of the output is written exactly once by the
     planned grid, whether the slots are spread at random, all distinct, all
-    on one chunk (ids repeated within each row), or one chunk is selected
+    on one chunk (ids repeated within each row), one chunk is selected
     by every query beside random others (as the legs' planted rows make
-    it)."""
+    it), or every query selects every chunk (leg l's top 100)."""
     rng = np.random.RandomState(b + kc)
     chunks = n // cand
     if layout == "distinct":
         ids = rng.permutation(chunks)[:b * kc].reshape(b, kc)
+    elif layout in ("every", "ranked"):
+        # each query's own chunk order, as its top-kc chunk maxima give it
+        ids = np.stack([rng.permutation(chunks)[:kc] for _ in range(b)])
     elif layout == "one":
         ids = np.full((b, kc), chunks // 2)
     else:
@@ -549,6 +556,57 @@ def test_rescan_plans_at_the_path_shapes():
                                                                 1, 4)
     assert plan(200, 8, 1 << 15, 2048, 768, torch.bfloat16) == (96, 256,
                                                                 8, 3)
+
+
+def test_plans_at_leg_l_top_100():
+    """cli/eval_retrieval at its defaults (batch 256, top 100, D = 768).
+    l2, e2's 32,768 int8 rows: the chunk rule (the JAX package's VMEM
+    budget of 12 MiB for a 256-query block) gives 2048-row chunks, so
+    kernel 7 streams the one 256-wide query tile through 16
+    blocks and kernel 4 takes 192-slot tiles, two blocks sharing a chunk's
+    two tiles, its rows in eight 256-row ranges (16 x 16 blocks); at 4096
+    rows a chunk, 16 ranges.  l1, c's 262,144 bf16 rows: 128 chunks of
+    2048, kernel 6 streamed a block a chunk, kernel 5 at kc = 100 in
+    96-slot tiles (200 slots a chunk on average), three blocks a chunk.
+    --pca (R = 128, 512-row candidates, kc = 16): kernel 3 keeps the
+    256-wide tile resident (4 chunks a block over 512 chunks, one a block
+    over 64), the rescans take 32-slot (bf16) and 96-slot (int8) tiles."""
+    bf16, int8 = torch.bfloat16, torch.int8
+    assert mips.two_phase_chunk(1 << 15, 256, 768, 1, 100, 4096) == 2048
+    assert mips.two_phase_chunk(1 << 18, 256, 768, 2, 100, 4096) == 2048
+    assert mips.auto_chunk_rows(256, 768, 1) == 2048
+    # bf16 2048-row chunks fill the budget exactly; int8 4096-row ones
+    # overflow it by the score matrix alone
+    assert 2 * 2048 * 768 * 2 + 3 * 256 * 2048 * 4 == mips.VMEM_BUDGET
+    assert 2 * 4096 * 768 + 3 * 256 * 4096 * 4 > mips.VMEM_BUDGET
+
+    def plan(fn, *a, keys=("q_tile", "groups", "grid", "smem")):
+        p = fn(*a)
+        assert p["route"] == "mma" and p["smem"] <= SMEM_LIMIT
+        return tuple(p[k] for k in keys)
+    cm = ("q_tile", "per_block", "q_resident", "grid", "smem")
+    assert plan(mips.chunk_max_plan, 256, 1 << 15, 768, 2048, int8,
+                keys=cm) == (256, 1, False, (16, 1, 1), 225280)
+    assert plan(mips.chunk_max_plan, 256, 1 << 15, 768, 4096, int8,
+                keys=cm) == (256, 1, False, (8, 1, 1), 225280)
+    assert plan(mips.rescan_plan, 256, 16, 1 << 15, 2048, 768, int8) == \
+        (192, 2, (16, 16, 1), 227136)
+    assert mips.rescan_plan(256, 16, 1 << 15, 2048, 768, int8)[
+        "rows_per_split"] == 256
+    assert plan(mips.rescan_plan, 256, 8, 1 << 15, 4096, 768, int8) == \
+        (192, 2, (8, 32, 1), 227136)
+    assert plan(mips.chunk_max_plan, 256, 1 << 18, 768, 2048, bf16,
+                keys=cm) == (256, 1, False, (128, 1, 1), 223232)
+    assert plan(mips.rescan_plan, 256, 100, 1 << 18, 2048, 768, bf16) == \
+        (96, 3, (128, 3, 1), 223168)
+    assert plan(mips.chunk_max_plan, 256, 1 << 18, 128, 512, bf16,
+                keys=cm) == (256, 4, True, (128, 1, 1), 145408)
+    assert plan(mips.chunk_max_plan, 256, 1 << 15, 128, 512, bf16,
+                keys=cm) == (256, 1, True, (64, 1, 1), 145408)
+    assert plan(mips.rescan_plan, 256, 16, 1 << 18, 512, 768, bf16) == \
+        (32, 4, (512, 4, 1), 123584)
+    assert plan(mips.rescan_plan, 256, 16, 1 << 15, 512, 768, int8) == \
+        (96, 3, (64, 6, 1), 151488)
 
 
 # ---- the wrappers hand their plan to the entry point --------------------------

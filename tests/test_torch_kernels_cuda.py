@@ -556,6 +556,98 @@ def test_two_phase_on_card_matches_cpu(dev, dtype, b, k):
         torch.testing.assert_close(gpu[0].cpu(), cpu[0], rtol=1e-5, atol=0)
 
 
+# leg l (cli/eval_retrieval at its defaults: batch 256, top 100, D = 768):
+# over e2's 32,768 int8 rows the chunk rule (two_phase_chunk) gives 16
+# chunks of 2048 rows, and k_chunks = min(100, 16) makes every query
+# select every chunk; 8 chunks of 4096 rows is the same skew at the
+# --chunk-rows default.  Over c's 262,144 bf16 rows: 128 chunks of 2048,
+# kc = 100.
+@pytest.mark.parametrize("n,chunk", [(1 << 15, 2048), (1 << 15, 4096)])
+def test_int8_two_phase_at_top_100_with_every_chunk_selected(dev, n, chunk):
+    """Kernels 7 and 4 at B = 256, k = 100 (every query on every chunk,
+    its chunks in its own rank order), then the whole two-phase search on
+    the card against the CPU: all bit-equal."""
+    g = _gen(dev, chunk)
+    b, d, n_valid, k = 256, 768, n - 300, 100
+    idx = torch.randint(-127, 128, (n, d), device=dev, generator=g,
+                        dtype=torch.int8)
+    dsc = torch.rand(n, device=dev, generator=g) * 0.02 + 1e-3
+    q32 = torch.randn(b, d, device=dev, generator=g)
+    qi, qs = mips.quantize_rows(q32)
+    mips.reset_launch_counts()
+    maxima = mips.chunk_max_int8(qi, idx, dsc, chunk, n_valid)
+    assert torch.equal(maxima,
+                       mips.chunk_max_plain(qi, idx, chunk, n_valid, dsc))
+    kc = min(k, n // chunk)
+    ids = mips.topk_lower_index(maxima, kc)[1].to(torch.int32)
+    assert bool((ids.sort(1)[0] == torch.arange(
+        n // chunk, device=dev, dtype=torch.int32)).all())
+    got, exp = _rescan_both(ids, qi, idx, dsc, chunk, n_valid)
+    assert torch.equal(got, exp)
+    gpu = mips.mips_topk_two_phase(idx, q32, k, chunk_rows=chunk,
+                                   n_valid=n_valid, doc_scales=dsc)
+    cpu = mips.mips_topk_two_phase(idx.cpu(), q32.cpu(), k, chunk_rows=chunk,
+                                   n_valid=n_valid, doc_scales=dsc.cpu())
+    assert torch.equal(gpu[0].cpu(), cpu[0]) and torch.equal(gpu[1].cpu(),
+                                                             cpu[1])
+
+
+def test_bf16_two_phase_at_top_100(dev):
+    """Kernels 6 and 5 at leg l1's exact shape (B = 256 over 262,144 bf16
+    rows, 2048-row chunks, kc = 100: 204,800 rows rescanned a query):
+    bit-equal on small integers; on N(0,1) rows within 1e-3 of the plain
+    fp32 sums, and the whole search's top 100 within rtol 1e-5 of the
+    plain exact scan, ids equal apart from near-ties."""
+    g = _gen(dev, 100)
+    n, d, b, chunk, k, n_valid = 1 << 18, 768, 256, 2048, 100, (1 << 18) - 500
+    assert mips.two_phase_chunk(n, b, d, 2, k, 4096) == chunk
+    idx = _rows(dev, g, n, d, torch.bfloat16)
+    q = _rows(dev, g, b, d, torch.bfloat16)
+    mips.reset_launch_counts()
+    maxima = mips.chunk_max(q, idx, chunk, n_valid)
+    assert torch.equal(maxima, mips.chunk_max_plain(q, idx, chunk, n_valid))
+    ids = mips.topk_lower_index(maxima, k)[1].to(torch.int32)
+    got, exp = _rescan_both(ids, q, idx, None, chunk, n_valid)
+    assert torch.equal(got, exp)
+    del idx, got, exp
+    idx = torch.randn(n, d, device=dev, generator=g).to(torch.bfloat16)
+    q = torch.randn(b, d, device=dev, generator=g).to(torch.bfloat16)
+    ids = mips.topk_lower_index(mips.chunk_max_plain(q, idx, chunk, n_valid),
+                                k)[1].to(torch.int32)
+    got, exp = _rescan_both(ids, q, idx, None, chunk, n_valid)
+    torch.testing.assert_close(got, exp, rtol=0, atol=1e-3)
+    del got, exp
+    vals, rows = mips.mips_topk(idx, q, k, chunk_rows=4096, n_valid=n_valid)
+    pv, pi = mips.mips_scan_plain(q, idx, k, n_valid)
+    torch.testing.assert_close(vals, pv, rtol=1e-5, atol=0)
+    alt = (q.float()[:, None, :] * idx[rows.long()].float()).sum(-1)
+    assert bool(((rows == pi) | ((alt - pv).abs() <= 1e-5 * pv.abs())).all())
+
+
+@pytest.mark.parametrize("n,dtype", [(1 << 18, torch.bfloat16),
+                                     (1 << 15, torch.int8)])
+def test_pca_tier_at_top_100(dev, n, dtype):
+    """Kernels 3 and 5 (leg l1 --pca: 262,144 bf16 rows) or 3 and 4 (leg
+    l2 --pca: 32,768 int8 rows) at B = 256, R = 128, 512-row candidate
+    chunks, kc = 16: kernel 3 within 1e-3 of its twin (fp32 sums of bf16
+    products in another order), the rescan of each query's 16 chunks
+    bit-equal on small integers (int8 over its whole range)."""
+    g = _gen(dev, n)
+    b, d, r, cand, kc, n_valid = 256, 768, 128, 512, 16, n - 200
+    proj = torch.randn(n, r, device=dev, generator=g).to(torch.bfloat16)
+    qp = torch.randn(b, r, device=dev, generator=g).to(torch.bfloat16)
+    mips.reset_launch_counts()
+    maxp = mips.pca_chunk_max(qp, proj, cand, n_valid)
+    torch.testing.assert_close(maxp, mips.chunk_max_plain(qp, proj, cand,
+                                                          n_valid),
+                               rtol=0, atol=1e-3)
+    assert mips.LAUNCHES["pca_chunk_max"] == 1
+    ids = mips.topk_lower_index(maxp, kc)[1].to(torch.int32)
+    idx, q, dsc = _mma_rescan_inputs(dev, g, n, d, dtype, b)
+    got, exp = _rescan_both(ids, q, idx, dsc, cand, n_valid)
+    assert torch.equal(got, exp)
+
+
 def test_float_pca_on_card_matches_cpu(dev):
     """mips_topk_pca over a bf16 index (kernels 3 and 5) on the card
     against the CPU: certificates and ids equal, values to rtol 1e-5."""
