@@ -1,8 +1,9 @@
 """Build the PyTorch port's CUDA kernels and drive its search, corpus-
 encoding, question-answering and training paths (the retriever, reader
 and single-hop trainers, the grid launcher, checkpoint export), its
-single-hop bulk retrieval and offline-eval CLIs and its quickstart on one
-GPU.  Run from the repository root:  python3 chip_smoke.py
+single-hop bulk retrieval and offline-eval CLIs, its quickstart, and its
+row-sharded serving, data-parallel encoding and pod runner on one GPU.
+Run from the repository root:  python3 chip_smoke.py
 
 Phases (each prints a line and flushes; any failure exits non-zero):
   1. build   — nvcc compiles every kernel from ops/csrc (one process each).
@@ -179,6 +180,34 @@ Phases (each prints a line and flushes; any failure exits non-zero):
                m. examples/quickstart_torch.py on the card: the seven
                   steps at the tiny preset; 8 questions answered, the
                   exported .pt loads back; its seconds.
+               n. row-sharded serving (core/mesh.py, ops/mips.py's
+                  sharded searches; every mesh device cuda:0, repeated,
+                  or the cards in turn where the host shows more).  n1:
+                  leg a's index re-sharded into 4 row blocks behind
+                  BeamSearcher(mesh=): 20 timed batches (kernels 1, 3, 4
+                  once per shard per MIPS call), one batch held to leg
+                  a's engine (hop 1 bit-equal; where leg a certifies,
+                  hop 2's top-1 = leg a's = the exact scan's), to the
+                  exact scans, and each shard's kernels 3 and 4 to their
+                  plain versions; leg d's beam 2 / 20 over the
+                  shards (kernels 7 + 4 on each), bit-equal to leg d; a
+                  search whose last two shards hold padding only; one
+                  add_docs (growing each shard's block) and one delete_doc.
+                  n2: cli/eval_mhop_retrieval.load_searcher(mesh=4
+                  shards) over leg c's directory at leg c's configs,
+                  exact (kernels 2, 6, 5 per shard) and --pca (2, 3, 5),
+                  chains held to the unsharded engine's (bf16 rtol 1e-5
+                  apart from near-ties); on a host with N >= 2 cards also
+                  eval_mhop_fever --index-shards N.  n3:
+                  index/build.py::encode_corpus over 8,192 of leg e's
+                  passages with the fused encoder on a 2-device data mesh
+                  (kernel 8 on each half of every batch) against the
+                  single-device encode.  n4: cli/pod in 2 processes on
+                  the card (gloo): encode_corpus (rank 0 merges; equal to
+                  a single-process 2-slice encode + --merge-only) and
+                  eval_mhop_retrieval --index-shards 2 (equal to the
+                  single-process 2-shard run); first a probe of which
+                  gloo collectives take CUDA tensors.
   4. result  — one JSON line of kernel records, the card's name and power
                limit, and the final {"ok": true, ...} line.
 Exits with code 2 and no result when CUDA is not available.
@@ -253,6 +282,9 @@ K3_B, K3_ROWS = 32, 128
 # leg l (single-hop bulk retrieval): questions, and cli/eval_retrieval's
 # defaults (batch, top k, query width)
 N_BULK_Q, BULK_BATCH, BULK_K, BULK_Q_LEN = 1024, 256, 100, 50
+# leg n (row-sharded serving): index shards and timed batches of n1, n3's
+# passages, n4's questions and its processes' time limit
+N_SHARDS, N_ITERS, N3_DOCS, N4_Q, POD_TIMEOUT = 4, 20, 8192, 192, 300
 # (what, B, Wq, W, dtype) of the kernel-8 checks; the first is the record
 ATTN_CASES = (("corpus square", C_BATCH, C_LEN, C_LEN, torch.bfloat16),
               ("corpus cls layer", C_BATCH, 1, C_LEN, torch.bfloat16),
@@ -1069,6 +1101,9 @@ def run_main_path(port, mips, dev, gen, smi, table_path=None, iters=50):
         n_valid, smi)
     launches.update(run_beam4_serving(
         engine, model, port, q_inputs, q_raw, q_lens, mips, smi))
+    launches.update(run_sharded_serving(
+        engine, scfg, q_inputs, q_raw, q_lens, planted, mips, search,
+        B / med, smi))
     del engine, index
 
     # path 2: a bf16 index engine without prefilter (kernel 2)
@@ -1103,10 +1138,17 @@ def run_main_path(port, mips, dev, gen, smi, table_path=None, iters=50):
     # leg l searches leg c's directory (in ftmp) and leg e2's, and scores
     # leg g2's predictions; leg g serves from e2's directory and checkpoint
     with tempfile.TemporaryDirectory() as ftmp:
-        launches.update(run_fever_cli(port, model, mips, dev, gen, smi, ftmp))
+        fever_configs = {}
+        launches.update(run_fever_cli(port, model, mips, dev, gen, smi, ftmp,
+                                      fever_configs))
+        launches.update(run_sharded_fever(mips, dev, smi, ftmp,
+                                          fever_configs, launches))
         with tempfile.TemporaryDirectory() as tmp:
             launches.update(run_corpus_encoding(port, model.state_dict(),
                                                 mips, dev, smi, tmp))
+            launches.update(run_data_parallel_encoding(
+                port, model.state_dict(), mips, dev, smi, tmp))
+            run_pod_runner(smi, tmp)
             launches.update(run_qa_serving(mips, dev, smi, tmp))
             launches.update(run_hnsw_tier(port, mips, dev, smi, tmp))
             launches.update(run_bulk_retrieval(mips, dev, gen, smi, ftmp,
@@ -3141,14 +3183,15 @@ class _Lines(logging.Handler):
         self.lines.append(record.getMessage())
 
 
-def run_fever_cli(port, model, mips, dev, gen, smi, tmp):
+def run_fever_cli(port, model, mips, dev, gen, smi, tmp, configs):
     """Leg (c): cli/eval_mhop_fever.main, the normal entry point, over an
-    index directory it writes into ``tmp`` (leg l searches it after),
+    index directory it writes into ``tmp`` (legs l and n2 search it after),
     twice: c1 exact (hop 1 kernel 2; hop 2 B=200, k=20
     through the two-phase kernels 6 + 5) and c2 with --pca (hop 2 through
     kernels 3 + 5).  Each run has its own launch counts; every MIPS call's
     query vectors and results are recorded (the engine's _mips, patched
-    on the class) and held against the plain exact scan."""
+    on the class) and held against the plain exact scan.  Each run's
+    SearchConfig goes into ``configs`` (leg n2 serves with it)."""
     from multihop_dense_retrieval_tpu_torch.cli import eval_mhop_fever
 
     search = port[4]
@@ -3198,6 +3241,7 @@ def run_fever_cli(port, model, mips, dev, gen, smi, tmp):
             search.BeamSearcher.search = orig_search
             logger.removeHandler(lines)
         out[leg] = leg_counts(mips)
+        configs[leg] = batches[-1][1].config
         assert len(rows) == N_CLAIMS and all(
             len(r["candidate_chains"]) == K_F for r in rows)
         hop1 = [c for c in calls if c[2] == 2]
@@ -3245,6 +3289,523 @@ def run_fever_cli(port, model, mips, dev, gen, smi, tmp):
                       float(np.median(secs)) * 1e3, smi)
         del calls, hop1, hop2, batches
     return out
+
+
+# ---- leg n: row-sharded serving, data-parallel encoding, the pod runner ------
+
+
+def shard_devices(dev, n):
+    """n mesh devices: ``dev`` repeated on a one-card host; the cards in
+    turn where the host shows more."""
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        return [torch.device("cuda", i % cards) for i in range(n)]
+    return [dev] * n
+
+
+def run_sharded_serving(engine, scfg, q_inputs, q_raw, q_lens, planted, mips,
+                        search, qps_a, smi):
+    """Leg (n1): leg a's index (kept in memory) re-sharded into N_SHARDS
+    row blocks of a mesh (``core.mesh.make_mesh``; on one card every block
+    is a view of leg a's rows) behind ``BeamSearcher(mesh=)``, at leg a's
+    beam 1 / batch 192 / buckets: N_ITERS timed batches, each MIPS call
+    launching kernels 1 (hop 1), 3 and 4 (hop 2) once per shard.  One batch
+    is held against leg a's unsharded engine on the same questions (hop 1
+    ids and scores bit-equal; where leg a certifies, hop 2's top-1 equal
+    to leg a's and to the exact scan's), to the exact scans
+    (check_recorded_hops: certified = exact top-1), and each shard's
+    kernel 3 and 4 launches to their plain versions; one more profiled.  Then leg
+    d's beam 2 / 20 over the same shards (hop 2, B=384, k=20, through
+    kernels 7 + 4 on each shard), 5 timed batches bit-equal to leg d's
+    unsharded engine; a search with the last two shards all padding
+    (n_valid = N/2 - 777) bit-equal to the plain scan; and one add_docs
+    (growing the index by lcm(4096, chunk_rows) x N_SHARDS rows) and one
+    delete_doc, each followed by a search that finds the updated rows."""
+    from multihop_dense_retrieval_tpu_torch.core.mesh import make_mesh
+
+    index, out = engine.index, {}
+    mesh = make_mesh(index=N_SHARDS, devices=shard_devices(engine.device,
+                                                           N_SHARDS))
+    say(f"  n1 mesh: {mesh}; {N_SHARDS} shards of {N // N_SHARDS} rows")
+
+    eng_index = index.shard(mesh)
+
+    def sharded_engine(cfg):
+        return search.BeamSearcher(
+            encode_fn=engine.encode_fn, index=eng_index,
+            text_ids=engine.text_ids, text_lens=engine.text_lens,
+            empty=engine.empty, spec=engine.spec, config=cfg, mesh=mesh,
+            device=engine.device)
+
+    eng = sharded_engine(scfg)
+    eng.search(dict(q_inputs), q_raw, q_lens)             # warm-up
+    torch.cuda.synchronize()
+    mips.reset_launch_counts()
+    _, secs = timed_batches(eng, q_inputs, q_raw, q_lens, N_ITERS)
+    out["sharded_int8"] = leg_counts(mips)
+    for name in ("mips_scan_int8", "pca_chunk_max", "pca_rescan_int8"):
+        assert out["sharded_int8"][name] == N_SHARDS * N_ITERS, \
+            f"{name}: {out['sharded_int8'][name]} launches, not one a shard"
+    seen = record_queries(eng, outputs=True)
+    launched, restore = record_launches(
+        mips, ("pca_chunk_max", "pca_rescan_int8"))
+    try:
+        got = eng.search(dict(q_inputs), q_raw, q_lens)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    ref = engine.search(dict(q_inputs), q_raw, q_lens)
+    for key in ("hop1_ids", "hop1_cand_ids", "hop1_cand_scores"):
+        assert np.array_equal(got[key], ref[key]), f"n1 {key} differ"
+    # Where leg a's engine certifies, the exact top-1 row lies in one of
+    # its top k_chunks chunks, so in one of its shard's local top
+    # k_chunks, which that shard rescans: the sharded top-1 is the exact
+    # one, whatever the sharded certificate (an AND over the shards) says.
+    held = ref["pca_cert2"][:, 0]
+    assert held.any(), "leg a's engine certified no hop-2 query"
+    q2, _, (_, d2, _) = seen[-1]
+    qi, qs = mips.quantize_rows(q2)
+    _, e2 = mips.mips_scan_int8_plain(qi, qs, index.vectors, index.scales,
+                                      1, index.n_docs)
+    assert np.array_equal(d2[:, 0].cpu().numpy()[held],
+                          e2[:, 0].cpu().numpy()[held]), \
+        "n1 hop 2 missed the exact top-1 where leg a's engine certifies"
+    for key in ("hop2_ids", "path_scores"):
+        assert np.array_equal(got[key][held], ref[key][held]), \
+            f"n1 {key} differ where leg a's engine certifies"
+    k3 = [a for n_, a, _ in launched if n_ == "pca_chunk_max"]
+    assert len(k3) == N_SHARDS and all(
+        a[1].shape[0] == N // N_SHARDS for a in k3), \
+        "kernel 3 did not run once on each shard's rows"
+    n_k, k3_err, k3_share = check_recorded_launches(launched, mips)
+    n_scan, n_pca, n_cert = check_recorded_hops(seen, index, mips)
+    hit = (got["hop1_ids"][:, 0] == planted).mean()
+    assert hit == 1.0, f"n1 planted hit rate {hit}"
+    med = float(np.median(secs))
+    say(f"  n1 sharded int8 path: median {med * 1e3:.2f} ms/batch over "
+        f"{N_ITERS} batches of {B}: {B / med:.1f} q/s (leg a, unsharded: "
+        f"{qps_a:.1f} q/s); hop 1 = leg a's (bit-equal); hop 2 certified "
+        f"{int(got['pca_cert2'].sum())} of {B}; where leg a's engine "
+        f"certifies ({int(held.sum())} of {B}) the sharded top-1 = leg a's "
+        f"= exact scan's; {n_scan} scan rows and {n_pca} PCA rows held to "
+        f"the exact scans, {n_cert} certified = exact top-1; kernels 3/4 "
+        f"held to plain on each shard ({n_k} launches, kernel 3 max abs "
+        f"err {k3_err:.3g}, {k3_share:.3g} of its bound) [{smi}]")
+    say(f"  n1 launches over {N_ITERS} batches: "
+        f"{json.dumps(out['sharded_int8'])}")
+    profile_batch(eng, q_inputs, q_raw, q_lens, med * 1e3, smi)
+
+    # leg d's beam 2 / 20 over the shards: kernels 7 + 4 on each
+    cfg_d = dataclasses.replace(scfg, use_pca=False, beam_size_1=2,
+                                beam_size_2=K_F, topk=K_F, chunk_rows=4096)
+    eng_d = sharded_engine(cfg_d)
+    ref_d = search.BeamSearcher(
+        encode_fn=engine.encode_fn, index=index, text_ids=engine.text_ids,
+        text_lens=engine.text_lens, empty=engine.empty, spec=engine.spec,
+        config=cfg_d, device=engine.device)
+    eng_d.search(dict(q_inputs), q_raw, q_lens)            # warm-up
+    torch.cuda.synchronize()
+    mips.reset_launch_counts()
+    got_d, secs_d = timed_batches(eng_d, q_inputs, q_raw, q_lens, 5)
+    out["sharded_two_phase"] = leg_counts(mips)
+    for name in ("mips_scan_int8", "chunk_max_int8", "pca_rescan_int8"):
+        assert out["sharded_two_phase"][name] == N_SHARDS * 5, \
+            f"{name}: {out['sharded_two_phase'][name]} launches on n1 d"
+    exp_d = ref_d.search(dict(q_inputs), q_raw, q_lens)
+    for key, val in exp_d.items():
+        assert np.array_equal(got_d[key], val), f"n1 two-phase {key} differ"
+    med_d = float(np.median(secs_d))
+    say(f"  n1 two-phase (beam 2 / {K_F} over {N_SHARDS} shards): median "
+        f"{med_d * 1e3:.2f} ms/batch ({B / med_d:.1f} q/s); every output "
+        f"bit-equal to leg d's unsharded engine [{smi}]")
+    say(f"  n1 two-phase launches over 5 batches: "
+        f"{json.dumps(out['sharded_two_phase'])}")
+
+    # shards of padding only: kernel 1 at n_valid = 0 on shards 2 and 3
+    q1 = seen[0][0]
+    n_valid = N // 2 - 777
+    v, i = mips.sharded_mips_topk(eng_index.vectors, q1, 4, mesh,
+                                  n_valid=n_valid, doc_scales=eng_index.scales)
+    qi, qs = mips.quantize_rows(q1)
+    ev, ei = mips.mips_scan_int8_plain(qi, qs, index.vectors, index.scales,
+                                       4, n_valid)
+    assert torch.equal(v, ev) and torch.equal(i, ei), \
+        "a search with all-padding shards differs from the plain scan"
+
+    # live updates on the sharded engine
+    new = (2 * q1[:1]).cpu().numpy()
+    ids = eng.add_docs(new, np.full((1, 8), 11, np.int64),
+                       np.array([8], np.int32))
+    grown = eng.index.vectors.shape[0]
+    assert ids == [N] and grown > N and grown % N_SHARDS == 0
+    after = eng.search(dict(q_inputs), q_raw, q_lens)
+    assert after["hop1_ids"][0, 0] == N, "the added row is not question 0's"
+    moved = eng.delete_doc(int(planted[1]))
+    assert moved == N and eng.index.n_docs == N
+    after = eng.search(dict(q_inputs), q_raw, q_lens)
+    assert after["hop1_ids"][0, 0] == planted[1], "the moved row is lost"
+    for key in ("hop1_ids", "hop2_ids"):
+        assert (after[key] < N).all(), f"a deleted row came back in {key}"
+    say(f"  n1 updates: add_docs grew {N} rows to {grown} (each shard's "
+        f"block rebuilt on its device) and question 0 found the new row; "
+        f"delete_doc({planted[1]}) moved it into the freed slot, where "
+        f"question 0 found it; search with shards 2-3 all padding = plain "
+        f"scan [{smi}]")
+    return out
+
+
+def hold_chains(got, exp):
+    """Two bf16 engines' chains: path scores within rtol 1e-5 (fp32 sums of
+    exact bf16 products in another order), ids equal apart from near-ties
+    (a differing chain's score within 2e-5 of a neighbour's).  Returns the
+    chains that differ."""
+    ps = exp["path_scores"]
+    assert np.allclose(got["path_scores"], ps, rtol=1e-5, atol=0), \
+        "chain scores beyond rtol 1e-5"
+    diff = (got["hop1_ids"] != exp["hop1_ids"]) | \
+        (got["hop2_ids"] != exp["hop2_ids"])
+    close = np.abs(np.diff(ps, axis=1)) <= 2e-5 * np.abs(ps[:, 1:])
+    near = np.zeros_like(diff)
+    near[:, 1:] |= close
+    near[:, :-1] |= close
+    assert not (diff & ~near).any(), "chains differ beyond near-ties"
+    return int(diff.sum())
+
+
+def run_sharded_fever(mips, dev, smi, tmp, configs, leg_c):
+    """Leg (n2): cli/eval_mhop_retrieval.load_searcher, the eval CLIs'
+    library path, with a mesh of N_SHARDS shards over leg c's directory
+    (262,144 bf16 rows + PCA) and leg c's own SearchConfigs (beam 2 / 20,
+    batch 100): exact (hop 1 kernel 2, hop 2 kernels 6 + 5 on each shard)
+    and --pca (hop 2 kernels 3 + 5 on each shard), over the 500 claims.
+    Each run's launch counts, every kernel N_SHARDS times leg c's count
+    (``leg_c``); every MIPS call held to the plain exact scan
+    (certified queries for --pca); every batch's chains held to the
+    unsharded engine's (hold_chains), whose batches are timed alike.  On a host with N >= 2 cards, also
+    cli/eval_mhop_fever --index-shards N (the shards over its cards)."""
+    from multihop_dense_retrieval_tpu_torch.cli import common
+    from multihop_dense_retrieval_tpu_torch.cli import eval_mhop_fever
+    from multihop_dense_retrieval_tpu_torch.cli import \
+        eval_mhop_retrieval as emr
+    from multihop_dense_retrieval_tpu_torch.core.mesh import make_mesh
+
+    tok = common.resolve_tokenizer("hash")
+    model = common.init_retriever(common.resolve_encoder_config(
+        "roberta-base"), checkpoint=f"{tmp}/model.pt", device=dev)
+    with open(f"{tmp}/claims.jsonl") as f:
+        claims = [json.loads(l)["claim"] for l in f]
+    mesh = make_mesh(index=N_SHARDS, devices=shard_devices(dev, N_SHARDS))
+    say(f"  n2 mesh: {mesh}")
+    out = {}
+    for leg, key in (("sharded_c1", "fever_c1"), ("sharded_c2", "fever_c2")):
+        cfg = configs[key]
+        plain = emr.load_searcher(tmp, tok, model, cfg, dev)
+        sharded = emr.load_searcher(tmp, tok, model, cfg, dev, mesh=mesh)
+        assert sharded.index.mesh == mesh
+        seen, secs = record_queries(sharded, outputs=True), []
+        sharded.search = _timed(sharded.search, secs)
+        torch.cuda.synchronize()
+        mips.reset_launch_counts()
+        got = [res for _, res in emr.search_batches(
+            sharded, tok, claims, FEVER_BATCH, cfg.max_q_len,
+            cfg.max_q_sp_len)]
+        torch.cuda.synchronize()
+        out[leg] = leg_counts(mips)
+        n_batches = len(got)
+        for name in MMA_KERNELS:
+            assert out[leg][name] == N_SHARDS * leg_c[key][name], \
+                f"{name}: {out[leg][name]} launches on {leg}, " \
+                f"{leg_c[key][name]} on {key}"
+        want = ("pca_chunk_max", "rescan") if cfg.use_pca \
+            else ("mips_scan", "chunk_max", "rescan")
+        assert all(out[leg][name] for name in want), out[leg]
+        plain_secs = []
+        plain.search = _timed(plain.search, plain_secs)
+        exp = [res for _, res in emr.search_batches(
+            plain, tok, claims, FEVER_BATCH, cfg.max_q_len,
+            cfg.max_q_sp_len)]
+        differ = sum(hold_chains(g, e) for g, e in zip(got, exp))
+        held, cert = 0, []
+        for q, k, (vals, docs, c) in seen:
+            if c is not None:
+                cert.append(c)
+            held += hold_to_exact_scan(q, vals, docs, plain.index.vectors,
+                                       mips, c)[0]
+        note = "every hop-2 query = exact scan"
+        if cfg.use_pca:
+            # the AND over shards: a shard of random rows alone seldom
+            # certifies its local top-k, so this may be 0 (leg c2: > 0)
+            frac = torch.cat(cert).float().mean().item()
+            note = f"certified fraction {frac:.4f}, certified = exact"
+        med, plain_med = float(np.median(secs)), float(np.median(plain_secs))
+        say(f"  {leg} ({'--pca' if cfg.use_pca else 'exact'}, "
+            f"{N_SHARDS} shards): {FEVER_BATCH / med:.1f} q/s at the median "
+            f"of {n_batches} batches ({med * 1e3:.2f} ms; unsharded "
+            f"{FEVER_BATCH / plain_med:.1f} q/s, {plain_med * 1e3:.2f} ms, "
+            f"after it); {note}; {held} "
+            f"MIPS queries held to the exact scan; chains = the unsharded "
+            f"engine's, {differ} of {n_batches * FEVER_BATCH * K_F} apart "
+            f"by near-ties [{smi}]")
+        say(f"  {leg} launches: {json.dumps(out[leg])}")
+        del plain, sharded, seen, got, exp
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        rows = eval_mhop_fever.main([
+            f"{tmp}/claims.jsonl", tmp, "--checkpoint", f"{tmp}/model.pt",
+            "--tokenizer", "hash", "--model-name", "roberta-base",
+            "--beam-size-1", "2", "--beam-size-2", str(K_F), "--topk",
+            str(K_F), "--batch-size", str(FEVER_BATCH), "--index-shards",
+            str(cards)])
+        planted = 8 * CAND + np.arange(N_CLAIMS)
+        hit = np.mean([r["candidate_chains"][0][0][0] == f"doc {p}"
+                       for r, p in zip(rows, planted)])
+        assert hit == 1.0, f"--index-shards {cards}: hop-1 hit rate {hit}"
+        say(f"  n2 cli/eval_mhop_fever --index-shards {cards} over {cards} "
+            f"cards: {len(rows)} claims, planted hop-1 hit rate {hit:.3f}")
+    return out
+
+
+def _timed(fn, secs):
+    def call(*a):
+        t = time.perf_counter()
+        res = fn(*a)                  # host arrays: the device is done
+        secs.append(time.perf_counter() - t)
+        return res
+    return call
+
+
+def run_data_parallel_encoding(port, state, mips, dev, smi, tmp):
+    """Leg (n3): index/build.py::encode_corpus over the first N3_DOCS of leg
+    e's passages (max_c_len 300, batch 256, length sort) with leg e1's
+    fused encoder (kernel 8 once a layer), on one device and then on a
+    data mesh of 2 devices (``dev`` twice on one card), each batch split
+    in halves: kernel 8 on each data shard, twice the launches.  The rows
+    must equal the single-device encode within the encoder's bf16
+    tolerance (leg e: cosine >= 0.999, entries within 0.1); how many rows
+    are bit-equal and the largest difference are printed.  Writes the
+    passages to ``tmp/n3.jsonl`` for leg n4."""
+    from multihop_dense_retrieval_tpu_torch.cli import common
+    from multihop_dense_retrieval_tpu_torch.core.mesh import make_mesh
+    from multihop_dense_retrieval_tpu_torch.index import build
+
+    cfgmod, data, _, models, _ = port
+    with open(f"{tmp}/corpus.jsonl") as f, open(f"{tmp}/n3.jsonl", "w") as g:
+        for _ in range(N3_DOCS):
+            g.write(next(f))
+    tok = common.resolve_tokenizer("hash")
+    tc = data.TokenizedCorpus.build(data.Corpus.from_jsonl(
+        f"{tmp}/n3.jsonl"), tok, max_text_len=C_LEN)
+    fused = models.MhopRetriever(cfgmod.EncoderConfig.roberta_base(
+        attention_impl="fused"), cls_only=True)
+    fused.load_state_dict(state)
+    fused = fused.to(dev).eval()
+    mesh = make_mesh(data=2, index=1, devices=shard_devices(dev, 2))
+    n_batches = -(-N3_DOCS // C_BATCH)
+    kw = dict(max_c_len=C_LEN, batch_size=C_BATCH)
+    out, embs, secs = {}, {}, {}
+    # the encoder calls kernel 8 by the name it imported: point that name at
+    # the tracked wrapper (track_routes), so that the template is seen
+    enc = importlib.import_module(
+        "multihop_dense_retrieval_tpu_torch.models.encoder")
+    fa = importlib.import_module(
+        "multihop_dense_retrieval_tpu_torch.ops.fused_attention")
+    imported, enc.fused_attention = enc.fused_attention, fa.fused_attention
+    try:
+        for leg, extra in (("encode_one", dict(device=dev)),
+                           ("encode_data2", dict(mesh=mesh))):
+            torch.cuda.synchronize()
+            mips.reset_launch_counts()
+            t0 = time.perf_counter()
+            embs[leg] = build.encode_corpus(fused.encode_seq, tc, tok.spec,
+                                            **kw, **extra)
+            secs[leg] = time.perf_counter() - t0
+            out[leg] = leg_counts(mips)
+    finally:
+        enc.fused_attention = imported
+    for leg in out:
+        shards = 1 if leg == "encode_one" else 2
+        assert out[leg]["fused_attention"] == \
+            fused.config.num_layers * n_batches * shards, \
+            f"{leg}: kernel 8 not once a layer on every data shard"
+        taken = out[leg]["routes"].get("fused_attention", [])
+        assert taken and set(taken) <= {"mma", "row"}, \
+            f"{leg}: kernel 8 took {taken}"
+    one, two = (torch.from_numpy(embs[k]) for k in ("encode_one",
+                                                    "encode_data2"))
+    gap = (two - one).abs().max().item()
+    cos = torch.nn.functional.cosine_similarity(two, one).min().item()
+    same = (two == one).all(dim=1).float().mean().item()
+    assert cos >= 0.999 and gap <= 0.1, \
+        f"data-parallel rows off the single-device ones: {gap}, {cos}"
+    say(f"  n3 data-parallel encode ({N3_DOCS} passages, mesh {mesh}): "
+        f"{N3_DOCS / secs['encode_data2']:.1f} docs/s against "
+        f"{N3_DOCS / secs['encode_one']:.1f} on one device; rows bit-equal "
+        f"to the single-device encode: {same:.4f} of them, max abs "
+        f"difference {gap:.4g}, min cosine {cos:.6f} (bf16 matmuls of 128 "
+        f"rows against 256); kernel 8's templates "
+        f"{out['encode_data2']['routes']['fused_attention']} [{smi}]")
+    say(f"  n3 launches: {json.dumps(out['encode_data2'])} (one device: "
+        f"{out['encode_one']['fused_attention']} kernel-8 launches)")
+    return {"data_parallel_n3": out["encode_data2"]}
+
+
+POD = "multihop_dense_retrieval_tpu_torch.cli.pod"
+
+# which collectives gloo carries for CUDA tensors, between 2 processes on
+# the card (observation only: the port's backend choice is core.mesh's)
+GLOO_PROBE = r"""
+import datetime, json, sys, torch
+import torch.distributed as dist
+dist.init_process_group("gloo", init_method=sys.argv[1], world_size=2,
+                        rank=int(sys.argv[2]),
+                        timeout=datetime.timedelta(seconds=10))
+x = torch.arange(4, dtype=torch.float32, device="cuda") + dist.get_rank()
+ops = {
+    "all_reduce": lambda: dist.all_reduce(x.clone()),
+    "broadcast": lambda: dist.broadcast(x.clone(), 0),
+    "all_gather": lambda: dist.all_gather(
+        [torch.empty_like(x) for _ in range(2)], x),
+    "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+        torch.empty(8, device="cuda"), x),
+    "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+        torch.empty(2, device="cuda"), x),
+    "all_to_all_single": lambda: dist.all_to_all_single(
+        torch.empty_like(x), x),
+}
+res = {}
+for name, fn in ops.items():
+    try:
+        fn()
+        torch.cuda.synchronize()
+        res[name] = "ok"
+    except Exception as e:
+        res[name] = (type(e).__name__ + ": "
+                     + (str(e).splitlines() or [""])[0][:100])
+print(json.dumps(res), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_processes(argvs, timeout=POD_TIMEOUT):
+    """Run one process per argv (each given its rank as {rank} and a free
+    rendezvous port as {port}) to completion, each with its own timeout;
+    kill the rest on a failure.  Returns their (stdout, stderr)."""
+    port = _free_port()
+    root = Path(__file__).resolve().parent
+    procs = [subprocess.Popen(
+        [sys.executable] + [a.replace("{rank}", str(r)).replace(
+            "{port}", str(port)) for a in argv],
+        cwd=root, text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        for r, argv in enumerate(argvs)]
+    outs = []
+    try:
+        for p in procs:
+            o, e = p.communicate(timeout=timeout)
+            assert p.returncode == 0, \
+                f"process exited {p.returncode}:\n{o[-2000:]}\n{e[-3000:]}"
+            outs.append((o, e))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    return outs
+
+
+def pod(argv):
+    """2 cli/pod processes: on a host with more cards, each on its own
+    card (--local-device-ids), so that init_pod takes NCCL."""
+    own = ["--local-device-ids", "{rank}"] \
+        if torch.cuda.device_count() > 1 else []
+    return [["-m", POD, "--coordinator", "localhost:{port}",
+             "--num-processes", "2", "--process-id", "{rank}"] + own
+            + argv] * 2
+
+
+def run_pod_runner(smi, tmp):
+    """Leg (n4): ``python -m ...cli.pod`` in 2 processes that share the
+    card (so core.mesh.init_pod keeps CUDA tensors on gloo; on a host with
+    more cards each process takes its own and NCCL), twice.
+    encode_corpus over n3's passages (each process one slice, a barrier,
+    rank 0 merges): the merged index must equal a single-process
+    ``--num-shards 2`` encode + ``--merge-only``, bit for bit.
+    eval_mhop_retrieval --index-shards 2 --device cuda:0 over that index
+    (one shard a process, the candidates gathered over gloo): its chains
+    must equal the single-process 2-shard run's (both shards on cuda:0).
+    First, which collectives gloo carries for CUDA tensors (a 2-process
+    probe, printed)."""
+    from multihop_dense_retrieval_tpu_torch.cli import encode_corpus
+    from multihop_dense_retrieval_tpu_torch.cli import \
+        eval_mhop_retrieval as emr
+    from multihop_dense_retrieval_tpu_torch.index.store import DenseIndex
+
+    t0 = time.perf_counter()
+    try:
+        outs = run_processes([["-c", GLOO_PROBE, "tcp://localhost:{port}",
+                               "{rank}"]] * 2, timeout=150)
+        found = outs[0][0].strip().splitlines()[-1]
+    except (AssertionError, subprocess.TimeoutExpired) as e:
+        # an observation, not a phase: its failure is what it found
+        found = f"the probe failed: {str(e)[-300:]}"
+    say(f"  n4 gloo with CUDA tensors, 2 processes on the card: {found}")
+
+    model = ["--tokenizer", "hash", "--model-name", "roberta-base",
+             "--checkpoint", f"{tmp}/model.pt"]
+    enc = [f"{tmp}/n3.jsonl"]
+    # one data device in every run, so the pod's and the single process's
+    # encodes split no batch differently
+    flags = model + ["--index-dtype", "int8", "--data-parallel", "1"]
+    t1 = time.perf_counter()
+    outs = run_processes(pod(["encode_corpus", *enc, f"{tmp}/n4_pod"] +
+                             flags))
+    t_pod = time.perf_counter() - t1
+    notes = {line.split("# pod: ")[1] for _, e in outs
+             for line in e.splitlines() if "# pod: " in line}
+    backend = "nccl" if torch.cuda.device_count() > 1 else "gloo"
+    assert all(f"over {backend}" in n for n in notes), notes
+    for sid in ("0", "1"):
+        encode_corpus.main([*enc, f"{tmp}/n4_one", "--num-shards", "2",
+                            "--shard-id", sid] + flags)
+    encode_corpus.main([*enc, f"{tmp}/n4_one", "--merge-only"] + flags)
+    a = DenseIndex.load(f"{tmp}/n4_pod/index.npz", device="cpu")
+    b = DenseIndex.load(f"{tmp}/n4_one/index.npz", device="cpu")
+    assert a.n_docs == b.n_docs == N3_DOCS
+    assert torch.equal(a.vectors, b.vectors) and \
+        torch.equal(a.scales, b.scales), \
+        "the pod's merged index differs from the single-process merge"
+    say(f"  n4 cli.pod encode_corpus (2 processes: {sorted(notes)}): "
+        f"{t_pod:.1f} s; the rank-0 merge = the single-process 2-slice "
+        f"encode + --merge-only, bit for bit [{smi}]")
+
+    rng = np.random.RandomState(13)
+    with open(f"{tmp}/n4_q.jsonl", "w") as f:
+        for i in range(N4_Q):
+            words = rng.randint(1 << 16, size=rng.randint(4, 30))
+            f.write(json.dumps({"_id": str(i), "question": " ".join(
+                f"w{w}" for w in words) + "?"}) + "\n")
+    args = [f"{tmp}/n4_q.jsonl", f"{tmp}/n4_pod", *model, "--device",
+            "cuda:0", "--index-shards", "2"]
+    t2 = time.perf_counter()
+    run_processes(pod(["eval_mhop_retrieval", *args, "--save-path",
+                       f"{tmp}/n4_pod.jsonl"]))
+    t_search = time.perf_counter() - t2
+    emr.main(args + ["--save-path", f"{tmp}/n4_one.jsonl"])
+    with open(f"{tmp}/n4_pod.jsonl") as f, open(f"{tmp}/n4_one.jsonl") as g:
+        pod_rows, one_rows = f.read(), g.read()
+    assert pod_rows == one_rows and len(pod_rows.splitlines()) == N4_Q, \
+        "the pod's chains differ from the single-process 2-shard run's"
+    say(f"  n4 cli.pod eval_mhop_retrieval --index-shards 2 (2 processes, "
+        f"a shard each): {t_search:.1f} s for {N4_Q} questions; chains = "
+        f"the single-process 2-shard run's; leg n4 {time.perf_counter() - t0:.1f} "
+        f"s [{smi}]")
 
 
 RANGES = ("hop1_encode", "hop1_mips", "hop2_assemble", "hop2_encode",
@@ -3339,7 +3900,9 @@ TENSOR_CORE_SOURCES = ("mips_scan_mma", "mips_scan_i8", "chunk_max_mma",
 MMA_LEGS = ("int8", "int8_two_phase", "fused_serving", "bf16", "fever_c1",
             "fever_c2", "qa_serving", "qa_end2end", "bulk_l1_exact",
             "bulk_l1_pca", "bulk_l2_exact", "bulk_l2_pca", "bulk_l3_bf16",
-            "bulk_l3_int8") + tuple(f"beam4_{name}" for name, *_ in H_ENGINES)
+            "bulk_l3_int8", "sharded_int8", "sharded_two_phase",
+            "sharded_c1", "sharded_c2") + tuple(
+                f"beam4_{name}" for name, *_ in H_ENGINES)
 MMA_KERNELS = ("mips_scan_int8", "mips_scan", "pca_chunk_max",
                "chunk_max_int8", "pca_rescan_int8", "rescan")
 

@@ -11,8 +11,9 @@ tokenizer and the ``tiny`` model preset.
     python examples/quickstart_torch.py --device cpu   # no card needed
 
 Three things differ from the JAX tour:
-  * no ``--data-parallel 2``: multi-GPU is not ported yet (ROADMAP item
-    12), so every step runs on one device;
+  * no ``--data-parallel 2`` on the two trainers: data-parallel training
+    is not ported yet (ROADMAP item 12b), so every step runs on one
+    device;
   * checkpoints are ``.pt`` files (``checkpoint_best.pt``), not orbax
     directories;
   * ``--device`` (default ``cuda``) replaces ``--cpu`` and is passed to

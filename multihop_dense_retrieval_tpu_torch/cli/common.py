@@ -22,7 +22,8 @@ from typing import Optional
 import torch
 
 from ..core.config import EncoderConfig, default_hop2_tiling
-from ..core.device import process_index, resolve_device
+from ..core.device import process_index, resolve_device, world
+from ..core.mesh import Mesh, local_devices, make_mesh, pod_devices
 from ..data.tokenization import HashTokenizer, HFTokenizer
 from ..models import (MhopRetriever, QAReader, UnifiedRetriever,
                       unified_state_dict_from_reference)
@@ -95,6 +96,21 @@ def add_device_arg(p):
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (cpu: the kernels' plain "
                         "versions)")
+
+
+def index_mesh(n_shards: int, device) -> Optional[Mesh]:
+    """The mesh of ``--index-shards N`` (None for N <= 1): N shards over
+    this process's devices (every visible card for the bare ``cuda``, as
+    many as fit; a named device such as ``cpu`` or ``cuda:0`` holds N / P
+    shards) and, under ``cli/pod``, over every one of the P processes."""
+    if n_shards <= 1:
+        return None
+    size = world()[1]
+    if n_shards % size:
+        raise ValueError(f"--index-shards {n_shards} does not split over "
+                         f"{size} processes")
+    return make_mesh(index=n_shards, devices=pod_devices(
+        local_devices(device, n_shards // size)))
 
 
 def add_pipeline_args(p):

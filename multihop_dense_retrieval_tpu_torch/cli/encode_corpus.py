@@ -11,9 +11,11 @@ retriever from ``EncoderConfig(attention_impl="fused")`` and calls
 ``index.build.build_index`` (the CLI has no flag for it, as in JAX).
 ``--unified`` encodes passages with a UnifiedRetriever's ``encode_seq``
 (for the variable-hop serving of ``eval_mhop_retrieval --unified``).
-Not ported (each raises NotImplementedError): ``--data-parallel`` > 1 and
-pod auto-sharding under an initialised ``torch.distributed`` with more
-than one process (ROADMAP item 12).
+Each batch is split over ``--data-parallel`` devices (default: every
+visible card for the bare ``cuda``; a named device such as ``cpu`` is
+repeated).  Under ``cli/pod`` with more than one process, every process
+encodes slice ``rank`` of ``world size`` slices, all meet at a barrier, and
+rank 0 merges them (``index/shards.py``).
 
 Usage:
   python -m multihop_dense_retrieval_tpu_torch.cli.encode_corpus \\
@@ -27,26 +29,14 @@ import os
 import numpy as np
 import torch
 
-from ..core.device import resolve_device
+from ..core.device import resolve_device, world
+from ..core.mesh import local_devices, make_mesh
 from ..data.corpus import Corpus, TokenizedCorpus
 from ..index import shards as sh
 from ..index.build import encode_corpus
 from ..index.store import DenseIndex
 from ..models import MultiVectorCtxEncoder
 from . import common
-
-
-def _refuse_unported(args):
-    if args.data_parallel is not None and args.data_parallel > 1:
-        raise NotImplementedError(
-            "--data-parallel > 1 is not ported yet (ROADMAP item 12)")
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() and \
-            dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "pod auto-sharding across processes is not ported yet (ROADMAP "
-            "item 12): pass --num-shards/--shard-id per process, then "
-            "--merge-only")
 
 
 def main(argv=None):
@@ -77,7 +67,8 @@ def main(argv=None):
                    help="candidate-chunk granularity of the prefilter "
                         "(multiple of 128, divides chunk-rows)")
     p.add_argument("--data-parallel", type=int, default=None,
-                   help="devices on the data axis; not ported beyond 1")
+                   help="devices on the data axis (default: every visible "
+                        "card for the bare cuda, else 1)")
     p.add_argument("--multi-vector", type=int, default=1,
                    help=">1: encode each passage into N grouped index rows "
                         "(models/retriever.py::MultiVectorCtxEncoder); "
@@ -115,7 +106,6 @@ def main(argv=None):
                 "silently misalign with id2doc.json there")
 
     device = resolve_device(args.device)
-    _refuse_unported(args)
     logger = common.setup_logging(args.out_dir)
     build_kw = dict(chunk_rows=args.chunk_rows, dtype=args.index_dtype,
                     multi_vector=args.multi_vector, pca_dims=args.pca_dims,
@@ -129,9 +119,19 @@ def main(argv=None):
                     index.n_docs, index.vectors.shape[0], args.out_dir)
         return
 
+    # pod mode: every process encodes its own slice on its own devices,
+    # then rank 0 merges after a barrier
+    rank, size = world()
+    pod = size > 1
     num_shards = args.num_shards
-    # rank 0 where the JAX CLI takes jax.process_index()
-    shard_id = 0 if args.shard_id is None else args.shard_id
+    if pod and num_shards == 1:
+        num_shards = size
+    if args.export_npy and num_shards > 1:
+        # pod auto-sharding resolves after argparse: fail as loudly here
+        raise SystemExit(
+            "--export-npy cannot run on the sharded (pod) encode path; "
+            "encode on one process to export the reference matrix")
+    shard_id = rank if args.shard_id is None else args.shard_id
 
     cfg = common.resolve_encoder_config(args.model_name)
     tok = common.resolve_tokenizer(args.tokenizer)
@@ -160,16 +160,28 @@ def main(argv=None):
             if k.startswith(("encoder.", "project."))})
         encode_fn = mv_model.to(device).eval()
 
-    logger.info("encoding on %s", device)
+    local = local_devices(device, args.data_parallel or 1)
+    mesh = make_mesh(data=args.data_parallel or len(local), index=1,
+                     devices=local)
+    logger.info("encoding on %s", mesh)
     emb = encode_corpus(encode_fn, tc, tok.spec, max_c_len=args.max_c_len,
-                        batch_size=args.batch_size, progress=True,
+                        batch_size=args.batch_size, mesh=mesh, progress=True,
                         multi_vector=args.multi_vector,
-                        length_sort=not args.no_length_sort, device=device)
+                        length_sort=not args.no_length_sort)
     if num_shards > 1:
         sh.save_shard(args.out_dir, shard_id, num_shards, emb, tc, corpus)
-        logger.info("wrote shard %d/%d (%d docs) to %s; encode the remaining "
-                    "shards, then run with --merge-only to produce the final "
-                    "index", shard_id, num_shards, len(corpus), args.out_dir)
+        logger.info("wrote shard %d/%d (%d docs) to %s", shard_id,
+                    num_shards, len(corpus), args.out_dir)
+        if not pod:
+            logger.info("encode the remaining shards, then run with "
+                        "--merge-only to produce the final index")
+            return
+        torch.distributed.barrier()
+        if rank == 0:
+            index = sh.merge_shards(args.out_dir, num_shards,
+                                    keep_shards=args.keep_shards, **build_kw)
+            logger.info("merged %d shards: index (%d docs, padded %d)",
+                        num_shards, index.n_docs, index.vectors.shape[0])
         return
 
     os.makedirs(args.out_dir, exist_ok=True)

@@ -10,8 +10,6 @@ metrics.
 ``--unified`` retrieves with a UnifiedRetriever: a chain whose stop
 probability exceeds ``--stop-threshold`` goes to the reader as one
 passage (without ``--unified`` the threshold is ignored, as in JAX).
-Not ported yet: ``--index-shards > 1`` (ROADMAP item 12) raises
-NotImplementedError.
 
 Usage:
   python -m multihop_dense_retrieval_tpu_torch.cli.end2end QAS.jsonl \\
@@ -89,7 +87,6 @@ def main(argv=None):
     p.add_argument("--max-seq-len", type=int, default=512)
     p.add_argument("--max-ans-len", type=int, default=30)
     p.add_argument("--chunk-rows", type=int, default=4096)
-    p.add_argument("--index-shards", type=int, default=1)
     p.add_argument("--lambda", dest="lam", type=float, default=0.8)
     common.add_reader_scores_args(p)
     common.add_rank_args(p)
@@ -102,9 +99,6 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
-    if args.index_shards > 1:
-        raise NotImplementedError(
-            "--index-shards is not ported yet (ROADMAP item 12)")
     logger = common.setup_logging()
     r_tok = common.resolve_tokenizer(args.tokenizer)
     r_model = common.init_retriever(

@@ -11,8 +11,8 @@ from ``cli/eval_mhop_retrieval`` (as in the reference script):
   * the dump is keyed "id"/"claim" with candidate_chains as
     [(title, text), (title, text)] pairs, one JSON object per line.
 Rows that carry an "sp" annotation also get the chain metrics.
-It runs on CUDA unless ``--device`` names another device; the options the
-port does not serve yet raise as in ``eval_mhop_retrieval``.
+It runs on CUDA unless ``--device`` names another device;
+``--index-shards`` shards the index as in ``eval_mhop_retrieval``.
 ``--hop2-prune-margin`` prunes hop-1 candidates as there.
 
 Usage:
@@ -90,7 +90,9 @@ def main(argv=None):
                        use_pca=args.pca, pca_k_chunks=args.pca_k_chunks,
                        pca_hops=args.pca_hops)
     corpus = Corpus.from_id2doc(os.path.join(args.index_dir, "id2doc.json"))
-    searcher = load_searcher(args.index_dir, tok, model, cfg, device)
+    searcher = load_searcher(
+        args.index_dir, tok, model, cfg, device,
+        mesh=common.index_mesh(args.index_shards, device))
 
     metrics, outputs = [], []
     cert_hits = cert_total = 0

@@ -16,9 +16,12 @@ searches the native HNSW graph on the host (the encoder stays on the
 device), building ``<index_dir>/index.hnsw`` once (M 32, ef_construction
 200) and loading it afterwards, from either package.
 
-Not ported yet (each raises NotImplementedError): ``--index-shards > 1``
-(ROADMAP item 12) and ``--no-pallas`` on CUDA (the JAX package's XLA tier
-has no CUDA counterpart).
+``--index-shards N`` splits the index by rows into N shards
+(``cli/common.index_mesh``: over the visible cards, or N shards on a named
+device such as ``cpu``, and across processes under ``cli/pod``); each
+shard searches its rows through the same kernels.  ``--no-pallas`` raises
+NotImplementedError on CUDA (the JAX package's XLA tier has no CUDA
+counterpart).
 
 Usage:
   python -m multihop_dense_retrieval_tpu_torch.cli.eval_mhop_retrieval \\
@@ -45,13 +48,14 @@ from ..search.beam import BeamSearcher, assemble_pair_inputs
 from . import common
 
 
-def load_searcher(index_dir, tok, model, cfg, device,
+def load_searcher(index_dir, tok, model, cfg, device, mesh=None,
                   unified=False) -> BeamSearcher:
     """The engine over an index directory.  The token store stays uint16
-    on the device and is widened after the per-beam gather.  ``unified``:
+    on the device and is widened after the per-beam gather.  ``mesh``:
+    the index is sharded by rows over its ``index`` axis.  ``unified``:
     hop 2 runs through ``model.encode_qsp`` (the stop head)."""
     index = DenseIndex.load(os.path.join(index_dir, "index.npz"),
-                            device=device)
+                            device=device, mesh=mesh)
     tc = TokenizedCorpus.load(os.path.join(index_dir, "tokens.npz"),
                               token_dtype=np.uint16)
     n_pad = index.vectors.shape[0]
@@ -67,14 +71,11 @@ def load_searcher(index_dir, tok, model, cfg, device,
         text_ids=padrows(tc.text_ids, tok.spec.pad_id),
         text_lens=padrows(tc.text_lens, 0),
         empty=padrows(tc.empty, False), spec=tok.spec, config=cfg,
-        device=device)
+        mesh=mesh, device=device)
 
 
 def refuse_unported(args, device):
-    """Raise on the options the port does not serve yet."""
-    if args.index_shards > 1:
-        raise NotImplementedError(
-            "--index-shards is not ported yet (ROADMAP item 12)")
+    """Raise on the options the port does not serve."""
     if args.no_pallas and device.type == "cuda":
         raise NotImplementedError(
             "--no-pallas asks for the JAX package's XLA tier, which has no "
@@ -308,8 +309,10 @@ def main(argv=None):
         searcher = hnsw_searcher(args, logger, tok, model, cfg, corpus,
                                  device)
     else:
-        searcher = load_searcher(args.index_dir, tok, model, cfg, device,
-                                 unified=args.unified)
+        searcher = load_searcher(
+            args.index_dir, tok, model, cfg, device,
+            mesh=common.index_mesh(args.index_shards, device),
+            unified=args.unified)
 
     metrics, outputs = [], []
     cert_hits = cert_total = 0

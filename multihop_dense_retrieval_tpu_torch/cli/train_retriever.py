@@ -10,7 +10,7 @@ weights and Adam state, the encoder computing in bf16.  With
 ``train_momentum --init-checkpoint`` and the serving CLIs' ``--checkpoint``
 read), TensorBoard scalars under ``tb/`` and the preemption state under
 ``preempt/`` (a rerun with the same directory resumes).
-``--data-parallel`` > 1 is not ported (ROADMAP item 12) and raises.
+``--data-parallel`` > 1 is not ported (ROADMAP item 12b) and raises.
 
 Usage:
   python -m multihop_dense_retrieval_tpu_torch.cli.train_retriever \\
@@ -65,7 +65,7 @@ def build(args, unified: bool = None, make_datasets=None):
     overrides the dataset choice (the FEVER momentum CLI)."""
     if args.data_parallel is not None and args.data_parallel > 1:
         raise NotImplementedError(
-            "--data-parallel > 1 is not ported yet (ROADMAP item 12)")
+            "--data-parallel > 1 is not ported yet (ROADMAP item 12b)")
     dev = resolve_device(args.device)
     if unified is None:
         unified = getattr(args, "unified", False)

@@ -12,7 +12,7 @@ It runs on CUDA unless ``--device`` names another device, with fp32
 master weights and Adam, the encoder computing in bf16.  With
 ``--output-dir`` it writes ``checkpoint_last.pt`` / ``checkpoint_best.pt``
 and the preemption state under ``preempt/``.  ``--data-parallel`` > 1 is
-not ported (ROADMAP item 12) and raises.
+not ported (ROADMAP item 12b) and raises.
 
 Usage:
   python -m multihop_dense_retrieval_tpu_torch.cli.train_single \\
@@ -65,7 +65,7 @@ def main(argv=None):
     args = p.parse_args(argv)
     if args.data_parallel is not None and args.data_parallel > 1:
         raise NotImplementedError(
-            "--data-parallel > 1 is not ported yet (ROADMAP item 12)")
+            "--data-parallel > 1 is not ported yet (ROADMAP item 12b)")
     dev = resolve_device(args.device)
 
     logger = common.setup_logging(args.output_dir or None)

@@ -25,11 +25,25 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     return dev
 
 
-def process_index() -> int:
-    """Rank of this process in ``torch.distributed`` when it is
-    initialised, else 0: the process that owns shared-filesystem writes is
-    rank 0."""
+def normal_device(device: Union[str, torch.device]) -> torch.device:
+    """``device`` with a bare ``cuda`` given the current card's index, so
+    that it compares equal to the device of a tensor placed there."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def world() -> tuple:
+    """(rank, world size) of this process in ``torch.distributed`` when it
+    is initialised, else (0, 1)."""
     dist = torch.distributed
     if dist.is_available() and dist.is_initialized():
-        return dist.get_rank()
-    return 0
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def process_index() -> int:
+    """Rank of this process: the process that owns shared-filesystem
+    writes is rank 0."""
+    return world()[0]

@@ -10,16 +10,23 @@ vector: a stable length sort, per-batch widths rounded up to multiples of
 batches encoded at their widest batch's width.  JAX runs a super-batch as
 one jitted ``lax.scan``; here it is a Python loop, and the tail's padding
 batches (whose outputs JAX discards) are not encoded at all.
+
+With a ``mesh`` each batch is split into equal parts over the mesh's
+``data`` devices, as JAX shards it over its data axis: part j is encoded
+on data device j (by a copy of the encoder where it lives elsewhere) and
+the rows come back in order.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from ..core.device import resolve_device
+from ..core.device import normal_device, resolve_device
+from ..core.mesh import Mesh, on_device
 from ..data.corpus import TokenizedCorpus
 from ..data.tokenization import TokenizerSpec
 from ..search.beam import assemble_pair_inputs
@@ -59,22 +66,48 @@ def batch_plan(tc: TokenizedCorpus, spec: TokenizerSpec, *, max_c_len: int,
     return supers
 
 
+def _replicas(encode_fn: Callable, devices: list) -> list:
+    """``encode_fn`` for each device: itself where its module lives, a copy
+    of the module moved there elsewhere (the parameters replicated over the
+    data axis, as a JAX mesh replicates them)."""
+    devices = [normal_device(d) for d in devices]
+    module = encode_fn if isinstance(encode_fn, torch.nn.Module) else \
+        getattr(encode_fn, "__self__", None)
+    if not isinstance(module, torch.nn.Module):
+        if len(set(devices)) > 1:
+            raise ValueError("encoding over several devices needs the "
+                             "encoder as an nn.Module or a bound method of "
+                             "one")
+        return [encode_fn] * len(devices)
+    copies = {next(module.parameters()).device: encode_fn}
+    for d in devices:
+        if d not in copies:
+            twin = copy.deepcopy(module).to(d)
+            copies[d] = twin if encode_fn is module else \
+                getattr(twin, encode_fn.__name__)
+    return [copies[d] for d in devices]
+
+
 @torch.inference_mode()
 def encode_corpus(encode_fn: Callable, tc: TokenizedCorpus,
                   spec: TokenizerSpec, *, max_c_len: int = 300,
-                  batch_size: int = 256, mesh=None, progress: bool = False,
-                  multi_vector: int = 1, length_sort: bool = True,
-                  scan_batches: int = 16, device=None) -> np.ndarray:
+                  batch_size: int = 256, mesh: Optional[Mesh] = None,
+                  progress: bool = False, multi_vector: int = 1,
+                  length_sort: bool = True, scan_batches: int = 16,
+                  device=None) -> np.ndarray:
     """(N * multi_vector, H) fp32 embeddings of every passage, in corpus
     order.  ``encode_fn(input_ids, mask[, token_type_ids])`` returns
     (B * multi_vector, H) vectors, rows grouped per passage
     (``MhopRetriever.encode_seq`` or ``MultiVectorCtxEncoder``), and lives
-    on ``device`` (default ``cuda``)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded corpus encoding over a mesh is not ported (ROADMAP "
-            "item 12)")
-    dev = resolve_device(device)
+    on ``device`` (default ``cuda``), or with a ``mesh`` on one of its
+    data devices, over which each batch is split (``batch_size`` a
+    multiple of their count)."""
+    devs = [resolve_device(device)] if mesh is None else mesh.data_devices()
+    if batch_size % len(devs):
+        raise ValueError(f"batch size {batch_size} does not split over "
+                         f"{len(devs)} data devices")
+    fns = _replicas(encode_fn, devs)
+    part = batch_size // len(devs)
     mv = max(multi_vector, 1)
     n = tc.text_ids.shape[0]
     supers = batch_plan(tc, spec, max_c_len=max_c_len, batch_size=batch_size,
@@ -86,8 +119,19 @@ def encode_corpus(encode_fn: Callable, tc: TokenizedCorpus,
         except ImportError:
             pass
 
-    def dev_ids(a):
+    def dev_ids(a, dev):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    def encode(idx, text, width, dev, fn):
+        with on_device(dev):
+            inputs = assemble_pair_inputs(
+                dev_ids(tc.title_ids[idx], dev),
+                dev_ids(tc.title_lens[idx], dev), dev_ids(text[idx], dev),
+                dev_ids(tc.text_lens[idx], dev), width, spec)
+            args = [inputs["input_ids"], inputs["attention_mask"]]
+            if "token_type_ids" in inputs:
+                args.append(inputs["token_type_ids"])
+            return fn(*args).float().to(devs[0])
 
     chunks = None
     for idx_list, cnts, width in supers:
@@ -98,13 +142,9 @@ def encode_corpus(encode_fn: Callable, tc: TokenizedCorpus,
         for idx, cnt in zip(idx_list, cnts):
             if cnt == 0:
                 break
-            inputs = assemble_pair_inputs(
-                dev_ids(tc.title_ids[idx]), dev_ids(tc.title_lens[idx]),
-                dev_ids(text[idx]), dev_ids(tc.text_lens[idx]), width, spec)
-            args = [inputs["input_ids"], inputs["attention_mask"]]
-            if "token_type_ids" in inputs:
-                args.append(inputs["token_type_ids"])
-            embs.append(encode_fn(*args).float())
+            embs.append(torch.cat([
+                encode(idx[j * part:(j + 1) * part], text, width, dev, fn)
+                for j, (dev, fn) in enumerate(zip(devs, fns))]))
         embs = torch.stack(embs).cpu().numpy()            # (nb, B*mv, H)
         if chunks is None:
             chunks = np.empty((n * mv, embs.shape[-1]), np.float32)
@@ -119,18 +159,18 @@ def encode_corpus(encode_fn: Callable, tc: TokenizedCorpus,
 def build_index(encode_fn: Callable, tc: TokenizedCorpus,
                 spec: TokenizerSpec, *, max_c_len: int = 300,
                 batch_size: int = 256, chunk_rows: int = 4096,
-                n_shards: int = 1, dtype: str = "bfloat16", mesh=None,
-                progress: bool = False, multi_vector: int = 1,
-                length_sort: bool = True, pca_dims: Optional[int] = None,
-                pca_cand_rows: int = 512, device=None) -> DenseIndex:
-    """``encode_corpus`` then ``DenseIndex.build`` on ``device``."""
-    if n_shards != 1:
-        raise NotImplementedError(
-            "a row-sharded index is not ported (ROADMAP item 12)")
+                n_shards: int = 1, dtype: str = "bfloat16",
+                mesh: Optional[Mesh] = None, progress: bool = False,
+                multi_vector: int = 1, length_sort: bool = True,
+                pca_dims: Optional[int] = None, pca_cand_rows: int = 512,
+                device=None) -> DenseIndex:
+    """``encode_corpus`` then ``DenseIndex.build`` on ``device``, or on
+    ``mesh`` (padded to a multiple of ``chunk_rows × n_shards``)."""
     emb = encode_corpus(encode_fn, tc, spec, max_c_len=max_c_len,
                         batch_size=batch_size, mesh=mesh, progress=progress,
                         multi_vector=multi_vector, length_sort=length_sort,
                         device=device)
-    return DenseIndex.build(emb, chunk_rows=chunk_rows, dtype=dtype,
-                            multi_vector=multi_vector, pca_dims=pca_dims,
-                            pca_cand_rows=pca_cand_rows, device=device)
+    return DenseIndex.build(emb, chunk_rows=chunk_rows, n_shards=n_shards,
+                            dtype=dtype, mesh=mesh, multi_vector=multi_vector,
+                            pca_dims=pca_dims, pca_cand_rows=pca_cand_rows,
+                            device=device)

@@ -4,8 +4,8 @@ The port's copy of the JAX package's ``index/shards.py`` (same file names,
 same loud failures).  Each worker encodes a contiguous doc slice and writes
 a shard artifact into the shared output directory; ``merge_shards``
 concatenates them into the standard index.npz / tokens.npz / id2doc.json
-layout.  Pod auto-sharding across processes is not ported (ROADMAP item
-12): run one ``--shard-id`` per process, then ``--merge-only``.
+layout: with ``--merge-only``, or on rank 0 after ``cli/pod``'s
+processes each encoded theirs.
 """
 
 from __future__ import annotations

@@ -12,7 +12,16 @@ store's arithmetic: new rows are quantized on the host as ``build`` does
 product on the device, and certificate bounds only ever grow.  The JAX
 store donates its buffers; the port writes into them in place, so an
 update's input index shares (and sees) the written buffers: use only the
-returned index afterwards.  Sharding is not ported yet (ROADMAP item 12).
+returned index afterwards.
+
+Sharding (``build(n_shards=, mesh=)``, ``shard``, ``load(mesh=)``): the
+rows are padded to a multiple of ``chunk_rows × n_shards`` and split by
+rows over the mesh's ``index`` axis (``core.mesh.Sharded``): the vectors,
+scales and projections by rows, the certificate bounds along their chunk
+axis, the rotation kept whole on the mesh's home device.  Updates write
+into the shards in place; growth rebuilds each shard's block at the longer
+length on its own device from the old blocks.  ``save``
+writes the global arrays, the file of an unsharded index.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..core.mesh import INDEX_AXIS, Mesh, Sharded
 from ..ops.mips import build_pca_prefilter, train_pca_rotation
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -66,6 +76,63 @@ def _u16_to_bf16(a: np.ndarray) -> torch.Tensor:
                             ).view(torch.bfloat16)
 
 
+def _whole(x, device):
+    """A field as one tensor on ``device``: a Sharded one gathered."""
+    if isinstance(x, Sharded):
+        return x.gather(device)
+    return None if x is None else x.to(device)
+
+
+def _pieces(x, start: int, m: int):
+    """(tensor, local start, offset in the range, length) of each piece of
+    rows start .. start + m - 1 of ``x`` (a tensor, or Sharded by rows)
+    that this process holds."""
+    if not isinstance(x, Sharded):
+        return [(x, start, 0, m)]
+    n = x.block_len
+    out = []
+    for s, blk in enumerate(x.blocks):
+        lo, hi = max(start, s * n), min(start + m, (s + 1) * n)
+        if lo < hi and blk is not None:
+            out.append((blk, lo - s * n, lo - start, hi - lo))
+    return out
+
+
+def _write_rows(x, start: int, rows: torch.Tensor) -> None:
+    for blk, at, off, m in _pieces(x, start, rows.shape[0]):
+        blk[at:at + m] = rows[off:off + m].to(blk.device)
+
+
+def _read_rows(x, start: int, m: int, device) -> torch.Tensor:
+    parts = _pieces(x, start, m)
+    if sum(p[3] for p in parts) != m:
+        raise ValueError("another process holds these rows")
+    return torch.cat([blk[at:at + n].to(device) for blk, at, _, n in parts])
+
+
+def _max_cols(bounds, cols: torch.Tensor, vals: torch.Tensor) -> None:
+    """bounds[:, cols] = max(bounds[:, cols], vals), ``bounds`` a tensor or
+    Sharded along its chunk axis."""
+    if not isinstance(bounds, Sharded):
+        bounds.scatter_reduce_(1, cols.expand(4, -1), vals, reduce="amax")
+        return
+    n = bounds.block_len
+    for s, blk in enumerate(bounds.blocks):
+        sel = cols // n == s
+        if blk is not None and bool(sel.any()):
+            c = (cols[sel] - s * n).to(blk.device)
+            blk.scatter_reduce_(1, c.expand(4, -1),
+                                vals[:, sel].to(blk.device), reduce="amax")
+
+
+def _read_cols(bounds, cols: torch.Tensor, device) -> torch.Tensor:
+    if not isinstance(bounds, Sharded):
+        return bounds[:, cols].clone()
+    n = bounds.block_len
+    return torch.stack([bounds.blocks[c // n][:, c % n].to(device)
+                        for c in cols.tolist()], dim=1)
+
+
 @dataclasses.dataclass
 class DenseIndex:
     vectors: torch.Tensor            # (N_pad, D): bf16, fp32 or int8
@@ -77,6 +144,7 @@ class DenseIndex:
     pca_proj: Optional[torch.Tensor] = None     # (N_pad, R) bf16
     pca_bounds: Optional[torch.Tensor] = None   # (4, N_pad/cand_rows) fp32
     pca_cand_rows: int = 512
+    mesh: Optional[Mesh] = None      # set: the arrays are Sharded over it
 
     @property
     def n_passages(self) -> int:
@@ -85,16 +153,25 @@ class DenseIndex:
 
     @classmethod
     def build(cls, embeddings: np.ndarray, *, chunk_rows: int = 4096,
-              dtype: Union[str, torch.dtype] = "bfloat16",
-              multi_vector: int = 1, pca_dims: Optional[int] = None,
-              pca_cand_rows: int = 512, pca_sample: int = 131072,
-              device=None) -> "DenseIndex":
+              n_shards: int = 1, dtype: Union[str, torch.dtype] = "bfloat16",
+              mesh: Optional[Mesh] = None, multi_vector: int = 1,
+              pca_dims: Optional[int] = None, pca_cand_rows: int = 512,
+              pca_sample: int = 131072, device=None) -> "DenseIndex":
+        """The index of ``embeddings`` on ``device`` (default ``cuda``),
+        rows padded to a multiple of ``chunk_rows × n_shards``; with a
+        ``mesh``, built on the host and placed by ``shard(mesh)``."""
+        if mesh is not None:
+            return cls.build(
+                embeddings, chunk_rows=chunk_rows, n_shards=n_shards,
+                dtype=dtype, multi_vector=multi_vector, pca_dims=pca_dims,
+                pca_cand_rows=pca_cand_rows, pca_sample=pca_sample,
+                device="cpu").shard(mesh)
         dev = resolve_device(device)
         dt = _dtype(dtype)
         n, d = embeddings.shape
         assert n % max(multi_vector, 1) == 0, \
             "embedding rows must be a whole number of documents"
-        n_pad = _round_up(n, chunk_rows)
+        n_pad = _round_up(n, chunk_rows * n_shards)
         out = np.zeros((n_pad, d), dtype=np.float32)
         out[:n] = np.asarray(embeddings, np.float32)
         scales = sc = None
@@ -121,6 +198,33 @@ class DenseIndex:
                    multi_vector=max(multi_vector, 1), chunk_rows=chunk_rows,
                    pca_rot=rot, pca_proj=proj, pca_bounds=bounds,
                    pca_cand_rows=pca_cand_rows)
+
+    def shard(self, mesh: Mesh) -> "DenseIndex":
+        """The index split by rows over ``mesh``'s index axis, each block on
+        its shard's device (a view where it is there already): projections
+        follow the rows, bounds shard along their chunk axis, the rotation
+        goes whole to ``mesh.home``."""
+        g = self if self.mesh is None else self.unshard()
+
+        def split(t, axis=0):
+            return None if t is None else Sharded.split(t, mesh, axis)
+
+        return dataclasses.replace(
+            g, vectors=split(g.vectors), scales=split(g.scales),
+            pca_proj=split(g.pca_proj), pca_bounds=split(g.pca_bounds, 1),
+            pca_rot=_whole(g.pca_rot, mesh.home), mesh=mesh)
+
+    def unshard(self, device=None) -> "DenseIndex":
+        """Every array whole on ``device`` (default: the mesh's home)."""
+        if self.mesh is None:
+            return self
+        dev = self.mesh.home if device is None else device
+        return dataclasses.replace(
+            self, vectors=_whole(self.vectors, dev),
+            scales=_whole(self.scales, dev),
+            pca_proj=_whole(self.pca_proj, dev),
+            pca_bounds=_whole(self.pca_bounds, dev),
+            pca_rot=_whole(self.pca_rot, dev), mesh=None)
 
     # ---- online updates (serving) ----------------------------------------
     # Row arithmetic is in DOCUMENT units of `multi_vector` rows.
@@ -153,46 +257,55 @@ class DenseIndex:
             torch.linalg.vector_norm(pb32, dim=1),
             torch.linalg.vector_norm(xd, dim=1),
         ]) * (1 + 1e-6) + 1e-6          # fp32-accumulation safety margin
-        proj[start:start + rows.shape[0]] = pb
+        _write_rows(proj, start, pb)
         cols = torch.arange(start, start + rows.shape[0],
-                            device=bounds.device) // self.pca_cand_rows
-        bounds.scatter_reduce_(1, cols.expand(4, -1), quant, reduce="amax")
+                            device=pb.device) // self.pca_cand_rows
+        _max_cols(bounds, cols, quant)
         return proj, bounds
 
     def append(self, embeddings: np.ndarray, *,
-               chunk_rows: Optional[int] = None) -> "DenseIndex":
+               chunk_rows: Optional[int] = None,
+               n_shards: Optional[int] = None) -> "DenseIndex":
         """Add documents; returns the updated index.  New rows land in the
         tail padding when they fit; otherwise every buffer grows to the
-        next multiple of ``chunk_rows`` (default: the index's own layout
-        granularity) with zero rows, and the bounds with zero chunks."""
+        next multiple of ``chunk_rows × n_shards`` (defaults: the index's
+        own layout granularity, and its mesh's shard count) with zero rows,
+        and the bounds with zero chunks: a sharded index's blocks are
+        rebuilt at the longer length, each on its own device
+        (``Sharded.grow``)."""
         chunk_rows = chunk_rows or self.chunk_rows
+        if n_shards is None:
+            n_shards = 1 if self.mesh is None else self.mesh.shape[INDEX_AXIS]
+        m = len(embeddings)
         rows, scales_new = self._stored_rows(embeddings)
-        m = rows.shape[0]
         if m % self.multi_vector:
             raise ValueError("appended rows must be whole documents")
         vec, scales = self.vectors, self.scales
         proj, bounds = self.pca_proj, self.pca_bounds
         n_pad = vec.shape[0]
         if self.n_docs + m > n_pad:
-            pad = _round_up(self.n_docs + m, chunk_rows) - n_pad
+            length = _round_up(self.n_docs + m, chunk_rows * n_shards)
 
-            def grow(t, shape):
-                return torch.cat([t, t.new_zeros(shape)], dim=0)
+            def grow(t, length, axis=0):
+                if isinstance(t, Sharded):
+                    return t.grow(length)
+                shape = list(t.shape)
+                shape[axis] = length - shape[axis]
+                return torch.cat([t, t.new_zeros(shape)], dim=axis)
 
-            vec = grow(vec, (pad, vec.shape[1]))
+            vec = grow(vec, length)
             if scales is not None:
-                scales = grow(scales, (pad,))
+                scales = grow(scales, length)
             if proj is not None:
-                if (n_pad + pad) % self.pca_cand_rows:
+                if length % self.pca_cand_rows:
                     raise ValueError("the grown row count is not a multiple "
                                      "of pca_cand_rows")
-                proj = grow(proj, (pad, proj.shape[1]))
-                bounds = torch.cat([bounds, bounds.new_zeros(
-                    (4, pad // self.pca_cand_rows))], dim=1)
+                proj = grow(proj, length)
+                bounds = grow(bounds, length // self.pca_cand_rows, axis=1)
         start = self.n_docs
-        vec[start:start + m] = rows
+        _write_rows(vec, start, rows)
         if scales is not None:
-            scales[start:start + m] = scales_new
+            _write_rows(scales, start, scales_new)
         if proj is not None:
             proj, bounds = self._pca_ingest(proj, bounds, rows, scales_new,
                                             start)
@@ -209,9 +322,9 @@ class DenseIndex:
         start = doc_id * self.multi_vector
         if not 0 <= start < self.n_docs:
             raise IndexError(f"doc_id {doc_id} out of range")
-        self.vectors[start:start + rows.shape[0]] = rows
+        _write_rows(self.vectors, start, rows)
         if self.scales is not None:
-            self.scales[start:start + rows.shape[0]] = scales_new
+            _write_rows(self.scales, start, scales_new)
         if self.pca_proj is not None:
             self._pca_ingest(self.pca_proj, self.pca_bounds, rows,
                              scales_new, start)
@@ -230,23 +343,24 @@ class DenseIndex:
         mv = self.multi_vector
         moved = None
         if doc_id != last:
-            src = slice(last * mv, last * mv + mv)
-            dst = slice(doc_id * mv, doc_id * mv + mv)
-            self.vectors[dst] = self.vectors[src].clone()
-            if self.scales is not None:
-                self.scales[dst] = self.scales[src].clone()
+            dev = self.vectors.device
+            for x in (self.vectors, self.scales, self.pca_proj):
+                if x is not None:
+                    _write_rows(x, doc_id * mv,
+                                _read_rows(x, last * mv, mv, dev))
             if self.pca_proj is not None:
-                self.pca_proj[dst] = self.pca_proj[src].clone()
-                r = torch.arange(mv, device=self.pca_bounds.device)
+                r = torch.arange(mv, device=dev)
                 srcs = (last * mv + r) // self.pca_cand_rows
                 tgts = (doc_id * mv + r) // self.pca_cand_rows
-                self.pca_bounds.scatter_reduce_(
-                    1, tgts.expand(4, -1), self.pca_bounds[:, srcs].clone(),
-                    reduce="amax")
+                _max_cols(self.pca_bounds, tgts,
+                          _read_cols(self.pca_bounds, srcs, dev))
             moved = last
         return dataclasses.replace(self, n_docs=self.n_docs - mv), moved
 
     def save(self, path: str):
+        """The ``.npz`` of the global arrays, sharded or not."""
+        if self.mesh is not None:
+            return self.unshard("cpu").save(path)
         extra = {"multi_vector": self.multi_vector,
                  "chunk_rows": self.chunk_rows}
         if self.scales is not None:
@@ -265,7 +379,12 @@ class DenseIndex:
                      n_docs=self.n_docs, **extra)
 
     @classmethod
-    def load(cls, path: str, device=None) -> "DenseIndex":
+    def load(cls, path: str, device=None,
+             mesh: Optional[Mesh] = None) -> "DenseIndex":
+        """The saved index on ``device`` (default ``cuda``); with a
+        ``mesh``, read on the host and placed by ``shard(mesh)``."""
+        if mesh is not None:
+            return cls.load(path, device="cpu").shard(mesh)
         dev = resolve_device(device)
         z = np.load(path)
         payload, dtype = z["payload"], str(z["dtype"])

@@ -4,6 +4,7 @@ from .mips import (LAUNCHES, NEG_INF, auto_chunk_rows, build_pca_prefilter,
                    mips_scan_int8, mips_topk, mips_topk_pca,
                    mips_topk_two_phase, pca_chunk_max, pca_rescan_int8,
                    quantize_rows, rescan, reset_launch_counts,
+                   sharded_mips_topk, sharded_mips_topk_pca,
                    topk_lower_index, train_pca_rotation, two_phase_chunk)
 
 __all__ = ["LAUNCHES", "NEG_INF", "auto_chunk_rows", "build_pca_prefilter",
@@ -12,4 +13,5 @@ __all__ = ["LAUNCHES", "NEG_INF", "auto_chunk_rows", "build_pca_prefilter",
            "mips_scan_int8", "mips_topk", "mips_topk_pca",
            "mips_topk_two_phase", "pca_chunk_max", "pca_rescan_int8",
            "quantize_rows", "rescan", "reset_launch_counts",
-           "topk_lower_index", "train_pca_rotation", "two_phase_chunk"]
+           "sharded_mips_topk", "sharded_mips_topk_pca", "topk_lower_index",
+           "train_pca_rotation", "two_phase_chunk"]

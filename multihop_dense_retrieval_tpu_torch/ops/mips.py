@@ -31,6 +31,9 @@ a tensor on the CPU (a CUDA tensor the kernel does not take raises):
 Kernels 1-2 serve ``mips_topk`` for small k, kernels 6-7 then 4-5 its
 exact two-phase search for large k (``mips_topk_two_phase``), and kernels
 3 then 4-5 the PCA-prefiltered search (``mips_topk_pca``).
+``sharded_mips_topk`` and ``sharded_mips_topk_pca`` run these once per
+shard of an index split by rows over a mesh (``core/mesh.py``) and merge
+the shards' candidates.
 
 ``LAUNCHES`` counts kernel launches per wrapper (kernel 8, the fused
 attention of ``fused_attention.py``, counts here too).  Every JAX ``top_k`` or
@@ -48,6 +51,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from ..core.mesh import INDEX_AXIS, Sharded, all_gather_columns, on_device
 
 NEG_INF = -3.0e38
 
@@ -875,6 +880,115 @@ def mips_topk_pca(index, proj, rot, bounds, queries, k: int,
     certified = vals[:, k - 1] >= ub_next
     ids = torch.gather(row_ids, 1, pos).to(torch.int32)
     return vals, ids, certified
+
+
+# --------------------------------------------------------------------------
+# row-sharded search over a mesh's index axis
+# --------------------------------------------------------------------------
+#
+# Each shard runs the single-device search over its own rows on its own
+# device (kernels 1-7 once per shard); local ids become global; the (B, k)
+# candidates of every shard, concatenated in shard order (what JAX's tiled
+# all_gather gives, and over torch.distributed in rank order across
+# processes), go through one more top-k, so ties go to the lower shard,
+# then the lower local rank, as with lax.top_k.
+
+
+def _blocks(x, mesh, axis: int = 0) -> list:
+    if x is None:
+        return [None] * mesh.shape[INDEX_AXIS]
+    return (x if isinstance(x, Sharded) else Sharded.split(x, mesh, axis)
+            ).blocks
+
+
+def _shard_rows(n: int, mesh) -> int:
+    shards = mesh.shape[INDEX_AXIS]
+    if n % shards:
+        raise ValueError(f"{n} index rows do not split into {shards} shards")
+    return n // shards
+
+
+def _local_valid(n_valid: Optional[int], s: int, shard_rows: int,
+                 n: int) -> Optional[int]:
+    """Valid rows of shard s: padding is contiguous at the global tail, so
+    shard s holds clip(n_valid - s * shard_rows, 0, shard_rows); a shard
+    may be all padding (0).  Padding is masked before the local top-k:
+    zero pad rows score 0 and would evict valid negative-score rows."""
+    if n_valid is None or n_valid >= n:
+        return None
+    return min(max(n_valid - s * shard_rows, 0), shard_rows)
+
+
+def _merge_shards(mesh, parts, k: int, device):
+    """parts: (vals, global ids[, certificates]) of this process's shards
+    in shard order → the merged (vals, ids[, AND of certificates])."""
+    vals = torch.cat([p[0].to(device) for p in parts], dim=1)
+    ids = torch.cat([p[1].to(device) for p in parts], dim=1)
+    certs = (torch.stack([p[2].to(device) for p in parts], dim=1)
+             if len(parts[0]) > 2 else None)
+    if mesh.spans_processes:
+        vals, ids = all_gather_columns(vals), all_gather_columns(ids)
+        if certs is not None:
+            certs = all_gather_columns(certs.to(torch.int32)) > 0
+    top, pos = topk_lower_index(vals, k)
+    out = (top, torch.gather(ids, 1, pos))
+    return out if certs is None else out + (certs.all(dim=1),)
+
+
+def sharded_mips_topk(index, queries, k: int, mesh, *,
+                      chunk_rows: int = 4096, n_valid: Optional[int] = None,
+                      doc_scales=None):
+    """Exact MIPS over an index row-sharded on the mesh's ``index`` axis
+    (the JAX package's sharded_mips_topk): shard s runs ``mips_topk`` on
+    rows [s * shard_rows, (s + 1) * shard_rows) on its device.  ``index``
+    and ``doc_scales`` are global tensors (split here) or
+    ``core.mesh.Sharded`` blocks.  Returns (vals (B, k), global row ids
+    (B, k) int32) on the queries' device."""
+    n = index.shape[0]
+    shard_rows = _shard_rows(n, mesh)
+    blocks, scales = _blocks(index, mesh), _blocks(doc_scales, mesh)
+    parts = []
+    for s, dev in mesh.local_shards():
+        with on_device(dev):
+            v, i = mips_topk(blocks[s], queries.to(dev), k,
+                             chunk_rows=chunk_rows, doc_scales=scales[s],
+                             n_valid=_local_valid(n_valid, s, shard_rows, n))
+        parts.append((v, i + s * shard_rows))
+    return _merge_shards(mesh, parts, k, queries.device)
+
+
+def sharded_mips_topk_pca(index, proj, rot, bounds, queries, k: int, mesh, *,
+                          k_chunks: int = 8, cand_rows: int = 512,
+                          n_valid: Optional[int] = None, doc_scales=None):
+    """Row-sharded PCA-prefiltered search (the JAX package's
+    sharded_mips_topk_pca): shard s runs ``mips_topk_pca`` over its rows,
+    projections and bounds (split along their chunk axis) with the
+    rotation replicated, rescanning ``min(k_chunks, local chunks - 1)``
+    chunks.  The merged top-k equals the global exact top-k whenever every
+    shard's local top-k was exact, so the certificate is the AND over
+    shards.  Returns (vals, global row ids, certified (B,) bool)."""
+    n = index.shape[0]
+    shard_rows = _shard_rows(n, mesh)
+    if shard_rows % cand_rows:
+        raise ValueError("cand_rows must divide the per-shard row count")
+    local_chunks = shard_rows // cand_rows
+    if local_chunks < 2:
+        raise ValueError(
+            f"each shard holds {local_chunks} candidate chunk(s); the "
+            "prefilter needs >= 2 per shard (use fewer shards, smaller "
+            "cand_rows, or the plain sharded_mips_topk)")
+    kc = min(k_chunks, local_chunks - 1)
+    blocks, scales = _blocks(index, mesh), _blocks(doc_scales, mesh)
+    projs, bnds = _blocks(proj, mesh), _blocks(bounds, mesh, axis=1)
+    parts = []
+    for s, dev in mesh.local_shards():
+        with on_device(dev):
+            v, i, c = mips_topk_pca(
+                blocks[s], projs[s], rot.to(dev), bnds[s], queries.to(dev), k,
+                k_chunks=kc, cand_rows=cand_rows, doc_scales=scales[s],
+                n_valid=_local_valid(n_valid, s, shard_rows, n))
+        parts.append((v, i + s * shard_rows, c))
+    return _merge_shards(mesh, parts, k, queries.device)
 
 
 def merge_multivector(vals, rows, k: int, m: int):

@@ -22,7 +22,10 @@ hop2_assemble, hop2_encode, hop2_mips, chain_topk); they cost nothing
 unless a profiler is recording.
 ``add_docs`` and ``delete_doc`` update the live engine (index and token
 store) between searches, as the JAX engine's do.
-Not ported yet: sharding (``mesh`` raises NotImplementedError).
+With a ``mesh`` (or an index sharded over one) both hops run the
+row-sharded searches of ``ops/mips.py``: every shard searches its rows on
+its device and the shards' candidates are merged; the encoder and the
+token store stay on the engine's device.
 """
 
 from __future__ import annotations
@@ -37,9 +40,11 @@ from torch.profiler import record_function
 
 from ..core.config import SearchConfig, default_hop2_tiling
 from ..core.device import resolve_device
+from ..core.mesh import INDEX_AXIS
 from ..data.tokenization import TokenizerSpec
 from ..index.store import DenseIndex
 from ..ops.mips import (NEG_INF, merge_multivector, mips_topk, mips_topk_pca,
+                        sharded_mips_topk, sharded_mips_topk_pca,
                         topk_lower_index)
 
 
@@ -111,7 +116,10 @@ class BeamSearcher:
     search: hop 2 runs through it, and the output carries ``stop_probs``
     (B, beam1), P(single-hop answer | q ⊕ p1) of each hop-1 candidate
     (class 0 = stop), and ``top_stop_probs`` (B, topk) of each chain's
-    hop-1 candidate.  The caller decides whether a chain is one passage."""
+    hop-1 candidate.  The caller decides whether a chain is one passage.
+
+    ``mesh`` (``core.mesh.make_mesh``) shards the index by rows over its
+    ``index`` axis, unless the index is sharded over it already."""
 
     encode_fn: Callable
     index: DenseIndex
@@ -126,8 +134,8 @@ class BeamSearcher:
 
     def __post_init__(self):
         cfg = self.config
-        if self.mesh is not None:
-            raise NotImplementedError("sharded search is not ported yet")
+        if self.mesh is not None and self.index.mesh != self.mesh:
+            self.index = self.index.shard(self.mesh)
         if cfg.stop_skip_threshold > 0 and self.encode_qsp_fn is None:
             raise ValueError(
                 "stop_skip_threshold needs an engine built with "
@@ -154,8 +162,10 @@ class BeamSearcher:
         ``text_ids`` (M, <= Lt) raw doc token ids (no specials), padded here
         to the store width; a 16-bit store keeps ids >= 32768 as their
         int16 bit patterns.  The index grows by lcm(index layout chunk,
-        config.chunk_rows) when its padding is full.  Returns the new
-        documents' ids."""
+        config.chunk_rows) times its shard count when its padding is full
+        (the kernels need each shard's rows to be a multiple of the
+        scan tile), each shard's block rebuilt at the longer length.
+        Returns the new documents' ids."""
         if self.index.multi_vector != 1:
             raise NotImplementedError(
                 "online updates support single-vector indexes")
@@ -214,11 +224,22 @@ class BeamSearcher:
         k_rows = k * m
         cert = None
         use_pca = pca and cfg.use_pca
-        if use_pca and n_pad // idx.pca_cand_rows < 2:
-            # one candidate chunk leaves nothing unselected to certify
-            # against: route the hop to the plain scan
+        shards = 1 if idx.mesh is None else idx.mesh.shape[INDEX_AXIS]
+        if use_pca and n_pad // shards // idx.pca_cand_rows < 2:
+            # one candidate chunk (a shard's, on a mesh) leaves nothing
+            # unselected to certify against: route the hop to the plain scan
             use_pca = False
-        if use_pca:
+        if idx.mesh is not None and use_pca:
+            vals, rows, cert = sharded_mips_topk_pca(
+                vectors, idx.pca_proj, idx.pca_rot, idx.pca_bounds, queries,
+                k_rows, idx.mesh, k_chunks=cfg.pca_k_chunks,
+                cand_rows=idx.pca_cand_rows, n_valid=n_valid,
+                doc_scales=idx.scales)
+        elif idx.mesh is not None:
+            vals, rows = sharded_mips_topk(
+                vectors, queries, k_rows, idx.mesh, chunk_rows=cfg.chunk_rows,
+                n_valid=n_valid, doc_scales=idx.scales)
+        elif use_pca:
             cand = idx.pca_cand_rows
             kc = max(1, min(cfg.pca_k_chunks, n_pad // cand - 1))
             vals, rows, cert = mips_topk_pca(

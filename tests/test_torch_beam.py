@@ -31,6 +31,7 @@ from multihop_dense_retrieval_tpu.search import BeamSearcher as JaxSearcher
 from multihop_dense_retrieval_tpu.search import beam as jbeam
 from multihop_dense_retrieval_tpu_torch.core.config import (EncoderConfig,
                                                             SearchConfig)
+from multihop_dense_retrieval_tpu_torch.core.mesh import make_mesh
 from multihop_dense_retrieval_tpu_torch.data import HashTokenizer
 from multihop_dense_retrieval_tpu_torch.index import DenseIndex
 from multihop_dense_retrieval_tpu_torch.models import (
@@ -309,10 +310,15 @@ def test_unported_options_raise():
     base = dict(encode_fn=None, index=index, text_ids=f["text"][0],
                 text_lens=f["text"][1], empty=f["text"][2], spec=tok.spec,
                 device="cpu")
-    # only sharding is left to port; the beam-4 options are accepted, and
-    # a cascade without a stop head fails as in the JAX engine
-    with pytest.raises(NotImplementedError, match="sharded"):
-        BeamSearcher(config=SearchConfig(**f["kw"]), mesh=object(), **base)
+    # sharding is ported: a mesh shards the index (a 4-shard mesh of the
+    # CPU device; tests/test_torch_sharded_engine.py holds its chains to
+    # the JAX engine's); the beam-4 options are accepted, and a cascade
+    # without a stop head fails as in the JAX engine
+    mesh = make_mesh(index=4, devices=[torch.device("cpu")] * 4)
+    sharded = BeamSearcher(config=SearchConfig(**f["kw"]), mesh=mesh, **base)
+    assert sharded.index.mesh == mesh and index.mesh is None
+    assert [b.shape[0] for b in sharded.index.vectors.blocks] == \
+        [index.vectors.shape[0] // 4] * 4
     with pytest.raises(ValueError, match="stop_skip_threshold"):
         BeamSearcher(config=SearchConfig(**f["kw"], stop_skip_threshold=0.5),
                      **base)

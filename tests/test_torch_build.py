@@ -32,6 +32,7 @@ import torch
 
 from multihop_dense_retrieval_tpu.cli import common as jcommon
 from multihop_dense_retrieval_tpu.cli import encode_corpus as jcli
+from multihop_dense_retrieval_tpu.core import mesh as jmesh
 from multihop_dense_retrieval_tpu.core.config import \
     EncoderConfig as JaxEncoderConfig
 from multihop_dense_retrieval_tpu.data import HashTokenizer as JaxHashTok
@@ -48,6 +49,7 @@ from multihop_dense_retrieval_tpu_torch.cli import encode_corpus as tcli
 from multihop_dense_retrieval_tpu_torch.cli import eval_mhop_fever as tfever
 from multihop_dense_retrieval_tpu_torch.cli import \
     eval_mhop_retrieval as tretr
+from multihop_dense_retrieval_tpu_torch.core import mesh as tmesh
 from multihop_dense_retrieval_tpu_torch.core.config import EncoderConfig
 from multihop_dense_retrieval_tpu_torch.data import (Corpus, HashTokenizer,
                                                      TokenizedCorpus)
@@ -499,18 +501,93 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     assert not os.path.exists(missing)
 
 
+def test_single_device_encode_never_copies_the_encoder(monkeypatch):
+    """Encoding on the encoder's own device, alone or as a data mesh that
+    repeats it, uses the caller's module itself: no copy is made."""
+    _, tc, spec = _corpus(9, seed=4)
+    _, _, sd = _retrievers()
+    model = MhopRetriever(EncoderConfig.tiny(**_cfg_kw()), cls_only=True)
+    model.load_state_dict(sd)
+
+    def refuse(_):
+        raise AssertionError("the encoder was copied")
+
+    monkeypatch.setattr(tbuild.copy, "deepcopy", refuse)
+    kw = dict(max_c_len=48, batch_size=8, scan_batches=2)
+    one = tbuild.encode_corpus(model.encode_seq, tc, spec, device="cpu", **kw)
+    two = tbuild.encode_corpus(
+        model.encode_seq, tc, spec, **kw,
+        mesh=tmesh.make_mesh(data=2, index=1, devices=["cpu"] * 2))
+    np.testing.assert_allclose(two, one, rtol=0, atol=1e-6)
+    assert tbuild._replicas(model, ["cpu"]) == [model]
+
+
 def test_unported_options_raise(tmp_path):
-    _, tc, spec = _corpus(8, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        tbuild.encode_corpus(lambda *a: None, tc, spec, mesh=object(),
-                             device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        tbuild.build_index(lambda *a: None, tc, spec, n_shards=2,
-                           device="cpu")
+    """Data-parallel encoding and the row-sharded build are ported (the JAX
+    package's ``mesh=``, ``n_shards=`` and ``--data-parallel``): each batch
+    split over a 2-device data mesh (the CPU device twice) gives the rows
+    of the single-device encode (fp32 within 1e-6: the halves' products
+    are the same, only the GEMM's blocking may differ) and of the JAX
+    package's 2-device encode (1e-5, as above); build_index(n_shards=2)
+    pads to chunk_rows x 2 and, with a 2-shard mesh, places a row block on
+    each shard; ``encode_corpus --data-parallel 2`` writes the single run's
+    artifacts.  A batch that does not split over the data devices raises,
+    and the --export-npy combinations still exit."""
+    jtc, tc, spec = _corpus(19, seed=3)
+    jmodel, params, sd = _retrievers()
+    model = MhopRetriever(EncoderConfig.tiny(**_cfg_kw()), cls_only=True)
+    model.load_state_dict(sd)
+    cpu = torch.device("cpu")
+    dp = tmesh.make_mesh(data=2, index=1, devices=[cpu] * 2)
+    kw = dict(max_c_len=48, batch_size=8, scan_batches=2)
+    one = tbuild.encode_corpus(model.encode_seq, tc, spec, device="cpu", **kw)
+    two = tbuild.encode_corpus(model.encode_seq, tc, spec, mesh=dp, **kw)
+    np.testing.assert_allclose(two, one, rtol=0, atol=1e-6)
+    exp = jbuild.encode_corpus(
+        _jax_encode_fn(jmodel, method=jmodel.encode_seq), params, jtc, spec,
+        mesh=jmesh.make_mesh(data=2, index=1, devices=jax.devices()[:2]),
+        **kw)
+    np.testing.assert_allclose(two, exp, rtol=0, atol=1e-5)
+    with pytest.raises(ValueError, match="does not split"):
+        tbuild.encode_corpus(model.encode_seq, tc, spec, mesh=dp,
+                             max_c_len=48, batch_size=7)
+    # data devices the encoder does not live on get a copy of its module
+    # ("cpu:0" is a device of its own name): the same rows, to the GEMM's
+    # blocking (1e-6)
+    other = tmesh.make_mesh(data=2, index=1,
+                            devices=[cpu, torch.device("cpu", 0)])
+    fns = tbuild._replicas(model.encode_seq, other.data_devices())
+    assert fns[0] == model.encode_seq and fns[1].__self__ is not model
+    np.testing.assert_allclose(
+        tbuild.encode_corpus(model.encode_seq, tc, spec, mesh=other, **kw),
+        two, rtol=0, atol=1e-6)
+    with pytest.raises(ValueError, match="nn.Module"):
+        tbuild._replicas(lambda *a: None, other.data_devices())
+    bkw = dict(max_c_len=48, batch_size=8, chunk_rows=16, dtype="float32")
+    index = tbuild.build_index(model.encode_seq, tc, spec, n_shards=2,
+                               device="cpu", **bkw)
+    assert index.vectors.shape[0] == 32 and index.mesh is None
+    sharded = tbuild.build_index(
+        model.encode_seq, tc, spec, n_shards=2,
+        mesh=tmesh.make_mesh(index=2, devices=[cpu] * 2), **bkw)
+    assert [b.shape[0] for b in sharded.vectors.blocks] == [16, 16]
+    assert torch.equal(sharded.vectors.gather(), index.vectors)
+
+    docs = synth.make_corpus(np.random.RandomState(5), 20)
+    synth.write_jsonl(tmp_path / "c.jsonl", docs)
     base = [str(tmp_path / "c.jsonl"), str(tmp_path / "out"), "--device",
             "cpu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        tcli.main(base + ["--unified", "--data-parallel", "2"])
+    run = ["--tokenizer", "hash", "--model-name", "tiny", "--batch-size",
+           "8", "--chunk-rows", "16", "--max-c-len", "32", "--index-dtype",
+           "float32"]
+    tcli.main(base + run + ["--data-parallel", "2"])
+    tcli.main([str(tmp_path / "c.jsonl"), str(tmp_path / "one"), "--device",
+               "cpu"] + run)
+    a = DenseIndex.load(str(tmp_path / "out" / "index.npz"), device="cpu")
+    b = DenseIndex.load(str(tmp_path / "one" / "index.npz"), device="cpu")
+    assert a.n_docs == b.n_docs == 20
+    np.testing.assert_allclose(a.vectors.numpy(), b.vectors.numpy(),
+                               rtol=0, atol=1e-6)
     for flags in (["--export-npy", "--num-shards", "2"],
                   ["--export-npy", "--multi-vector", "2"]):
         with pytest.raises(SystemExit):

@@ -19,7 +19,10 @@ two-phase route in the port; the JAX package takes its XLA tier on the
 CPU.  Both are exact, so dumps must be equal row for row and the metrics
 JSON equal.  ``--hop2-prune-margin`` runs (fixed and ``auto``) compare the
 same way, and the pruned chains' NEG_INF scores must sit in the same
-places.
+places.  The ``*_shards*`` runs pass ``--index-shards 2`` or ``4`` to
+both CLIs: the JAX one shards over its virtual CPU devices, the port's
+over the CPU device repeated; every shard of the port takes the
+two-phase search at hop 2.
 
 The variable-hop runs use a second set-up (``unified_env``): a tiny
 UnifiedRetriever written as a reference-layout ``.pt`` (the JAX package's
@@ -201,6 +204,10 @@ def _check_pruned(kept, extra):
 
 FEVER = {"bf16": ("bf16", []), "bf16_pca": ("bf16", ["--pca"]),
          "int8": ("int8", []),
+         "bf16_shards2": ("bf16", ["--index-shards", "2"]),
+         "bf16_pca_shards2": ("bf16", ["--pca", "--index-shards", "2"]),
+         "int8_shards4_prune": ("int8", ["--index-shards", "4",
+                                         "--hop2-prune-margin", "0.5"]),
          "int8_prune_auto": ("int8", ["--hop2-prune-margin", "auto"]),
          "bf16_pca_prune_fixed": ("bf16", ["--pca", "--hop2-prune-margin",
                                            "0.5"])}
@@ -233,15 +240,19 @@ def test_eval_mhop_fever_matches_jax(env, case, monkeypatch):
     assert json.loads(tline) == json.loads(jline)       # the metrics JSON
     _check_results(jseen, tseen, 10)
     # hop 2 (B = batch 4 x beam 2 = 8, k = 10) took the two-phase search
-    # unless the prefilter served it
+    # (on every shard) unless the prefilter served it
     pca = "--pca" in extra
-    assert tcalls == ([] if pca else [(8, 32)] * len(tseen))
+    shards = int(extra[extra.index("--index-shards") + 1]) \
+        if "--index-shards" in extra else 1
+    assert tcalls == ([] if pca else [(8, 32)] * len(tseen) * shards)
     if pca:
         assert any(r["pca_cert2"].any() for r in tseen)
     _check_pruned(kept, extra)
 
 
 RETRIEVAL = {"bf16_pca": ("bf16", ["--pca"]), "int8": ("int8", []),
+             "int8_shards2": ("int8", ["--index-shards", "2"]),
+             "bf16_pca_shards2": ("bf16", ["--pca", "--index-shards", "2"]),
              "int8_prune_auto": ("int8", ["--hop2-prune-margin", "auto"]),
              "bf16_pca_prune_q9": ("bf16", ["--pca", "--hop2-prune-margin",
                                             "auto:0.9"])}
@@ -291,14 +302,20 @@ def test_load_json_flex_matches_jax(tmp_path, layout):
 
 
 def test_unported_options_raise(tmp_path):
-    """Only sharding still raises; the beam-4 options and --hnsw are
-    ported, and their flag combinations fail as in the JAX CLI."""
+    """Sharding, the beam-4 options and --hnsw are ported; their flag
+    combinations fail as in the JAX CLI.  --index-shards N builds the mesh
+    of N shards over the named device (the CPU here, repeated), and over
+    the visible cards for the bare cuda, raising the JAX error where they
+    are fewer than N (none here); the sharded runs themselves are the
+    *_shards cases above."""
+    cpu = torch.device("cpu")
+    assert tcommon.index_mesh(1, "cpu") is None
+    mesh = tcommon.index_mesh(2, "cpu")
+    assert mesh.shape == {"data": 1, "index": 2}
+    assert mesh.shard_devices() == [cpu, cpu]
+    with pytest.raises(ValueError, match="does not fit the 0"):
+        tcommon.index_mesh(2, "cuda")
     base = [str(tmp_path / "q.jsonl"), str(tmp_path), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        tretr.main(base + ["--index-shards", "2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        tfever.main(base + ["--index-shards", "2", "--hop2-prune-margin",
-                            "0.5"])
     for flags in (["--stop-skip", "0.5"], ["--hnsw", "--pca"],
                   ["--hnsw", "--unified"], ["--hop2-prune-margin", "-1"],
                   ["--hop2-prune-margin", "auto:1.5"]):

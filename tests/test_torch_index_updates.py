@@ -1,7 +1,7 @@
 """Online index updates: the port's DenseIndex.append / replace /
 delete_swap and BeamSearcher.add_docs / delete_doc against the JAX
 package's, on the cases of tests/test_index_updates.py (the sharded case
-waits for multi-GPU, ROADMAP item 12).
+is tests/test_torch_sharded_engine.py::test_live_updates_on_sharded_index).
 
 Tolerances:
   * stored rows (fp32, bf16, int8 values and scales), n_docs, shapes and

@@ -3,7 +3,8 @@ package (top-level module names compared exactly — the port's own name
 starts with the JAX package's), nor the third-party ``regex`` package,
 which the card host lacks; ``transformers`` and ``tqdm`` only lazily,
 inside a function; and its entry points never fall back to the CPU on
-their own."""
+their own: nor do its meshes, and its pod chooses its collective backend
+once, from where its processes run."""
 
 import ast
 import json
@@ -203,3 +204,30 @@ def test_training_cli_without_device_raises_when_cuda_is_absent(
         argv += ["--output-dir", str(tmp_path / "sweep")]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(argv)
+
+
+def test_mesh_and_pod_never_fall_back(monkeypatch):
+    """Without cards the default mesh, and --index-shards over the bare
+    cuda, raise rather than put shards on the CPU.  Only core/mesh.py
+    starts a process group, once, in init_pod, with no try/except around
+    it: the collective backend is chosen from where the processes run and
+    never switched after a failure."""
+    from multihop_dense_retrieval_tpu_torch.cli import common
+    from multihop_dense_retrieval_tpu_torch.core import mesh
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(ValueError, match="does not fit the 0"):
+        mesh.make_mesh()
+    with pytest.raises(ValueError, match="does not fit the 0"):
+        common.index_mesh(2, "cuda")
+    starters = [p for p in SOURCES if p.startswith(PORT) and any(
+        call in (ROOT / p).read_text()
+        for call in ("init_process_group", "new_group"))]
+    assert starters == [f"{PORT}/core/mesh.py"]
+    tree = ast.parse((ROOT / starters[0]).read_text())
+    init = next(n for n in ast.walk(tree)
+                if isinstance(n, ast.FunctionDef) and n.name == "init_pod")
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(init))
+    calls = [n for n in ast.walk(init) if isinstance(n, ast.Call)
+             and getattr(n.func, "attr", "") == "init_process_group"]
+    assert len(calls) == 1 and isinstance(calls[0].args[0], ast.Constant)

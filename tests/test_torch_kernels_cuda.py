@@ -312,6 +312,64 @@ def test_pca_rescan_int8_matches_plain(dev, b, d, n_valid):
     assert torch.equal(got, exp)
 
 
+# widths of each template: the tensor-core one and the SIMT one
+_WIDTHS = {"int8": {"mma": 768, "simt": 192},
+           "bf16": {"mma": 768, "simt": 96}}
+
+
+@pytest.mark.parametrize("route", ["mma", "simt"])
+@pytest.mark.parametrize("kernel", ["mips_scan_int8", "mips_scan",
+                                    "pca_chunk_max", "pca_rescan_int8",
+                                    "rescan", "chunk_max", "chunk_max_int8"])
+def test_kernels_with_no_valid_row(dev, kernel, route):
+    """A shard of a row-sharded index that holds padding only runs its
+    kernels with n_valid = 0: no row enters, so the merge can pick
+    nothing of it.  Kernels 1-7 on each template return what their plain
+    versions give: NEG_INF maxima and scores, (NEG_INF, 0) fillers."""
+    g = _gen(dev, 7)
+    int8 = kernel in ("mips_scan_int8", "pca_rescan_int8", "chunk_max_int8")
+    d = _WIDTHS["int8" if int8 else "bf16"][route]
+    n, chunk, b, k, kc = 4096, 512, 24, 4, 3
+    q32 = torch.randn(b, d, device=dev, generator=g)
+    if int8:
+        rows = _rows(dev, g, n, d, torch.int8)
+        dsc = torch.rand(n, device=dev, generator=g) + 0.01
+        q, qs = mips.quantize_rows(q32)
+    else:
+        rows = _rows(dev, g, n, d, torch.bfloat16)
+        q, dsc = q32.to(torch.bfloat16), None
+    ids = torch.randint(0, n // chunk, (b, kc), device=dev, generator=g,
+                        dtype=torch.int32)
+    if kernel == "mips_scan_int8":
+        got = mips.mips_scan_int8(q, qs, rows, dsc, k, 0)
+        exp = mips.mips_scan_int8_plain(q, qs, rows, dsc, k, 0)
+    elif kernel == "mips_scan":
+        got = mips.mips_scan(q, rows, k, 0)
+        exp = mips.mips_scan_plain(q, rows, k, 0)
+    elif kernel == "pca_chunk_max":
+        proj = rows[:, :128 if route == "mma" else 96].contiguous()
+        qp = q[:, :proj.shape[1]].contiguous()
+        got = mips.pca_chunk_max(qp, proj, chunk, 0)
+        exp = mips.chunk_max_plain(qp, proj, chunk, 0)
+    elif kernel == "chunk_max":
+        got = mips.chunk_max(q, rows, chunk, 0)
+        exp = mips.chunk_max_plain(q, rows, chunk, 0)
+    elif kernel == "chunk_max_int8":
+        got = mips.chunk_max_int8(q, rows, dsc, chunk, 0)
+        exp = mips.chunk_max_plain(q, rows, chunk, 0, dsc)
+    elif kernel == "pca_rescan_int8":
+        got = mips.pca_rescan_int8(ids, q, rows, dsc, chunk, 0)
+        exp = mips.rescan_plain(ids, q, rows, dsc, chunk, 0)
+    else:
+        got = mips.rescan(ids, q, rows, chunk, 0)
+        exp = mips.rescan_plain(ids, q, rows, None, chunk, 0)
+    torch.cuda.synchronize()
+    got, exp = (got, exp) if isinstance(got, tuple) else ((got,), (exp,))
+    for x, y in zip(got, exp):
+        assert torch.equal(x, y), kernel
+    assert bool((got[0] == -3.0e38).all()), kernel
+
+
 def _rows(dev, g, n, d, dtype):
     """Small integers (int8: the full range) with fp32 scales: every float
     product and sum is exact, so kernel and plain version agree exactly
@@ -1222,3 +1280,19 @@ def test_pca_certificate_holds_at_kernel_3_near_ties(dev, monkeypatch, seed):
     assert cert.any() and sharp > 0
     bad = np.flatnonzero(cert & (margin < 0))
     assert not len(bad), (bad, margin[bad])
+
+
+def test_default_card_encode_never_copies_the_encoder(dev, monkeypatch):
+    """The default device is a bare ``cuda`` while the module's parameters
+    report ``cuda:0``: the two name one card, so encoding on it uses the
+    caller's module and makes no copy of it."""
+    from multihop_dense_retrieval_tpu_torch.core.config import EncoderConfig
+    from multihop_dense_retrieval_tpu_torch.core.device import resolve_device
+    from multihop_dense_retrieval_tpu_torch.index import build
+    from multihop_dense_retrieval_tpu_torch.models import MhopRetriever
+
+    model = MhopRetriever(EncoderConfig.tiny(), cls_only=True).to(dev)
+    monkeypatch.setattr(build.copy, "deepcopy", lambda _: pytest.fail(
+        "the encoder was copied"))
+    assert build._replicas(model.encode_seq, [resolve_device(None)]) == \
+        [model.encode_seq]

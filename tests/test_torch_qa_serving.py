@@ -161,11 +161,17 @@ def test_end2end_matches_jax(env, extra, capsys):
     assert _lines(tmp / "t.jsonl") == _lines(tmp / "j.jsonl")
 
 
-def test_end2end_refuses_unported_options(env):
-    """Only sharding is left to port (--unified is served below)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        tend2end.main(_e2e_args(env, "--device", "cpu", "--unified",
-                                "--index-shards", "2"))
+def test_end2end_refuses_unported_options(env, capsys):
+    """end2end has no --index-shards, as the JAX CLI has none (it loads
+    its engine without a mesh): both refuse the flag as an unknown
+    argument, before any work (--unified is served below)."""
+    for main, extra in ((jend2end.main, ()), (tend2end.main,
+                                              ("--device", "cpu"))):
+        with pytest.raises(SystemExit) as err:
+            main(_e2e_args(env, *extra, "--unified", "--index-shards", "2"))
+        assert err.value.code == 2
+        assert "unrecognized arguments: --index-shards 2" in \
+            capsys.readouterr().err
 
 
 @pytest.fixture(scope="module")

@@ -6,7 +6,7 @@ then the JAX package's tests of them and of ``cli/train_single`` and
 test_nq_mhop_dataset_and_augmentation, tests/test_more_cli.py::
 test_train_single_cli, test_train_single_separate_encoders_from_checkpoint
 and test_launch_grid), on ``--device cpu`` and without ``--data-parallel``,
-which the port raises on (ROADMAP item 12).  The single-hop train steps
+which the port raises on (ROADMAP item 12b).  The single-hop train steps
 themselves are held to JAX's in tests/test_torch_train.py.
 """
 
