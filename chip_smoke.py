@@ -1,8 +1,9 @@
 """Build the PyTorch port's CUDA kernels and drive its search, corpus-
 encoding, question-answering and training paths (the retriever, reader
 and single-hop trainers, the grid launcher, checkpoint export), its
-single-hop bulk retrieval and offline-eval CLIs, its quickstart, and its
-row-sharded serving, data-parallel encoding and pod runner on one GPU.
+single-hop bulk retrieval and offline-eval CLIs, its quickstart, its
+row-sharded serving, data-parallel encoding and pod runner, and its data-
+and tensor-parallel training on one GPU.
 Run from the repository root:  python3 chip_smoke.py
 
 Phases (each prints a line and flushes; any failure exits non-zero):
@@ -123,7 +124,7 @@ Phases (each prints a line and flushes; any failure exits non-zero):
                   master weights and Adam) at batch 16 and the reference
                   widths, the optimizer of RetrieverTrainConfig's
                   defaults: examples/s and ms/step (CUDA events, the
-                  median of 10 steps after 3), peak allocated memory,
+                  median of 6 steps after 3), peak allocated memory,
                   one profiled step; every loss finite.  j2: j1 with
                   --remat at batch 64.  j3: cli/train_retriever for one
                   epoch of 256 synthetic rows (synth_doc_lens passages,
@@ -208,6 +209,31 @@ Phases (each prints a line and flushes; any failure exits non-zero):
                   eval_mhop_retrieval --index-shards 2 (equal to the
                   single-process 2-shard run); first a probe of which
                   gloo collectives take CUDA tensors.
+               o. data- and tensor-parallel training (train/trainer.py's
+                  DataParallel, parallel/sharding.py; no kernel: the counts
+                  must stay 0; every mesh the card twice, and cuda:0 +
+                  cuda:1 too where the host shows two cards).  o1: a
+                  data-2 step of j0's model (2 x 768, fp32, B=16 ragged at
+                  the reference widths) against the single-device card
+                  step by j0's criteria; j1's model (roberta-base, bf16)
+                  against it in units of its bf16-vs-fp32 gradient noise n
+                  (loss within O_LOSS_TOL, gradients within 2 n), and the
+                  negative control (local in-batch negatives, averaged
+                  gradients), which must fail both; ms/step and
+                  examples/s of the single-device (j1's config), data-2
+                  and tensor-parallel steps in turns, each card's peak
+                  memory.  o2: the momentum step (j3's 76,800 x 768 queue,
+                  j0's model) by j0's criteria, the enqueued rows and the
+                  pointer; the token-queue step of train_single --momentum
+                  at k3's shapes, its queue bit-equal.  o3: the
+                  tensor-parallel step (index 2: 6 heads and 1,536 FFN
+                  columns a shard) as o1, and by tests/test_parallel.py's
+                  criteria.  o4: cli/train_retriever, train_momentum and
+                  train_single with --data-parallel 2, 64 rows each at
+                  roberta-base; each checkpoint strict-loads back.  o5:
+                  o1's bf16 step in 2 processes through run_processes (one
+                  entry each: gloo on the shared card, NCCL on two),
+                  held to the single-process data-2 step.
   4. result  — one JSON line of kernel records, the card's name and power
                limit, and the final {"ok": true, ...} line.
 Exits with code 2 and no result when CUDA is not available.
@@ -268,7 +294,7 @@ N_HNSW_Q, HNSW_M, HNSW_EF_C = 2 * B, 32, 200
 # the momentum stage) and the momentum queue
 J_WIDTHS = (("q", 70), ("q_sp", 350), ("c1", 300), ("c2", 300),
             ("neg1", 300), ("neg2", 300))
-J_B, J_REMAT_B, J_WARM, J_ITERS = 16, 64, 3, 10
+J_B, J_REMAT_B, J_WARM, J_ITERS = 16, 64, 3, 6
 J_ROWS, J_DEV_ROWS, J_MOM_ROWS, J_QUEUE = 256, 64, 64, 76800
 # leg k (the rest of training): the reader trainer's JAX CLI defaults
 # (batch, max_seq_len, answer slots, sentences), the timed reader steps;
@@ -276,9 +302,13 @@ J_ROWS, J_DEV_ROWS, J_MOM_ROWS, J_QUEUE = 256, 64, 64, 76800
 # single-hop trainer's batch (the CLI's 128 cut to 32: without remat 128 x
 # 650 tokens would not fit in 80 GB) and rows
 K_B, K_LEN, K_SLOTS, K_SENTS = 8, 512, 10, 40
-K_WARM, K_ITERS = 2, 6
+K_WARM, K_ITERS = 2, 4
 K_QA_ROWS, K_QA_DEV = 64, 16
 K3_B, K3_ROWS = 32, 128
+# leg o (data- and tensor-parallel training): warm-up and timed steps of
+# each throughput run (two windows of half), the CLIs' rows; the relative
+# loss tolerance of a bf16 step against the single-device one
+O_WARM, O_ITERS, O_ROWS, O_LOSS_TOL = 2, 8, 64, 5e-3
 # leg l (single-hop bulk retrieval): questions, and cli/eval_retrieval's
 # defaults (batch, top k, query width)
 N_BULK_Q, BULK_BATCH, BULK_K, BULK_Q_LEN = 1024, 256, 100, 50
@@ -1157,6 +1187,7 @@ def run_main_path(port, mips, dev, gen, smi, table_path=None, iters=50):
     with tempfile.TemporaryDirectory() as tmp:
         launches.update(run_training(port, mips, dev, smi, tmp))
         launches.update(run_reader_training(port, mips, dev, smi, tmp))
+        launches.update(run_parallel_training(port, mips, dev, smi, tmp))
     launches.update(run_quickstart(mips, dev, smi))
     return launches
 
@@ -1941,33 +1972,62 @@ def adam_bound(g, delta, p, lr, eps, tight=1e-3, steps=1):
         max=2.5 * steps) + 2 * ulp
 
 
-def card_vs_cpu_step(T, base, make_step, batch, tcfg, dev):
-    """One train step of ``base``'s architecture and weights on the CPU and
-    one on the card (``make_step()`` over a TrainState of each, the same
-    numpy ``batch``): the loss within 1e-5 relative, the gradients within
-    1e-6 + 1e-4 of each tensor's largest, the parameters within
-    ``adam_bound`` in units of lr.  Returns the readings."""
+def joined_grads(model):
+    """The gradients of ``model``'s parameters on the CPU, under their
+    unsharded names: a tensor-parallel linear's blocks joined."""
+    from multihop_dense_retrieval_tpu_torch.parallel.sharding import \
+        ShardedLinear
+
+    out = {n: p.grad.detach().cpu().clone()
+           for n, p in model.named_parameters() if p.grad is not None}
+    for name, mod in model.named_modules():
+        if not isinstance(mod, ShardedLinear):
+            continue
+        for what, blocks, dim in (("weight", mod.weight, mod.dim),
+                                  ("bias", mod.bias, 0)):
+            if isinstance(blocks, torch.nn.ParameterList):
+                out[f"{name}.{what}"] = torch.cat(
+                    [out.pop(f"{name}.{what}.{s}") for s in
+                     range(len(blocks))], dim)
+    return out
+
+
+def run_step(T, base, make_step, batch, tcfg, dev, prepare=None,
+             state_of=None):
+    """One train step of a copy of ``base`` on ``dev`` (``prepare(model)``
+    first, e.g. a tensor-parallel layout; ``state_of(model, tx)`` makes
+    the state, default a TrainState): (loss, the gradients the update
+    consumed, the parameters in the reference layout, both on the CPU,
+    seconds, the state)."""
     import copy
 
-    out = []
-    for d in (torch.device("cpu"), dev):
-        state = T.TrainState.create(copy.deepcopy(base).to(d),
-                                    T.make_optimizer(tcfg, 10))
-        grads = {}
-        update = state.opt.update
+    model = copy.deepcopy(base).to(dev)
+    if prepare is not None:
+        prepare(model)
+    state = (state_of or T.TrainState.create)(model,
+                                              T.make_optimizer(tcfg, 10))
+    grads = {}
+    update = state.opt.update
 
-        def kept(state=state, update=update, grads=grads):
-            grads.update({n: p.grad.detach().cpu().clone()
-                          for n, p in state.model.named_parameters()})
-            return update()
+    def kept():
+        grads.update(joined_grads(state.model))
+        return update()
 
-        state.opt.update = kept
-        t = time.perf_counter()
-        state, loss = make_step()(state, T.to_device(batch, d))
-        out.append((float(loss), grads,
-                    {k: v.cpu() for k, v in state.model.state_dict().items()},
-                    time.perf_counter() - t))
-    (lc, gc, pc, tc), (lg, gg, pg, tg) = out
+    state.opt.update = kept
+    t = time.perf_counter()
+    state, loss = make_step()(state, T.to_device(batch, dev))
+    loss = float(loss)
+    return (loss, grads, {k: v.cpu() for k, v in
+                          T.reference_state_dict(state.model).items()},
+            time.perf_counter() - t, state)
+
+
+def hold_step(T, ref, got, tcfg):
+    """``got``'s step (``run_step``'s result) held to ``ref``'s: the loss
+    within 1e-5 relative, the gradients within 1e-6 + 1e-4 of each
+    tensor's largest, the parameters within ``adam_bound`` in units of
+    lr.  Returns the readings."""
+    (lc, gc, pc, tc, _), (lg, gg, pg, tg, _) = ref, got
     assert abs(lg - lc) <= 1e-5 * abs(lc), (lg, lc)
     lr, n_loose = tcfg.learning_rate, 0
     # the worst share of each tolerance used, with its tensor
@@ -1975,6 +2035,7 @@ def card_vs_cpu_step(T, base, make_step, batch, tcfg, dev):
     # Adam steps on the clipped gradients: its sensitivity is theirs
     norm = torch.sqrt(sum((g.double() ** 2).sum() for g in gc.values()))
     clip = min(1.0, tcfg.max_grad_norm / norm.item())
+    assert set(gg) == set(gc) and set(pg) == set(pc)
     for name, g in gc.items():
         tol = 1e-6 + 1e-4 * g.abs().max().item()
         err = (gg[name] - g).abs().max().item()
@@ -1989,6 +2050,16 @@ def card_vs_cpu_step(T, base, make_step, batch, tcfg, dev):
     return {"loss": (lg, lc), "norm": norm.item(), "clip": clip,
             "worst_g": worst_g, "worst_p": worst_p, "n_loose": n_loose,
             "n": sum(v.numel() for v in pc.values()), "secs": (tc, tg)}
+
+
+def card_vs_cpu_step(T, base, make_step, batch, tcfg, dev):
+    """One train step of ``base``'s architecture and weights on the CPU and
+    one on the card (``make_step()`` over a TrainState of each, the same
+    numpy ``batch``), as ``hold_step`` holds them.  Returns the
+    readings."""
+    return hold_step(T, run_step(T, base, make_step, batch, tcfg,
+                                 torch.device("cpu")),
+                     run_step(T, base, make_step, batch, tcfg, dev), tcfg)
 
 
 def check_train_step_on_card(T, models, cfgmod, dev, smi):
@@ -2550,6 +2621,498 @@ def run_reader_training(port, mips, dev, smi, tmp):
     run_single_cli(T, dev, smi, tmp)
     run_launch_and_export(cfgmod, dev, smi, tmp)
     return {"reader_training": assert_no_launches(mips, "k")}
+
+
+# ---- leg o: data- and tensor-parallel training ----------------------------
+
+
+def o_meshes(M, dev, data, index):
+    """(name, mesh) of leg o: a (data, index) mesh of two entries over the
+    card twice, and over cuda:0 and cuda:1 where the host shows two
+    cards."""
+    out = [(f"{dev} x2", M.make_mesh(data=data, index=index,
+                                     devices=[dev] * 2))]
+    if torch.cuda.device_count() > 1:
+        out.append(("cuda:0 + cuda:1", M.make_mesh(
+            data=data, index=index,
+            devices=[torch.device("cuda", i) for i in (0, 1)])))
+    return out
+
+
+def rel_dist(a, b):
+    """||a - b|| / ||b|| over the tensors of two dicts with b's keys."""
+    num = sum(((a[k].double() - b[k].double()) ** 2).sum() for k in b)
+    return float(torch.sqrt(num / sum((b[k].double() ** 2).sum()
+                                      for k in b)))
+
+
+def jax_tp_criteria(got, ref, lr, grads, clip):
+    """tests/test_parallel.py's parameter criteria, rtol 2e-3 and atol
+    2e-4, with its atol 2.5·lr where Adam's first update lr·g / (|g| +
+    eps) may flip sign: the attention key biases (zero true gradient),
+    and, since the card's tensor-parallel sums round otherwise, every
+    element whose clipped gradient (``grads`` times ``clip``) lies within
+    its tolerance (1e-6 + 1e-4 of its tensor's largest) of zero but not
+    zero (a zero gradient leaves its element put in both steps).  Returns
+    how many elements took the looser bound."""
+    n_flip = 0
+    for name, r in ref.items():
+        g = grads[name]
+        tol = (1e-6 + 1e-4 * g.abs().max().item()) * clip
+        flip = (((g * clip).abs() <= tol) & (g != 0)) | (".key.bias" in name)
+        atol = torch.where(flip, 2.5 * lr, 2e-4)
+        assert ((got[name] - r).abs() <= atol + 2e-3 * r.abs()).all(), name
+        n_flip += int(flip.sum())
+    return n_flip
+
+
+def o_fp32_base(models, cfgmod):
+    """j0's model: 2 layers at roberta-base width, fp32 compute."""
+    torch.manual_seed(0)
+    return models.MhopRetriever(
+        cfgmod.EncoderConfig.roberta_base(num_layers=2, dtype="float32"),
+        cls_only=True, fp32_params=True)
+
+
+def o_bf16_setup(models, cfgmod):
+    """o1's step: j1's model (roberta-base, bf16 compute, fp32 master
+    weights; its seed), a ragged batch of J_B rows at the reference
+    widths, Adam at lr 1e-3 without warmup."""
+    torch.manual_seed(11)
+    base = models.MhopRetriever(cfgmod.EncoderConfig.roberta_base(),
+                                cls_only=True, fp32_params=True)
+    return (base, train_batch(np.random.RandomState(63), J_B, full=False),
+            cfgmod.RetrieverTrainConfig(warmup_ratio=0.0,
+                                        learning_rate=1e-3))
+
+
+def check_parallel_fp32(T, models, cfgmod, dev, smi, leg, mesh, name, tp):
+    """o1 / o3 at fp32: j0's model, B=J_B ragged at the reference widths,
+    one step over ``mesh`` (``tp``: laid out over its index shards)
+    against the single-device card step, by j0's criteria
+    (``hold_step``), and for ``tp`` also tests/test_parallel.py's."""
+    from multihop_dense_retrieval_tpu_torch.parallel import shard_params
+
+    base = o_fp32_base(models, cfgmod)
+    batch = train_batch(np.random.RandomState(61), J_B, full=False)
+    tcfg = cfgmod.RetrieverTrainConfig(warmup_ratio=0.0, learning_rate=1e-3)
+    ref = run_step(T, base, T.make_train_step, batch, tcfg, dev)
+    got = run_step(T, base, lambda: T.make_train_step(
+        mesh=mesh, tensor_parallel=tp), batch, tcfg, dev,
+        prepare=(lambda m: shard_params(m, mesh)) if tp else None)
+    r = hold_step(T, ref, got, tcfg)
+    extra = ""
+    if tp:
+        flips = jax_tp_criteria(got[2], ref[2], tcfg.learning_rate, ref[1],
+                                r["clip"])
+        extra = (f"; tests/test_parallel.py's criteria hold, {flips} of "
+                 f"{r['n']} elements (the key biases, and gradients within "
+                 f"their tolerance of 0) at 2.5 lr")
+    say(f"  leg {leg} {'TP' if tp else 'DP'} step over {name} (mesh "
+        f"{dict(mesh.shape)}; {base.config.num_layers} x "
+        f"{base.config.hidden_size}, fp32, B={J_B} ragged) vs the "
+        f"single-device card step: loss {r['loss'][0]:.7f} vs "
+        f"{r['loss'][1]:.7f}; worst gradient error {r['worst_g'][0]:.3f} of "
+        f"its tolerance ({r['worst_g'][1]}); worst parameter "
+        f"{r['worst_p'][0]:.3f} of its Adam bound ({r['worst_p'][1]})"
+        f"{extra} [{smi}]")
+    return r
+
+
+def local_negatives_step(T, losses, base, batch, tcfg, dev, n=2):
+    """The negative control: each of ``n`` entries scores its own slice's
+    in-batch negatives only, and the entries' gradients are averaged (what
+    DDP does to a separable loss).  (loss, gradients)."""
+    import copy
+
+    model = copy.deepcopy(base).to(dev)
+    tb = T.to_device(batch, dev)
+    rows = J_B // n
+    loss = sum(losses.mhop_loss(model({k: v[j * rows:(j + 1) * rows]
+                                       for k, v in tb.items()}))
+               for j in range(n)) / n
+    loss.backward()
+    return float(loss), joined_grads(model)
+
+
+def check_bf16_spread(T, losses, models, cfgmod, dev, smi, runs):
+    """o1 / o3 at the leg's width: roberta-base in bf16, one step of each
+    of ``runs`` ((leg, name, make_step, prepare)) against the
+    single-device bf16 step, in units of the bf16 noise n = the distance
+    of the single-device step's gradients at bf16 from those at fp32 (the
+    same weights).  A run's slices (or shards' partial sums) round
+    otherwise than the whole batch's products, as leg h found for the
+    encoder's shapes: two independent bf16 roundings lie up to ~1.4 n
+    apart.  Held: the loss within O_LOSS_TOL relative (its scores,
+    products of vectors of norm ~8 through bf16 hidden states, move by
+    ~1e-3 of the loss between two such roundings: 1.5e-3 for the tensor-
+    parallel step in the CPU rehearsal at 64 wide), the gradients within
+    2 n.  The negative control (local in-batch negatives, averaged
+    gradients) must fail both.  Returns the noise and the control's
+    readings."""
+    base, batch, tcfg = o_bf16_setup(models, cfgmod)
+    ref = run_step(T, base, T.make_train_step, batch, tcfg, dev)[:3]
+    wide = models.MhopRetriever(cfgmod.EncoderConfig.roberta_base(
+        dtype="float32"), cls_only=True, fp32_params=True)
+    wide.load_state_dict(base.state_dict())
+    l32, g32 = run_step(T, wide, T.make_train_step, batch, tcfg, dev)[:2]
+    del wide
+    noise = rel_dist(ref[1], g32)
+    lc, gc = local_negatives_step(T, losses, base, batch, tcfg, dev)
+    control = (abs(lc - ref[0]) / abs(ref[0]), rel_dist(gc, ref[1]) / noise)
+    assert control[0] > O_LOSS_TOL and control[1] > 2.0, \
+        f"the local-negatives control passes the bf16 criteria: {control}"
+    say(f"  leg o1 bf16 noise (roberta-base, B={J_B} ragged, single-device "
+        f"step at bf16 vs fp32): gradients {noise:.4g} apart = 1 n, losses "
+        f"{ref[0]:.6f} vs {l32:.6f} (rel {abs(ref[0] - l32) / abs(l32):.3g}); "
+        f"the "
+        f"negative control (local in-batch negatives over 2 halves, "
+        f"averaged gradients) reads loss rel {control[0]:.4g} (bound "
+        f"{O_LOSS_TOL:g}), gradients {control[1]:.2f} n (bound 2 n): it fails, as "
+        f"it must [{smi}]")
+    for leg, name, make_step, prepare in runs:
+        got = run_step(T, base, make_step, batch, tcfg, dev, prepare=prepare)
+        lr_ = abs(got[0] - ref[0]) / abs(ref[0])
+        gn = rel_dist(got[1], ref[1]) / noise
+        say(f"  leg {leg} bf16 {name} vs the single-device step "
+            f"(roberta-base, B={J_B} ragged): loss {got[0]:.6f} vs "
+            f"{ref[0]:.6f} (rel {lr_:.3g}, bound {O_LOSS_TOL:g}; against "
+            f"the fp32 step's rel {abs(got[0] - l32) / abs(l32):.3g}); "
+            f"gradients {gn:.3f} n apart (bound 2 n), "
+            f"{rel_dist(got[1], g32) / noise:.3f} n from the fp32 step's "
+            f"[{smi}]")
+        assert lr_ <= O_LOSS_TOL and gn <= 2.0, (leg, name, lr_, gn)
+    return {"noise": noise, "control": control}
+
+
+def time_parallel_steps(T, models, cfgmod, dev, smi, runs):
+    """o1 / o3 throughput: j1's model and batch (roberta-base, bf16, B=J_B
+    at the reference widths, full masks), each of ``runs`` ((name,
+    make_step, prepare, devices)) on its own model, O_ITERS steps timed by
+    CUDA events after O_WARM, in turns (the runs, then the runs reversed:
+    the median of both windows), with each run's peak allocated memory
+    on each of its cards.  Returns {name: (ms, examples/s)}."""
+    import copy
+
+    base, _, tcfg = o_bf16_setup(models, cfgmod)
+    tcfg = cfgmod.RetrieverTrainConfig(batch_size=J_B)
+    batch = T.to_device(train_batch(np.random.RandomState(11), J_B), dev)
+    made = {}
+    for name, make_step, prepare, cards in runs:
+        model = copy.deepcopy(base).to(dev)
+        if prepare is not None:
+            prepare(model)
+        made[name] = [T.TrainState.create(model, T.make_optimizer(tcfg,
+                                                                  1000)),
+                      make_step(), [], {}, cards]
+    del base
+    order = [r[0] for r in runs]
+    for names in (order, order[::-1]):
+        for name in names:
+            state, step, ms, peak, cards = made[name]
+            for d in cards:
+                torch.cuda.reset_peak_memory_stats(d)
+            for i in range(O_WARM + O_ITERS // 2):
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                state, loss = step(state, batch)
+                ev[1].record()
+                torch.cuda.synchronize()
+                assert torch.isfinite(loss).all(), (name, float(loss))
+                if i >= O_WARM:
+                    ms.append(ev[0].elapsed_time(ev[1]))
+            for d in cards:
+                peak[str(d)] = max(peak.get(str(d), 0.0),
+                                   torch.cuda.max_memory_allocated(d) / 2**30)
+    out = {}
+    for name in order:
+        _, _, ms, peak, _ = made[name]
+        med = float(np.median(ms))
+        out[name] = (med, J_B / med * 1e3)
+        say(f"  leg o throughput {name} (roberta-base, bf16 compute, fp32 "
+            f"master weights, B={J_B} at the reference widths): "
+            f"{J_B / med * 1e3:.1f} examples/s, median {med:.2f} ms/step "
+            f"(min {min(ms):.2f}, max {max(ms):.2f}) over {len(ms)} steps in "
+            f"two windows; peak allocated "
+            f"{', '.join(f'{d} {g:.2f} GiB' for d, g in peak.items())} "
+            f"[{smi}]")
+    return out
+
+
+def check_parallel_momentum(T, models, cfgmod, dev, smi, mesh, name):
+    """o2: the momentum step (j0's model, fp32, B=J_B ragged, j3's queue of
+    J_QUEUE x 768) over ``mesh`` against the single-device card step:
+    the loss, gradients and parameters by j0's criteria, the enqueued
+    rows (the global batch's c1 and c2 key vectors, in global order)
+    within 1e-5 and the rest of the queue untouched, the pointer
+    equal."""
+    base = o_fp32_base(models, cfgmod)
+    batch = train_batch(np.random.RandomState(65), J_B, full=False)
+    tcfg = cfgmod.RetrieverTrainConfig(warmup_ratio=0.0, learning_rate=1e-3)
+
+    def state_of(m, tx):
+        return T.MomentumTrainState.create(m, tx, queue_size=J_QUEUE,
+                                           hidden=D, seed=5)
+
+    ref = run_step(T, base, T.make_momentum_train_step, batch, tcfg, dev,
+                   state_of=state_of)
+    got = run_step(T, base, lambda: T.make_momentum_train_step(mesh=mesh),
+                   batch, tcfg, dev, state_of=state_of)
+    r = hold_step(T, ref, got, tcfg)
+    qa, qb = ref[4].queue, got[4].queue
+    assert got[4].queue_ptr == ref[4].queue_ptr == 2 * J_B
+    err = (qa[:2 * J_B] - qb[:2 * J_B]).abs().max().item()
+    assert err <= 1e-5 and torch.equal(qa[2 * J_B:], qb[2 * J_B:]), err
+    say(f"  leg o2 momentum step over {name} ({J_QUEUE} x {D} queue, "
+        f"{base.config.num_layers} x {base.config.hidden_size} fp32, "
+        f"B={J_B} ragged) vs single-device: loss "
+        f"{r['loss'][0]:.7f} vs {r['loss'][1]:.7f}; worst gradient error "
+        f"{r['worst_g'][0]:.3f} of its tolerance; worst parameter "
+        f"{r['worst_p'][0]:.3f} of its Adam bound; enqueued rows within "
+        f"{err:.3g}, pointer {got[4].queue_ptr} = {ref[4].queue_ptr} "
+        f"[{smi}]")
+
+
+def sp_batch(rng, b):
+    """A single-hop train batch at k3's widths (question 50, passages
+    300), ragged, random ids."""
+    out = {}
+    for name, width in (("q", 50), ("c", 300), ("neg", 300)):
+        lens = rng.randint(8, width + 1, size=b)
+        mask = (np.arange(width)[None] < lens[:, None]).astype(np.int32)
+        ids = rng.randint(5, VOCAB - 5, size=(b, width))
+        out[f"{name}_input_ids"] = np.where(mask > 0, ids, 1).astype(np.int32)
+        out[f"{name}_mask"] = mask
+    return out
+
+
+def check_parallel_token_queue(T, models, cfgmod, dev, smi, mesh, name):
+    """o2: one step of cli/train_single --momentum's token-queue step at
+    k3's shapes (roberta-base, bf16, B=K3_B, widths 50/300, the CLI's
+    256-row queue) over ``mesh`` against the single-device step: the
+    queue's token rows bit-equal, the pointer equal, the loss within
+    o1's bf16 tolerance (O_LOSS_TOL relative)."""
+    torch.manual_seed(17)
+    base = models.SingleRetriever(cfgmod.EncoderConfig.roberta_base(),
+                                  fp32_params=True)
+    batch = sp_batch(np.random.RandomState(67), K3_B)
+    tcfg = cfgmod.RetrieverTrainConfig(warmup_ratio=0.0)
+
+    def state_of(m, tx):
+        return T.TokenQueueTrainState.create(m, tx, queue_size=256,
+                                             max_c_len=300, cls_id=0,
+                                             sep_id=2)
+
+    ref = run_step(T, base, T.make_single_momentum_train_step, batch, tcfg,
+                   dev, state_of=state_of)
+    got = run_step(T, base, lambda: T.make_single_momentum_train_step(
+        mesh=mesh), batch, tcfg, dev, state_of=state_of)
+    rel = abs(got[0] - ref[0]) / abs(ref[0])
+    assert rel <= O_LOSS_TOL, rel
+    for q in ("queue_ids", "queue_mask", "queue_type"):
+        assert torch.equal(getattr(got[4], q), getattr(ref[4], q)), q
+    assert got[4].queue_ptr == ref[4].queue_ptr == K3_B
+    say(f"  leg o2 token-queue step over {name} (roberta-base, bf16, "
+        f"B={K3_B}, widths 50/300, 256-row queue) vs single-device: loss "
+        f"{got[0]:.6f} vs {ref[0]:.6f} (rel {rel:.3g}); queue token rows "
+        f"bit-equal, pointer {got[4].queue_ptr} [{smi}]")
+
+
+def run_parallel_clis(cfgmod, dev, smi, tmp):
+    """o4: cli/train_retriever, cli/train_momentum (from its
+    checkpoint_best.pt, j3's queue) and cli/train_single (k3's shapes)
+    with --data-parallel 2 (the card twice as --device cuda:0; the bare
+    cuda over two cards where the host shows them), O_ROWS rows each at
+    roberta-base: their steps run on the 2-entry mesh, the losses are
+    finite, and each checkpoint strict-loads back through
+    cli/common.init_retriever."""
+    from multihop_dense_retrieval_tpu_torch.cli import (common,
+                                                        train_momentum,
+                                                        train_retriever,
+                                                        train_single)
+
+    rng = np.random.RandomState(69)
+    write_train_rows(f"{tmp}/o_train.jsonl", rng, O_ROWS)
+    write_train_rows(f"{tmp}/o_dev.jsonl", rng, J_B)
+    write_sp_rows(f"{tmp}/o_sp.jsonl", rng, O_ROWS)
+    card = "cuda" if torch.cuda.device_count() > 1 else str(dev)
+    dp = ["--device", card, "--data-parallel", "2", "--tokenizer", "hash",
+          "--model-name", "roberta-base", "--num-epochs", "1"]
+    mhop = dp + ["--train-file", f"{tmp}/o_train.jsonl", "--predict-file",
+                 f"{tmp}/o_dev.jsonl", "--train-batch-size", str(J_B),
+                 "--predict-batch-size", str(J_B)]
+    runs = [
+        ("train_retriever", train_retriever.main,
+         mhop + ["--output-dir", f"{tmp}/o_stage1"], J_B, "o_stage1"),
+        ("train_momentum", train_momentum.main,
+         mhop + ["--output-dir", f"{tmp}/o_stage2", "--init-checkpoint",
+                 f"{tmp}/o_stage1/checkpoint_best.pt", "--queue-size",
+                 str(J_QUEUE)], J_B, "o_stage2"),
+        ("train_single", train_single.main,
+         dp + ["--train-file", f"{tmp}/o_sp.jsonl", "--predict-file",
+               f"{tmp}/o_sp.jsonl", "--train-batch-size", str(K3_B),
+               "--predict-batch-size", str(K3_B), "--output-dir",
+               f"{tmp}/o_single"], K3_B, "o_single")]
+    cfg = cfgmod.EncoderConfig.roberta_base()
+    for name, main, argv, b, out in runs:
+        t = time.perf_counter()
+        res, trainer = main(argv)
+        secs = time.perf_counter() - t
+        assert trainer.mesh.shape == {"data": 2, "index": 1}, trainer.mesh
+        assert trainer.state.step == O_ROWS // b, trainer.state.step
+        assert np.isfinite(res["final_loss"]) and res["best_mrr"] > 0, res
+        common.init_retriever(cfg, checkpoint=f"{tmp}/{out}/"
+                              "checkpoint_last.pt", device=dev)
+        say(f"  leg o4 cli/{name} --device {card} --data-parallel 2 "
+            f"(roberta-base, batch {b}, {O_ROWS} rows, mesh {trainer.mesh}): "
+            f"{secs:.1f} s, loss {res['final_loss']:.4f}, mrr "
+            f"{res['best_mrr']:.4f}; its checkpoint strict-loads back "
+            f"[{smi}]")
+        del trainer
+        torch.cuda.empty_cache()
+
+
+# one process of o5: joins the pod, runs o1's step on its half of the
+# batch, and rank 0 saves what it consumed and made
+POD_STEP = r"""
+import sys
+import chip_smoke
+chip_smoke.pod_step_worker(*sys.argv[1:])
+"""
+
+
+def pod_step_worker(init, rank, out, device, card):
+    """o5's process ``rank`` of 2 on ``device``: a card shared by the two
+    (``card`` "shared"), or its own (``card`` "own": the only one it then
+    sees, so that init_pod takes NCCL); a data-2 mesh of one entry a
+    process, its half of o1's batch
+    (host_local_batch_to_global), the replicated state
+    (replicate_to_global), one step; rank 0 saves the loss, the
+    gradients the update consumed and the parameters to ``out``."""
+    import copy
+    import os
+
+    rank = int(rank)
+    if card == "own":
+        os.environ["CUDA_VISIBLE_DEVICES"] = str(rank)
+    from multihop_dense_retrieval_tpu_torch import models
+    from multihop_dense_retrieval_tpu_torch.core import config as cfgmod
+    from multihop_dense_retrieval_tpu_torch.core import mesh as M
+    from multihop_dense_retrieval_tpu_torch.train import trainer as T
+
+    backend = M.init_pod(init, 2, rank)
+    mesh = M.make_mesh(data=2, index=1, devices=M.pod_devices(
+        [torch.device(device)]))
+    base, batch, tcfg = o_bf16_setup(models, cfgmod)
+    half = J_B // 2
+    local = {k: v[rank * half:(rank + 1) * half] for k, v in batch.items()}
+    state = M.replicate_to_global(T.TrainState.create(
+        copy.deepcopy(base), T.make_optimizer(tcfg, 10)), mesh)
+    grads = {}
+    update = state.opt.update
+
+    def kept():
+        grads.update(joined_grads(state.model))
+        return update()
+
+    state.opt.update = kept
+    state, loss = T.make_train_step(mesh=mesh)(
+        state, M.host_local_batch_to_global(local, mesh))
+    if rank == 0:
+        torch.save({"loss": float(loss), "grads": grads, "backend": backend,
+                    "params": {k: v.cpu() for k, v in
+                               state.model.state_dict().items()}}, out)
+    M.close_pod()
+    print(f"POD STEP OK {backend}", flush=True)
+
+
+def run_pod_step(T, models, cfgmod, dev, smi, M, tmp):
+    """o5: o1's step (roberta-base, bf16, B=J_B) in 2 processes through
+    ``run_processes``, each holding one entry of a data-2 mesh and its
+    half of the batch: on one card they share it and go over gloo, on two
+    each takes its own and NCCL.  Held to the single-process step on the
+    card twice: the loss within 1e-6 relative, the gradients and
+    parameters by j0's criteria (the processes sum the two halves'
+    gradients in another grouping than one process's autograd)."""
+    own = torch.cuda.device_count() > 1
+    out = f"{tmp}/o5.pt"
+    t = time.perf_counter()
+    outs = run_processes([["-c", POD_STEP, "tcp://localhost:{port}",
+                           "{rank}", out, str(dev),
+                           "own" if own else "shared"]] * 2)
+    secs = time.perf_counter() - t
+    assert all("POD STEP OK" in o for o, _ in outs), outs
+    got = torch.load(out, weights_only=True)
+    assert got["backend"] == ("nccl" if own else "gloo"), got["backend"]
+    base, batch, tcfg = o_bf16_setup(models, cfgmod)
+    mesh = M.make_mesh(data=2, index=1, devices=[dev] * 2)
+    ref = run_step(T, base, lambda: T.make_train_step(mesh=mesh), batch,
+                   tcfg, dev)
+    assert abs(got["loss"] - ref[0]) <= 1e-6 * abs(ref[0]), \
+        (got["loss"], ref[0])
+    r = hold_step(T, ref, (got["loss"], got["grads"], got["params"], secs,
+                           None), tcfg)
+    say(f"  leg o5 two processes ({got['backend']}, data-2 mesh of one entry "
+        f"each, roberta-base bf16, B={J_B}): {secs:.1f} s; loss "
+        f"{got['loss']:.7f} vs the single-process mesh's {ref[0]:.7f}; "
+        f"worst gradient error {r['worst_g'][0]:.3f} of its tolerance; "
+        f"worst parameter {r['worst_p'][0]:.3f} of its Adam bound [{smi}]")
+
+
+def run_parallel_training(port, mips, dev, smi, tmp):
+    """Leg (o): data- and tensor-parallel training, which launches none of
+    the eight kernels (the counts must stay 0): o1 the data-parallel step
+    (fp32 by j0's criteria, bf16 at roberta-base against the bf16 noise,
+    the negative control, throughput beside j1's), o2 the momentum and
+    token-queue steps, o3 the tensor-parallel step (as o1; each card's
+    peak memory), o4 the trainer CLIs with --data-parallel 2, o5 the step
+    in two processes."""
+    from multihop_dense_retrieval_tpu_torch.core import mesh as M
+    from multihop_dense_retrieval_tpu_torch.parallel import shard_params
+    from multihop_dense_retrieval_tpu_torch.train import losses
+    from multihop_dense_retrieval_tpu_torch.train import trainer as T
+
+    cfgmod, models = port[0], port[3]
+    torch.cuda.empty_cache()
+    mips.reset_launch_counts()
+    t0 = time.perf_counter()
+    dps = o_meshes(M, dev, 2, 1)
+    tps = o_meshes(M, dev, 1, 2)
+    for name, mesh in dps:
+        check_parallel_fp32(T, models, cfgmod, dev, smi, "o1", mesh, name,
+                            False)
+    for name, mesh in tps:
+        check_parallel_fp32(T, models, cfgmod, dev, smi, "o3", mesh, name,
+                            True)
+    runs = [("o1", f"DP over {n}", lambda m=m: T.make_train_step(mesh=m),
+             None) for n, m in dps]
+    runs += [("o3", f"TP over {n}", lambda m=m: T.make_train_step(
+        mesh=m, tensor_parallel=True), lambda x, m=m: shard_params(x, m))
+        for n, m in tps]
+    check_bf16_spread(T, losses, models, cfgmod, dev, smi, runs)
+    torch.cuda.empty_cache()
+    def cards(m):
+        return sorted({d for row in m.devices for d in row}, key=str)
+
+    timed = [("single device (j1's config)", T.make_train_step, None,
+              [dev])]
+    timed += [(f"DP over {n}", lambda m=m: T.make_train_step(mesh=m), None,
+               cards(m)) for n, m in dps]
+    timed += [(f"TP over {n}", lambda m=m: T.make_train_step(
+        mesh=m, tensor_parallel=True), lambda x, m=m: shard_params(x, m),
+        cards(m)) for n, m in tps]
+    time_parallel_steps(T, models, cfgmod, dev, smi, timed)
+    torch.cuda.empty_cache()
+    for name, mesh in dps:
+        check_parallel_momentum(T, models, cfgmod, dev, smi, mesh, name)
+    check_parallel_token_queue(T, models, cfgmod, dev, smi, dps[0][1],
+                               dps[0][0])
+    torch.cuda.empty_cache()
+    run_parallel_clis(cfgmod, dev, smi, tmp)
+    run_pod_step(T, models, cfgmod, dev, smi, M, tmp)
+    say(f"  leg o: {time.perf_counter() - t0:.1f} s [{smi}]")
+    return {"parallel_training": assert_no_launches(mips, "o")}
 
 
 def write_corpus(path, rng):

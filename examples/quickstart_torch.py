@@ -10,15 +10,17 @@ tokenizer and the ``tiny`` model preset.
     python examples/quickstart_torch.py --workdir /tmp/mdr_torch_quickstart
     python examples/quickstart_torch.py --device cpu   # no card needed
 
-Three things differ from the JAX tour:
-  * no ``--data-parallel 2`` on the two trainers: data-parallel training
-    is not ported yet (ROADMAP item 12b), so every step runs on one
-    device;
+Two things differ from the JAX tour:
   * checkpoints are ``.pt`` files (``checkpoint_best.pt``), not orbax
     directories;
   * ``--device`` (default ``cuda``) replaces ``--cpu`` and is passed to
     every step; without a card, a run that does not ask for the CPU fails
     as the CLIs do.
+
+The two trainers take the JAX tour's ``--data-parallel 2``: each batch of
+4 is split over two data entries, two cards where the host shows them,
+else the one device twice (``cuda:0`` for the bare ``cuda``, which would
+take the cards).
 
 Each step can be re-run standalone with real data: swap ``--tokenizer
 hash --model-name tiny`` for a local HF tokenizer path and
@@ -33,6 +35,7 @@ import sys
 import tempfile
 
 import numpy as np
+import torch
 
 # self-locating: runnable from any cwd without installing the package
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -103,16 +106,24 @@ def main(argv=None):
     paths = make_data(workdir)
     dev = ["--device", args.device]
     tiny = ["--tokenizer", "hash", "--model-name", "tiny"] + dev
+    # the per-step batch must divide the data axis; the bare cuda takes
+    # the visible cards, a named device repeats
+    train_dev = args.device
+    if args.device == "cuda" and torch.cuda.device_count() < 2:
+        train_dev = "cuda:0"
+    dp = ["--tokenizer", "hash", "--model-name", "tiny", "--device",
+          train_dev, "--data-parallel", "2"]
     lens = ["--max-q-len", "16", "--max-q-sp-len", "48", "--max-c-len", "32"]
     summary = {"workdir": workdir}
 
     print("== 1/7 train the multi-hop retriever (contrastive, stage 1)")
     stage1 = os.path.join(workdir, "stage1")
-    train_retriever.main([
+    _, trainer = train_retriever.main([
         "--train-file", paths["mhop"], "--predict-file", paths["mhop"],
         "--output-dir", stage1, "--train-batch-size", "4",
         "--predict-batch-size", "4", "--num-epochs", "1",
-        "--learning-rate", "1e-4"] + tiny + lens)
+        "--learning-rate", "1e-4"] + dp + lens)
+    summary["train_mesh"] = str(trainer.mesh)
     retriever_ckpt = os.path.join(stage1, "checkpoint_best.pt")
 
     print("== 2/7 momentum finetuning (stage 2, memory-bank negatives)")
@@ -122,7 +133,7 @@ def main(argv=None):
         "--init-checkpoint", retriever_ckpt, "--output-dir", stage2,
         "--queue-size", "32", "--train-batch-size", "4",
         "--predict-batch-size", "4", "--num-epochs", "1",
-        "--learning-rate", "1e-4"] + tiny + lens)
+        "--learning-rate", "1e-4"] + dp + lens)
     summary["momentum_final_loss"] = res["final_loss"]
 
     print("== 3/7 encode the corpus into a dense index + token store")

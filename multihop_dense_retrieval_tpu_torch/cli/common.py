@@ -113,6 +113,28 @@ def index_mesh(n_shards: int, device) -> Optional[Mesh]:
         local_devices(device, n_shards // size)))
 
 
+def train_mesh(device, data_parallel: Optional[int]) -> Mesh:
+    """The data mesh of a trainer CLI (the JAX CLIs' ``make_mesh(data=
+    --data-parallel or every device, index=1)``): every visible card for
+    the bare ``cuda``, or the first ``--data-parallel N`` of them (more
+    than there are raise); a named device (``cpu``, ``cuda:0``) N times,
+    its entries sharing it.  Each batch must split over the entries.
+
+    Under ``cli/pod`` with more than one process it raises: each
+    process's loader reads the whole dataset, so the processes would
+    train on duplicated data (the JAX trainer loop never hands a process
+    its slice of a batch either)."""
+    if world()[1] > 1:
+        raise ValueError(
+            "the trainer CLIs run in one process: under cli/pod each "
+            "process's loader would read the whole dataset and the "
+            "processes would train on duplicated data; train with "
+            "--data-parallel over this process's cards")
+    resolve_device(device)
+    local = local_devices(device, data_parallel or 1)
+    return make_mesh(data=data_parallel or len(local), index=1, devices=local)
+
+
 def add_pipeline_args(p):
     """Arguments that construct a ``DemoPipeline`` (retriever + reader +
     live index), shared by the demo REPL and the HTTP server."""

@@ -15,7 +15,8 @@ Usage:
       --train-file t.jsonl --predict-file d.jsonl --output-dir sweeps \
       --grid-lr 1e-5,2e-5,5e-5 --grid-warmup 0.1,0.2 [base train args...]
 
-The base arguments are ``cli/train_retriever``'s, ``--device`` included.
+The base arguments are ``cli/train_retriever``'s, ``--device`` and
+``--data-parallel`` included: each grid point trains on that data mesh.
 """
 
 import argparse

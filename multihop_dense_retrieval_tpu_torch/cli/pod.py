@@ -24,8 +24,14 @@ Usage: run the same command in every process.
       --index-shards 2
 
 ``--local-device-ids`` names the cards this process uses (it sets
-``CUDA_VISIBLE_DEVICES`` before CUDA starts); the training entry points
-run, but their ``--data-parallel > 1`` still raises (ROADMAP item 12b).
+``CUDA_VISIBLE_DEVICES`` before CUDA starts).  The retriever trainers
+(``train_retriever``, ``train_momentum``, ``train_single``, ``launch``)
+raise under more than one process: each process's loader reads the whole
+dataset, so the processes would train on duplicated data (the JAX trainer
+loop never hands a process its slice of a batch either).  Data-parallel
+training runs in one process, ``--data-parallel`` over its cards; the
+multi-process train step itself is a library path
+(``core.mesh.host_local_batch_to_global`` + a step with ``mesh=``).
 """
 
 import argparse

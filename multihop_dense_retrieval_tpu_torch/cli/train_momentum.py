@@ -8,7 +8,8 @@ the frozen encoder_k with a (K, h) queue of extra negatives
 (``--momentum-m``) that the reference ships commented out.  ``--fever``
 (or "fever" in the train file's path) trains on FEVER multi-hop claims.
 Only encoder_q is written to ``checkpoint_*.pt``.  Runs on CUDA unless
-``--device`` names another device.
+``--device`` names another device; ``--data-parallel`` as in
+``cli/train_retriever`` (the global batch's key vectors are enqueued).
 
 Usage:
   python -m multihop_dense_retrieval_tpu_torch.cli.train_momentum \\
@@ -45,12 +46,13 @@ def main(argv=None):
             return (FeverDataset(tok, args.train_file, train=True,
                                  seed=args.seed, **kw),
                     FeverDataset(tok, args.predict_file, **kw))
-    cfg, model, train_loader, eval_loader = build(
+    cfg, model, train_loader, eval_loader, mesh = build(
         args, make_datasets=make_datasets)
+    logger.info("training on %s", mesh)
     cfg = dataclasses.replace(cfg, momentum=True, queue_size=args.queue_size,
                               momentum_m=args.momentum_m)
     trainer = RetrieverTrainer(model, cfg, train_loader, eval_loader,
-                               output_dir=args.output_dir or None,
+                               mesh=mesh, output_dir=args.output_dir or None,
                                log_fn=logger.info, enable_ema=args.enable_ema)
     result = trainer.run()
     logger.info("momentum training finished: %s", result)

@@ -10,7 +10,11 @@ weights and Adam state, the encoder computing in bf16.  With
 ``train_momentum --init-checkpoint`` and the serving CLIs' ``--checkpoint``
 read), TensorBoard scalars under ``tb/`` and the preemption state under
 ``preempt/`` (a rerun with the same directory resumes).
-``--data-parallel`` > 1 is not ported (ROADMAP item 12b) and raises.
+``--data-parallel N`` splits each batch over N data entries
+(``train/trainer.py::DataParallel``: the in-batch negatives stay global):
+the first N visible cards for the bare ``--device cuda`` (default: every
+card), a named device (``cuda:0``, ``cpu``) N times; the batch sizes must
+divide N.  The CLI runs in one process (under ``cli/pod`` it raises).
 
 Usage:
   python -m multihop_dense_retrieval_tpu_torch.cli.train_retriever \\
@@ -48,7 +52,9 @@ def add_train_args(p: argparse.ArgumentParser):
     p.add_argument("--max-c-len", type=int, default=300)
     p.add_argument("--seed", type=int, default=3)
     p.add_argument("--data-parallel", type=int, default=None,
-                   help="devices on the data axis; not ported beyond 1")
+                   help="entries of the data axis (default: every visible "
+                        "card for --device cuda, else 1); a named device "
+                        "repeats")
     p.add_argument("--remat", action="store_true",
                    help="recompute encoder layers in the backward pass "
                         "(torch.utils.checkpoint): ~33%% more FLOPs for "
@@ -61,11 +67,9 @@ def add_train_args(p: argparse.ArgumentParser):
 
 def build(args, unified: bool = None, make_datasets=None):
     """Shared trainer scaffolding: (cfg, model, train_loader,
-    eval_loader).  ``make_datasets(tok, kw) -> (train_ds, eval_ds)``
+    eval_loader, mesh).  ``make_datasets(tok, kw) -> (train_ds, eval_ds)``
     overrides the dataset choice (the FEVER momentum CLI)."""
-    if args.data_parallel is not None and args.data_parallel > 1:
-        raise NotImplementedError(
-            "--data-parallel > 1 is not ported yet (ROADMAP item 12b)")
+    mesh = common.train_mesh(args.device, args.data_parallel)
     dev = resolve_device(args.device)
     if unified is None:
         unified = getattr(args, "unified", False)
@@ -101,7 +105,7 @@ def build(args, unified: bool = None, make_datasets=None):
     train_loader = BatchLoader(train_ds, cfg.batch_size, shuffle=True,
                                seed=args.seed)
     eval_loader = BatchLoader(eval_ds, cfg.eval_batch_size, shuffle=False)
-    return cfg, model, train_loader, eval_loader
+    return cfg, model, train_loader, eval_loader, mesh
 
 
 def main(argv=None):
@@ -110,9 +114,10 @@ def main(argv=None):
     add_train_args(p)
     args = p.parse_args(argv)
     logger = common.setup_logging(args.output_dir or None)
-    cfg, model, train_loader, eval_loader = build(args)
+    cfg, model, train_loader, eval_loader, mesh = build(args)
+    logger.info("training on %s", mesh)
     trainer = RetrieverTrainer(model, cfg, train_loader, eval_loader,
-                               output_dir=args.output_dir or None,
+                               mesh=mesh, output_dir=args.output_dir or None,
                                log_fn=logger.info)
     result = trainer.run()
     logger.info("training finished: %s", result)

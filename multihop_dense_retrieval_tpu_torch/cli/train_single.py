@@ -11,8 +11,9 @@ of token rows that the current encoder re-encodes every step
 It runs on CUDA unless ``--device`` names another device, with fp32
 master weights and Adam, the encoder computing in bf16.  With
 ``--output-dir`` it writes ``checkpoint_last.pt`` / ``checkpoint_best.pt``
-and the preemption state under ``preempt/``.  ``--data-parallel`` > 1 is
-not ported (ROADMAP item 12b) and raises.
+and the preemption state under ``preempt/``.  ``--data-parallel`` as in
+``cli/train_retriever``: each batch split over the data entries, the
+in-batch negatives global, the token queue fed the global batch's rows.
 
 Usage:
   python -m multihop_dense_retrieval_tpu_torch.cli.train_single \\
@@ -61,11 +62,11 @@ def main(argv=None):
                         "parity)")
     p.add_argument("--queue-size", type=int, default=256)
     p.add_argument("--data-parallel", type=int, default=None,
-                   help="devices on the data axis; not ported beyond 1")
+                   help="entries of the data axis (default: every visible "
+                        "card for --device cuda, else 1); a named device "
+                        "repeats")
     args = p.parse_args(argv)
-    if args.data_parallel is not None and args.data_parallel > 1:
-        raise NotImplementedError(
-            "--data-parallel > 1 is not ported yet (ROADMAP item 12b)")
+    mesh = common.train_mesh(args.device, args.data_parallel)
     dev = resolve_device(args.device)
 
     logger = common.setup_logging(args.output_dir or None)
@@ -104,8 +105,9 @@ def main(argv=None):
         learning_rate=args.learning_rate, num_epochs=args.num_epochs,
         warmup_ratio=args.warmup_ratio, seed=args.seed,
         max_q_len=args.max_q_len, max_c_len=args.max_c_len)
+    logger.info("training on %s", mesh)
     trainer = T.RetrieverTrainer(model, cfg, train_loader, eval_loader,
-                                 output_dir=args.output_dir or None,
+                                 mesh=mesh, output_dir=args.output_dir or None,
                                  log_fn=logger.info)
     # the single-hop steps in place of the multi-hop ones
     if args.momentum:
@@ -113,10 +115,10 @@ def main(argv=None):
             model, trainer.tx, queue_size=args.queue_size,
             max_c_len=args.max_c_len, cls_id=tok.spec.cls_id,
             sep_id=tok.spec.sep_id)
-        trainer.train_step = T.make_single_momentum_train_step()
+        trainer.train_step = T.make_single_momentum_train_step(mesh=mesh)
     else:
-        trainer.train_step = T.make_train_step(task="single")
-    trainer.eval_step = T.make_eval_step(task="single")
+        trainer.train_step = T.make_train_step(task="single", mesh=mesh)
+    trainer.eval_step = T.make_eval_step(task="single", mesh=mesh)
     result = trainer.run()
     logger.info("single-hop training finished: %s", result)
     return result, trainer

@@ -4,10 +4,16 @@ A ``Mesh`` is a (data, index) grid of torch devices with the JAX mesh's two
 logical axes:
 
   * ``data``  — batch parallelism: corpus encoding splits each batch over
-                the data axis (``index/build.py::encode_corpus``);
+                the data axis (``index/build.py::encode_corpus``), and so
+                does every train and eval step built with ``mesh=``
+                (``train/trainer.py::DataParallel``), across processes
+                too (``data_entries``, ``gather_rows``,
+                ``all_reduce_sum``);
   * ``index`` — row-sharding of the dense index: each shard searches its
                 rows and the (B, k) candidates are merged
-                (``ops/mips.py::sharded_mips_topk``).
+                (``ops/mips.py::sharded_mips_topk``); with
+                ``tensor_parallel`` the encoder's heads and FFN columns
+                split over it (``parallel/sharding.py``).
 
 Unlike a JAX mesh, a device may appear more than once: ``[cpu] * 8``
 stands in for the JAX tests' 8 virtual CPU devices, and several shards of
@@ -109,6 +115,32 @@ class Mesh:
             raise ValueError("the data axis spans other processes: each "
                              "process encodes on a mesh of its own devices")
         return [row[0] for row in self.devices]
+
+    def data_entries(self, tensor_parallel: bool = False) -> list:
+        """(global position, devices) of this process's entries of the data
+        axis: each data row it holds, as its first device or, with
+        ``tensor_parallel``, the row's index shards (a row then must be
+        one process's: tensor parallelism across processes is ROADMAP item
+        12c).  A data axis across processes must hold its rows rank by
+        rank, equally many each, so that gathering every process's rows in
+        rank order keeps the global order."""
+        owners = []
+        for row in self.ranks:
+            if tensor_parallel and len(set(row)) > 1:
+                raise NotImplementedError(
+                    "tensor parallelism over an index axis that spans "
+                    "processes is not ported (ROADMAP item 12c)")
+            owners.append(row[0])
+        if len(set(owners)) > 1:
+            size = world()[1]
+            per = len(owners) // size
+            if owners != [r for r in range(size) for _ in range(per)]:
+                raise ValueError(f"data rows on ranks {owners}: a data axis "
+                                 f"across processes needs them rank by "
+                                 f"rank, equally many each")
+        return [(i, tuple(row) if tensor_parallel else (row[0],))
+                for i, (row, owner) in enumerate(zip(self.devices, owners))
+                if owner == self.rank]
 
     @property
     def home(self) -> torch.device:
@@ -295,35 +327,94 @@ def close_pod() -> None:
     _NCCL_GROUP = None
 
 
-def all_gather_columns(x: torch.Tensor) -> torch.Tensor:
-    """(B, c) on every process → (B, world·c), the processes' blocks in
-    rank order, on ``x``'s device: over NCCL for a CUDA tensor where
+def _all_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Every process's ``x`` (all of one shape) joined along ``dim`` in rank
+    order, on ``x``'s device: over NCCL for a CUDA tensor where
     ``init_pod`` made an NCCL group, else over gloo through host copies."""
     dist = torch.distributed
     nccl = x.is_cuda and _NCCL_GROUP is not None
     y = (x if nccl else x.cpu()).contiguous()
     parts = [torch.empty_like(y) for _ in range(dist.get_world_size())]
     dist.all_gather(parts, y, group=_NCCL_GROUP if nccl else None)
-    return torch.cat(parts, dim=1).to(x.device)
+    return torch.cat(parts, dim=dim).to(x.device)
+
+
+def all_gather_columns(x: torch.Tensor) -> torch.Tensor:
+    """(B, c) on every process → (B, world·c), the processes' blocks in
+    rank order."""
+    return _all_gather(x, 1)
+
+
+class _GatherRows(torch.autograd.Function):
+    """Forward: every process's rows in rank order.  Backward: this
+    process's rows of the incoming gradient, which is the whole gradient
+    where every process computes the same loss from the gathered rows."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.lo, ctx.n = world()[0] * x.shape[0], x.shape[0]
+        return _all_gather(x, 0)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad[ctx.lo:ctx.lo + ctx.n]
+
+
+def gather_rows(x: torch.Tensor) -> torch.Tensor:
+    """(B, ...) on every process → (world·B, ...), the processes' rows in
+    rank order, differentiable (``_GatherRows``)."""
+    if x.requires_grad:
+        return _GatherRows.apply(x)
+    return _all_gather(x, 0)
+
+
+def all_reduce_sum(tensors: Sequence[torch.Tensor]) -> None:
+    """Sum each tensor over the processes, in place: one collective per
+    device, over NCCL for CUDA tensors where ``init_pod`` made an NCCL
+    group, else over gloo through host copies.  Every process ends with
+    the same sums."""
+    dist = torch.distributed
+    by_device = {}
+    for t in tensors:
+        by_device.setdefault(t.device, []).append(t)
+    for dev, group in by_device.items():
+        nccl = dev.type == "cuda" and _NCCL_GROUP is not None
+        flat = torch.cat([t.reshape(-1) for t in group])
+        buf = flat if nccl else flat.cpu()
+        dist.all_reduce(buf, group=_NCCL_GROUP if nccl else None)
+        flat = buf.to(dev)
+        at = 0
+        for t in group:
+            t.copy_(flat[at:at + t.numel()].view_as(t))
+            at += t.numel()
+
+
+def _home(mesh: Mesh) -> torch.device:
+    """This process's first data entry's device."""
+    return mesh.data_entries()[0][1][0]
 
 
 def host_local_batch_to_global(batch, mesh: Mesh):
-    """Pod mode: each process holds its local slice of a global batch.  The
-    eager port needs no global array: the slice goes to this process's
-    first data device.  A no-op in a single process."""
+    """Pod mode: each process holds its local slice of a global batch (its
+    data entries' rows).  The eager port needs no global array: the slice
+    goes, as tensors, to this process's first data entry's device, and a
+    step over ``mesh`` gathers what it needs across the processes.  A
+    no-op in a single process."""
     if world()[1] == 1:
         return batch
-    dev = mesh.data_devices()[0]
+    dev = _home(mesh)
     return {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
 
 
 def replicate_to_global(tree, mesh: Mesh):
-    """Pod mode: identical per-process values (parameters, optimizer
-    state) placed on this process's first data device.  A no-op in a
-    single process."""
+    """Pod mode: identical per-process values placed on this process's
+    first data entry's device: a train state (its ``to``), a module, a
+    dict of them or a tensor.  A no-op in a single process."""
     if world()[1] == 1:
         return tree
-    dev = mesh.data_devices()[0]
+    dev = _home(mesh)
     if isinstance(tree, dict):
         return {k: replicate_to_global(v, mesh) for k, v in tree.items()}
+    if hasattr(tree, "to"):
+        return tree.to(dev)
     return torch.as_tensor(tree).to(dev)

@@ -39,6 +39,11 @@ step, so a checkpoint gives the same vectors in both:
     ``return_all_hiddens`` returns every layer's output (embeddings first)
     for the layerwise multi-vector encoder, and then runs the last layer
     in full;
+  * a layer laid out tensor-parallel (``parallel/sharding.py``) computes
+    each index shard's heads and FFN columns on its device and adds the
+    shards' partial output projections in fp32, in shard order, before
+    the replicated bias and one downcast: in bf16 that rounds otherwise
+    than the unsharded product (one rounding of the whole sum);
   * ``remat`` recomputes each layer in the backward pass
     (``torch.utils.checkpoint``, as ``nn.remat`` in JAX): less activation
     memory for more FLOPs, the same numbers.
@@ -58,6 +63,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.config import EncoderConfig
 from ..ops.fused_attention import fused_attention
+from ..parallel.sharding import ShardedLinear
 
 NEG_INF = -1e9  # attention mask bias, as in the JAX encoder
 
@@ -85,7 +91,22 @@ def dense(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
     """Flax ``Dense(dtype=...)``: product in the compute dtype (that of
     ``x``; the weights are rounded to it, a no-op where they are stored
     in it), then bias add."""
-    return torch.matmul(x, lin.weight.to(x.dtype).t()) + lin.bias.to(x.dtype)
+    return _dense(x, lin.weight, lin.bias)
+
+
+def _dense(x, weight, bias=None):
+    y = torch.matmul(x, weight.to(x.dtype).t())
+    return y if bias is None else y + bias.to(x.dtype)
+
+
+def row_parallel(parts, lin: ShardedLinear, home: torch.device, dt):
+    """The index shards' partial products of a row-parallel linear, added
+    in shard order in fp32 on ``home``, then its replicated bias (rounded
+    to the compute dtype, as ``dense`` uses it) once, then one downcast."""
+    acc = parts[0].float().to(home)
+    for p in parts[1:]:
+        acc = acc + p.float().to(home)
+    return (acc + lin.bias.to(dt).float().to(home)).to(dt)
 
 
 def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
@@ -146,8 +167,11 @@ class Attention(nn.Module):
         self.output = AttentionOutput(c)
         self.c = c
 
-    def context(self, x, attn_bias, attention_mask, q_positions=None):
-        """Multi-head attention before the output projection: (B, Lq, H)."""
+    def context(self, x, attn_bias, attention_mask, q_positions=None,
+                shard=None):
+        """Multi-head attention before the output projection: (B, Lq, H);
+        with ``shard`` s, that of index shard s's heads (the q/k/v
+        linears split by ``parallel/sharding.py``), on its device."""
         c = self.c
         dt = c.torch_dtype
         B, L, _ = x.shape
@@ -155,12 +179,19 @@ class Attention(nn.Module):
         x_q = x if q_positions is None else x[:, :q_positions]
         Lq = x_q.shape[1]
         sa = self.self
+        if shard is None:
+            proj = dense
+        else:
+            nh //= len(sa.query.weight)
+
+            def proj(inp, lin):
+                return _dense(inp, *lin.block(shard))
         if c.attention_impl == "fused":
-            return fused_attention(dense(x_q, sa.query), dense(x, sa.key),
-                                   dense(x, sa.value), attention_mask, nh)
-        q = dense(x_q, sa.query).view(B, Lq, nh, d).transpose(1, 2)
-        k = dense(x, sa.key).view(B, L, nh, d).transpose(1, 2)
-        v = dense(x, sa.value).view(B, L, nh, d).transpose(1, 2)
+            return fused_attention(proj(x_q, sa.query), proj(x, sa.key),
+                                   proj(x, sa.value), attention_mask, nh)
+        q = proj(x_q, sa.query).view(B, Lq, nh, d).transpose(1, 2)
+        k = proj(x, sa.key).view(B, L, nh, d).transpose(1, 2)
+        v = proj(x, sa.value).view(B, L, nh, d).transpose(1, 2)
         scale = torch.tensor(math.sqrt(d), dtype=torch.float32).to(dt)
         scores = torch.matmul(q, k.transpose(-1, -2)) / scale   # (B,nh,Lq,L)
         if c.attention_scores_dtype == "bfloat16":
@@ -198,6 +229,9 @@ class EncoderLayer(nn.Module):
 
     def forward(self, x, attn_bias, attention_mask, q_positions=None):
         dt = self.c.torch_dtype
+        if isinstance(self.attention.self.query, ShardedLinear):
+            return self._tensor_parallel(x, attn_bias, attention_mask,
+                                         q_positions)
         ctx = self.attention.context(x, attn_bias, attention_mask, q_positions)
         attn_out = dense(ctx, self.attention.output.dense)
         res = x if q_positions is None else x[:, :q_positions]
@@ -205,6 +239,31 @@ class EncoderLayer(nn.Module):
                        self.attention.output.LayerNorm).to(dt)
         inter = self.act(dense(x, self.intermediate.dense))
         out = dense(inter, self.output.dense)
+        return layer_norm(x + out, self.output.LayerNorm).to(dt)
+
+    def _tensor_parallel(self, x, attn_bias, attention_mask, q_positions):
+        """The layer over index shards (``parallel/sharding.py``): each
+        shard computes its heads' context and its partial output
+        projection, then its FFN columns and their partial output
+        projection, on its device; ``row_parallel`` adds the partial sums
+        on ``x``'s device, where the residuals and LayerNorms run.
+        Autograd carries each block's gradient back to its device."""
+        dt, home = self.c.torch_dtype, x.device
+        att_out, inter_lin = self.attention.output.dense, self.intermediate.dense
+        parts = []
+        for s, dev in enumerate(att_out.devices):
+            ctx = self.attention.context(
+                x.to(dev), attn_bias.to(dev), attention_mask.to(dev),
+                q_positions, shard=s)
+            parts.append(_dense(ctx, att_out.weight[s]))
+        res = x if q_positions is None else x[:, :q_positions]
+        x = layer_norm(res + row_parallel(parts, att_out, home, dt),
+                       self.attention.output.LayerNorm).to(dt)
+        parts = []
+        for s, dev in enumerate(inter_lin.devices):
+            inter = self.act(_dense(x.to(dev), *inter_lin.block(s)))
+            parts.append(_dense(inter, self.output.dense.weight[s]))
+        out = row_parallel(parts, self.output.dense, home, dt)
         return layer_norm(x + out, self.output.LayerNorm).to(dt)
 
 

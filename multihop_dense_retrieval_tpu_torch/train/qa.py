@@ -23,19 +23,22 @@ train step is ``step(state, batch) -> (state, loss)`` over
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .trainer import _apply
+from ..core.mesh import Mesh
+from .trainer import _apply, _batch_rows, _data_parallel, _outputs
 
 NEG_INF = -1e30
 
 # the collated inputs QAReader reads
 READER_INPUTS = ("input_ids", "attention_mask", "token_type_ids",
                  "paragraph_mask", "sent_offsets", "sent_mask")
+# the supervision qa_loss reads
+LOSS_INPUTS = ("label", "starts", "ends", "sent_labels", "sent_mask")
 
 
 def decode_spans(start_logits: torch.Tensor, end_logits: torch.Tensor,
@@ -95,18 +98,23 @@ def qa_loss(outputs: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
     return total
 
 
-def make_qa_train_step(*, sp_weight: float = 0.05,
-                       sp_pred: bool = True) -> Callable:
+def make_qa_train_step(*, sp_weight: float = 0.05, sp_pred: bool = True,
+                       mesh: Optional[Mesh] = None) -> Callable:
     """``step(state, batch) -> (state, loss)``: the reader's forward pass
     over a collated batch already on the model's device (``net_inputs``
     with the supervision keys), ``qa_loss``, backward and one optimizer
-    update of ``state`` (in place)."""
+    update of ``state`` (in place).  ``mesh``: the batch is split over
+    its data axis (``train/trainer.py::DataParallel``) and ``qa_loss``,
+    whose terms are sums over rows, is computed once on the gathered
+    heads' outputs and the global batch's supervision."""
+    dp = _data_parallel(mesh)
 
     def step(state, batch):
-        outputs = state.model(batch)
-        return state, _apply(state, qa_loss(outputs, batch,
+        outputs = _outputs(dp, state.model, batch)
+        rows = _batch_rows(dp, batch, LOSS_INPUTS, state.model)
+        return state, _apply(state, qa_loss(outputs, rows,
                                             sp_weight=sp_weight,
-                                            sp_pred=sp_pred))
+                                            sp_pred=sp_pred), dp)
 
     return step
 
@@ -127,28 +135,36 @@ def to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
     return out
 
 
-def make_qa_rank_step(model: torch.nn.Module) -> Callable:
+def make_qa_rank_step(model: torch.nn.Module, *,
+                      mesh: Optional[Mesh] = None) -> Callable:
     """batch → rank scores (B,): the narrow first pass of the two-stage
-    read (eval/qa_eval.py::rank_filter)."""
+    read (eval/qa_eval.py::rank_filter).  ``mesh``: the batch split over
+    its data axis, the scores gathered."""
     dev = _device_of(model)
+    dp = _data_parallel(mesh)
 
     @torch.inference_mode()
     def step(batch):
-        return model(to_device(batch, dev))["rank_score"].reshape(-1)
+        out = _outputs(dp, model, to_device(batch, dev))
+        return out["rank_score"].reshape(-1)
 
     return step
 
 
-def make_qa_predict_step(model: torch.nn.Module, *,
-                         max_ans_len: int = 30) -> Callable:
+def make_qa_predict_step(model: torch.nn.Module, *, max_ans_len: int = 30,
+                         mesh: Optional[Mesh] = None) -> Callable:
     """batch → rank score, best span and its score, and the sp
-    probabilities (slots outside ``sent_mask`` at sigmoid(-1e30) = 0)."""
+    probabilities (slots outside ``sent_mask`` at sigmoid(-1e30) = 0).
+    ``mesh``: the batch split over its data axis, the heads' outputs
+    gathered before the decode."""
     dev = _device_of(model)
+    dp = _data_parallel(mesh)
 
     @torch.inference_mode()
     def step(batch):
         net = to_device(batch, dev)
-        out = model(net)
+        out = _outputs(dp, model, net)
+        net = _batch_rows(dp, net, ("sent_mask",), model)
         start_pos, end_pos, span_score = decode_spans(
             out["start_logits"], out["end_logits"], max_ans_len)
         res = {"rank_score": out["rank_score"].reshape(-1),

@@ -17,6 +17,15 @@ and the epoch loop (the JAX package's ``train/trainer.py``).
     rows that the current encoder re-encodes every step.
   * A step is a plain function ``step(state, batch) -> (state, loss)``
     that updates the state in place; the loss stays on the device.
+  * ``mesh=`` on a step makes it data-parallel (``DataParallel``): each
+    data entry encodes its slice of the batch, the vectors are gathered
+    in data-axis order and the loss is computed once on the global batch
+    (in-batch negatives stay global), so the step's math is the
+    single-device step's at every scale; the gradient is that of the
+    global loss, summed over the replicas in a fixed order before one
+    clip and one update.  ``tensor_parallel=True`` on ``make_train_step``
+    also splits the attention heads and the FFN over the index axis
+    (``parallel/sharding.py``).
   * ``RetrieverTrainer.run`` is the epoch loop: in-batch MRR after every
     epoch, ``checkpoint_last.pt`` / ``checkpoint_best.pt`` as state dicts
     in the reference layout (the serving CLIs' ``--checkpoint`` reads
@@ -32,6 +41,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import weakref
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -39,8 +49,12 @@ import torch
 import torch.nn as nn
 
 from ..core.config import RetrieverTrainConfig
+from ..core.mesh import (DATA_AXIS, Mesh, all_reduce_sum, gather_rows,
+                         on_device)
 from ..models.export import unified_reference_names
 from ..models.retriever import UnifiedRetriever
+from ..parallel.sharding import (ShardedLinear, constrain_params,
+                                 gather_state_dict)
 from . import losses
 
 
@@ -54,8 +68,10 @@ def no_decay_names(model: nn.Module):
     every LayerNorm parameter (the reference's no-decay group)."""
     out = set()
     for mod_name, mod in model.named_modules():
+        # a tensor-parallel bias is a list of blocks named "bias"
+        is_bias = mod_name.rpartition(".")[2] == "bias"
         for name, _ in mod.named_parameters(recurse=False):
-            if name == "bias" or isinstance(mod, nn.LayerNorm):
+            if name == "bias" or is_bias or isinstance(mod, nn.LayerNorm):
                 out.add(f"{mod_name}.{name}" if mod_name else name)
     return out
 
@@ -84,15 +100,35 @@ def linear_warmup_schedule(lr: float, warmup_steps: int, total_steps: int
     return schedule
 
 
+def _by_device(tensors) -> dict:
+    """device → the indices of ``tensors`` on it, in order."""
+    groups = {}
+    for i, t in enumerate(tensors):
+        groups.setdefault(t.device, []).append(i)
+    return groups
+
+
 @torch.no_grad()
 def clip_by_global_norm(grads, max_norm: float) -> torch.Tensor:
     """optax's ``clip_by_global_norm``, in place, without a host sync:
     every gradient becomes ``(g / norm) * max_norm`` when the global norm
-    is >= ``max_norm`` and stays as it is below.  Returns the norm."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    is >= ``max_norm`` and stays as it is below.  Gradients on several
+    devices (tensor-parallel blocks): the per-tensor norms are reduced,
+    in the gradients' order, on the first gradient's device.  Returns the
+    norm."""
+    home = grads[0].device
+    groups = _by_device(grads)
+    norms = [None] * len(grads)
+    for idx in groups.values():
+        for i, n in zip(idx, torch._foreach_norm([grads[i] for i in idx])):
+            norms[i] = n.to(home)
+    norm = torch.linalg.vector_norm(torch.stack(norms))
     keep = norm < max_norm
-    torch._foreach_div_(grads, torch.where(keep, 1.0, norm))
-    torch._foreach_mul_(grads, torch.where(keep, 1.0, max_norm))
+    div, mul = torch.where(keep, 1.0, norm), torch.where(keep, 1.0, max_norm)
+    for dev, idx in groups.items():
+        group = [grads[i] for i in idx]
+        torch._foreach_div_(group, div.to(dev))
+        torch._foreach_mul_(group, mul.to(dev))
     return norm
 
 
@@ -120,6 +156,7 @@ class OptState:
     update, and the gradient accumulator."""
 
     def __init__(self, tx: Optimizer, model: nn.Module):
+        self.tx = tx
         cfg = tx.cfg
         skip = no_decay_names(model)
         named = [(n, p) for n, p in model.named_parameters()
@@ -168,6 +205,32 @@ class OptState:
         self.sched.step()
         self.adam.zero_grad(set_to_none=True)
         return True
+
+    def follow(self, model: nn.Module) -> "OptState":
+        """This optimizer state, or, where ``model``'s parameters are no
+        longer the ones it holds (a tensor-parallel step lays the model out
+        at its first call), a fresh one over them.  A state that has
+        already stepped cannot follow: lay the model out first."""
+        params = [p for p in model.parameters() if p.requires_grad]
+        if len(params) == len(self.params) and all(
+                p is q for p, q in zip(params, self.params)):
+            return self
+        if self.count or self.mini_step or self.adam.state:
+            raise ValueError("the model's parameters changed after the "
+                             "optimizer stepped: lay the model out "
+                             "(parallel.shard_params) before its first "
+                             "update")
+        return OptState(self.tx, model)
+
+    def to(self, device) -> "OptState":
+        """Adam's moments and the accumulator moved to ``device``."""
+        for st in self.adam.state.values():
+            for k, v in st.items():
+                if torch.is_tensor(v) and k != "step":
+                    st[k] = v.to(device)
+        if self.acc is not None:
+            self.acc = [a.to(device) for a in self.acc]
+        return self
 
     def state_dict(self) -> Dict:
         return {"adam": self.adam.state_dict(),
@@ -218,6 +281,13 @@ class TrainState:
         _check_trainable(model)
         return cls(model, tx.init(model))
 
+    def to(self, device) -> "TrainState":
+        """The state moved to ``device``, in place (a pod's replicated
+        state, ``core.mesh.replicate_to_global``)."""
+        self.model.to(device)
+        self.opt.to(device)
+        return self
+
     def state_dict(self) -> Dict:
         return {"params": self.model.state_dict(),
                 "opt_state": self.opt.state_dict(), "step": self.step}
@@ -258,6 +328,12 @@ class MomentumTrainState(TrainState):
                             dtype=torch.float32)
         return cls(model, tx.init(model), _frozen_copy(model), queue)
 
+    def to(self, device) -> "MomentumTrainState":
+        super().to(device)
+        self.model_k.to(device)
+        self.queue = self.queue.to(device)
+        return self
+
     def state_dict(self) -> Dict:
         return dict(super().state_dict(), params_k=self.model_k.state_dict(),
                     queue=self.queue, queue_ptr=self.queue_ptr)
@@ -296,6 +372,12 @@ class TokenQueueTrainState(TrainState):
         mask = torch.zeros_like(ids)
         mask[:, :2] = 1
         return cls(model, tx.init(model), ids, mask, torch.zeros_like(ids))
+
+    def to(self, device) -> "TokenQueueTrainState":
+        super().to(device)
+        for name in ("queue_ids", "queue_mask", "queue_type"):
+            setattr(self, name, getattr(self, name).to(device))
+        return self
 
     def state_dict(self) -> Dict:
         return dict(super().state_dict(), queue_ids=self.queue_ids,
@@ -340,22 +422,176 @@ def to_device(batch: Dict, dev: torch.device) -> Dict[str, torch.Tensor]:
             for k, v in batch.items()}
 
 
-def _apply(state: TrainState, loss: torch.Tensor):
+def _layout(model: nn.Module) -> tuple:
+    """The model's devices: its first parameter's, then those of its
+    tensor-parallel blocks, if any."""
+    home = _device(model)
+    for mod in model.modules():
+        if isinstance(mod, ShardedLinear):
+            return (home,) + mod.devices
+    return (home,)
+
+
+def _placed_copy(model: nn.Module, layout: tuple) -> nn.Module:
+    """A copy of ``model`` on ``layout``'s devices (``_layout``'s form)."""
+    twin = copy.deepcopy(model).to(layout[0])
+    with torch.no_grad():
+        for mod in twin.modules():
+            if isinstance(mod, ShardedLinear):
+                split = [mod.weight] + ([mod.bias] if mod.dim == 0 else [])
+                for s, dev in enumerate(layout[1:]):
+                    for blocks in split:
+                        blocks[s].data = blocks[s].data.to(dev)
+    return twin
+
+
+class DataParallel:
+    """A step's spread over a mesh's data axis (the JAX steps'
+    ``in_shardings=P("data")``).
+
+    Each of this process's data entries (``Mesh.data_entries``) encodes
+    its slice of the batch on a replica of the model; the outputs are
+    gathered in data-axis order, across processes too
+    (``core.mesh.gather_rows``), onto the model's device, where the loss
+    is computed once on the global batch: in-batch negatives stay global.
+    ``reduce_grads`` sums each replica's gradient of that loss into the
+    model's, replica by replica in entry order, then over the processes
+    (``core.mesh.all_reduce_sum``); one clip and one Adam update follow.
+
+    A replica whose devices are the model's own is the model itself (a
+    mesh of ``[cpu] * 8`` runs every slice through the one model, as the
+    JAX tests' 8 virtual devices each compute with the same replicated
+    parameters); elsewhere it is a copy made once and set to the model's
+    parameters before every use, so it equals the model whenever it
+    computes.  With ``tensor_parallel`` an entry is a whole data row, its
+    index shards holding the blocks (``parallel/sharding.py``)."""
+
+    def __init__(self, mesh: Mesh, tensor_parallel: bool = False):
+        self.tp = tensor_parallel
+        self.entries = mesh.data_entries(tensor_parallel)
+        self.n_data = mesh.shape[DATA_AXIS]
+        self.across = len(self.entries) < self.n_data
+        self._copies = weakref.WeakKeyDictionary()
+
+    def split(self, batch: Dict) -> list:
+        """The batch's rows cut into one equal slice per data entry, each
+        on its entry's device.  A batch whose rows do not split raises."""
+        rows = {torch.as_tensor(v).shape[0] for v in batch.values()}
+        n = len(self.entries)
+        if len(rows) != 1 or next(iter(rows)) % n:
+            raise ValueError(f"a batch of {sorted(rows)} rows does not split "
+                             f"over {n} data entries (of {self.n_data} on "
+                             f"the data axis)")
+        part = next(iter(rows)) // n
+        return [{k: torch.as_tensor(v)[j * part:(j + 1) * part].to(
+                     devs[0], non_blocking=True) for k, v in batch.items()}
+                for j, (_, devs) in enumerate(self.entries)]
+
+    def replicas(self, model: nn.Module) -> list:
+        """The model for each entry: itself, or a copy set to it."""
+        own = _layout(model)
+        copies = self._copies.setdefault(model, {})
+        shapes = [p.shape for p in model.parameters()]
+        out = []
+        for _, devs in self.entries:
+            want = (devs[0],) + (devs if self.tp else ())
+            if want == own:
+                out.append(model)
+                continue
+            twin = copies.get(want)
+            if twin is None or [p.shape for p in twin.parameters()] != shapes:
+                twin = copies[want] = _placed_copy(model, want)
+            with torch.no_grad():
+                for a, b in zip(twin.parameters(), model.parameters()):
+                    a.copy_(b, non_blocking=True)
+            out.append(twin)
+        return out
+
+    def rows(self, tensors: Dict, home: torch.device) -> Dict:
+        """Each entry's rows (a dict of tensors, None kept), joined in
+        data-axis order on ``home``, then over the processes."""
+        out = {}
+        for k, v in tensors.items():
+            if v is not None:
+                v = torch.as_tensor(v).to(home)
+                v = gather_rows(v) if self.across else v
+            out[k] = v
+        return out
+
+    def forward(self, model: nn.Module, batch: Dict, fn: Callable) -> Dict:
+        """``fn(replica, slice)`` -> a dict of per-row tensors (or None) on
+        each entry, joined into the global batch's on the model's
+        device."""
+        outs = []
+        for (_, devs), twin, part in zip(self.entries, self.replicas(model),
+                                         self.split(batch)):
+            with on_device(devs[0]):
+                outs.append(fn(twin, part))
+        home = _device(model)
+        return self.rows({k: None if outs[0][k] is None else
+                          torch.cat([o[k].to(home) for o in outs])
+                          for k in outs[0]}, home)
+
+    def reduce_grads(self, model: nn.Module):
+        """The gradients of the global loss, summed into ``model``'s: its
+        own, then each copy's in entry order, then over the processes."""
+        params = [p for p in model.parameters() if p.requires_grad]
+        for p in params:
+            if p.grad is None:        # a parameter the loss never reached
+                p.grad = torch.zeros_like(p)
+        for twin in self._copies.get(model, {}).values():
+            for p, q in zip(model.parameters(), twin.parameters()):
+                if q.grad is not None:
+                    p.grad += q.grad.to(p.device)
+                    q.grad = None
+        if self.across:
+            all_reduce_sum([p.grad for p in params])
+
+
+def _data_parallel(mesh: Optional[Mesh], tensor_parallel: bool = False
+                   ) -> Optional[DataParallel]:
+    return None if mesh is None else DataParallel(mesh, tensor_parallel)
+
+
+def _outputs(dp: Optional[DataParallel], model: nn.Module, batch: Dict,
+             fn: Callable = None) -> Dict:
+    """``fn(model, batch)`` (default ``model(batch)``), over the data axis
+    where there is one."""
+    fn = fn or (lambda m, b: m(b))
+    return fn(model, batch) if dp is None else dp.forward(model, batch, fn)
+
+
+def _batch_rows(dp: Optional[DataParallel], batch: Dict, keys, model):
+    """The global batch's ``keys`` (those present) on the model's
+    device."""
+    keys = {k: batch[k] for k in keys if k in batch}
+    return keys if dp is None else dp.rows(keys, _device(model))
+
+
+def _apply(state: TrainState, loss: torch.Tensor,
+           dp: Optional[DataParallel] = None):
     loss.backward()
+    if dp is not None:
+        dp.reduce_grads(state.model)
     state.opt.update()
     state.step += 1
     return loss.detach()
 
 
-def make_train_step(*, unified: bool = False, task: str = None) -> Callable:
+def make_train_step(*, unified: bool = False, task: str = None,
+                    mesh: Optional[Mesh] = None,
+                    tensor_parallel: bool = False) -> Callable:
     """Returns ``step(state, batch) -> (state, loss)``.
 
     task: "mhop" (default) | "unified" | "single" (DPR) | "nq" (the
-    error-recovery variants)."""
+    error-recovery variants).  ``mesh``: the batch is split over the data
+    axis (``DataParallel``); ``tensor_parallel`` also lays the model's
+    attention heads and FFN out over the index axis at the first call
+    (``parallel.constrain_params``): dp × tp in one step."""
     task = task or ("unified" if unified else "mhop")
+    dp = _data_parallel(mesh, tensor_parallel)
 
-    def loss_fn(model, batch):
-        outputs = model(batch)
+    def loss_fn(outputs, batch):
         if task == "unified":
             return losses.unified_loss(outputs, batch["stop_targets"])
         if task == "single":
@@ -365,7 +601,12 @@ def make_train_step(*, unified: bool = False, task: str = None) -> Callable:
         return losses.mhop_loss(outputs)
 
     def step(state: TrainState, batch):
-        return state, _apply(state, loss_fn(state.model, batch))
+        if tensor_parallel and mesh is not None:
+            constrain_params(state.model, mesh)
+            state.opt = state.opt.follow(state.model)
+        outputs = _outputs(dp, state.model, batch)
+        rows = _batch_rows(dp, batch, ("stop_targets",), state.model)
+        return state, _apply(state, loss_fn(outputs, rows), dp)
 
     return step
 
@@ -376,18 +617,31 @@ def _encode(model, batch, keys):
             for name, pref in keys}
 
 
+def _views(dp, model, batch, keys):
+    return _outputs(dp, model, batch, lambda m, b: _encode(m, b, keys))
+
+
+_MHOP_Q = (("q", "q_"), ("q_sp1", "q_sp_"))
+_MHOP_CTX = (("c1", "c1_"), ("c2", "c2_"), ("neg_1", "neg1_"),
+            ("neg_2", "neg2_"))
+
+
 def make_momentum_train_step(*, enable_ema: bool = False,
                              momentum_m: float = 0.999,
+                             mesh: Optional[Mesh] = None,
                              task: str = "mhop") -> Callable:
     """Stage-2 memory-bank step.  The queue scores use the PRE-update
     queue; the batch's context vectors (from the key encoder) are enqueued
     after the optimizer step.  ``enable_ema=False`` matches the shipped
-    reference (a frozen key encoder).
+    reference (a frozen key encoder).  ``mesh``: both encoders' views are
+    split over the data axis, and the GLOBAL batch's context vectors are
+    enqueued, in global order, so every process holds the same queue.
 
     task="nq" is the BertNQMomentumRetriever composition: queries (q,
     q_neg1) through the trained encoder, contexts (c, neg) through the key
     encoder, queue negatives in the recovery loss; the model is then an
     NQRetriever."""
+    dp = _data_parallel(mesh)
     if task == "nq":
         q_keys = [("q", "q_"), ("q_neg1", "q_neg1_")]
         ctx_keys = [("c", "c_"), ("neg", "neg_")]
@@ -395,19 +649,17 @@ def make_momentum_train_step(*, enable_ema: bool = False,
         def enqueue_of(ctx):
             return ctx["c"]
     else:
-        q_keys = [("q", "q_"), ("q_sp1", "q_sp_")]
-        ctx_keys = [("c1", "c1_"), ("c2", "c2_"), ("neg_1", "neg1_"),
-                    ("neg_2", "neg2_")]
+        q_keys, ctx_keys = _MHOP_Q, _MHOP_CTX
         loss_of = losses.mhop_loss
         def enqueue_of(ctx):
             return torch.cat([ctx["c1"], ctx["c2"]])
 
     def step(state: MomentumTrainState, batch):
         with torch.no_grad():
-            ctx = _encode(state.model_k, batch, ctx_keys)
+            ctx = _views(dp, state.model_k, batch, ctx_keys)
         outputs = dict(ctx)
-        outputs.update(_encode(state.model, batch, q_keys))
-        loss = _apply(state, loss_of(outputs, queue=state.queue))
+        outputs.update(_views(dp, state.model, batch, q_keys))
+        loss = _apply(state, loss_of(outputs, queue=state.queue), dp)
         state.queue, state.queue_ptr = losses.enqueue(
             state.queue, state.queue_ptr, enqueue_of(ctx))
         if enable_ema:
@@ -417,54 +669,58 @@ def make_momentum_train_step(*, enable_ema: bool = False,
     return step
 
 
-def make_single_momentum_train_step() -> Callable:
+def make_single_momentum_train_step(mesh: Optional[Mesh] = None) -> Callable:
     """Single-hop momentum step: the token queue is re-encoded with the
-    current encoder (no gradient), its vectors are appended as extra
-    negatives, and the batch's context TOKENS are enqueued after the
-    update.  The model is a SingleRetriever."""
+    current encoder (no gradient; on the model's device, whole), its
+    vectors are appended as extra negatives, and the batch's context
+    TOKENS are enqueued after the update (``mesh``: the global batch's,
+    in global order).  The model is a SingleRetriever."""
+    dp = _data_parallel(mesh)
 
     def step(state: TokenQueueTrainState, batch):
-        outputs = state.model(batch)
+        outputs = _outputs(dp, state.model, batch)
         with torch.no_grad():
             queue_c = state.model.encode_ctx(state.queue_ids, state.queue_mask,
                                              state.queue_type)
-        loss = _apply(state, losses.single_loss(outputs, queue_c=queue_c))
-        tt = batch.get("c_type_ids")
+        loss = _apply(state, losses.single_loss(outputs, queue_c=queue_c), dp)
+        rows = _batch_rows(dp, batch, ("c_input_ids", "c_mask", "c_type_ids"),
+                           state.model)
+        tt = rows.get("c_type_ids")
         if tt is None:
-            tt = torch.zeros_like(batch["c_input_ids"])
-        _enqueue_tokens(state, batch["c_input_ids"], batch["c_mask"], tt)
+            tt = torch.zeros_like(rows["c_input_ids"])
+        _enqueue_tokens(state, rows["c_input_ids"], rows["c_mask"], tt)
         return state, loss
 
     return step
 
 
-def make_momentum_eval_step() -> Callable:
+def make_momentum_eval_step(mesh: Optional[Mesh] = None) -> Callable:
     """Momentum-stage eval: queries via encoder_q, contexts via encoder_k
     (the reference's eval-mode forward)."""
+    dp = _data_parallel(mesh)
 
     @torch.no_grad()
     def step(model_q, model_k, batch):
-        outputs = {}
-        for name, pref, model in (
-                ("q", "q_", model_q), ("q_sp1", "q_sp_", model_q),
-                ("c1", "c1_", model_k), ("c2", "c2_", model_k),
-                ("neg_1", "neg1_", model_k), ("neg_2", "neg2_", model_k)):
-            outputs[name] = model.encode_seq(batch[f"{pref}input_ids"],
-                                             batch[f"{pref}mask"])
+        outputs = _views(dp, model_q, batch, _MHOP_Q)
+        outputs.update(_views(dp, model_k, batch, _MHOP_CTX))
         return losses.mhop_eval(outputs)
 
     return step
 
 
-def make_eval_step(*, unified: bool = False, task: str = None) -> Callable:
-    """Returns ``step(model, batch)`` -> per-sample reciprocal ranks."""
+def make_eval_step(*, unified: bool = False, task: str = None,
+                   mesh: Optional[Mesh] = None) -> Callable:
+    """Returns ``step(model, batch)`` -> per-sample reciprocal ranks (of
+    the global batch, with a ``mesh``)."""
     task = task or ("unified" if unified else "mhop")
+    dp = _data_parallel(mesh)
 
     @torch.no_grad()
     def step(model, batch):
-        outputs = model(batch)
+        outputs = _outputs(dp, model, batch)
         if task == "unified":
-            return losses.unified_eval(outputs, batch["stop_targets"])
+            rows = _batch_rows(dp, batch, ("stop_targets",), model)
+            return losses.unified_eval(outputs, rows["stop_targets"])
         if task == "single":
             rrs = losses.single_eval(outputs)["rrs"]
             return {"rrs_1": rrs, "rrs_2": rrs}
@@ -524,8 +780,9 @@ def reference_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
     ``cli/common.init_retriever`` (and the JAX package's) read them: the
     retriever's own names, except that a UnifiedRetriever keeps its
     transformer under ``encoder_c.``, its stop head as ``stop`` and its
-    tanh pooler as ``encoder_c.pooler.dense``."""
-    sd = model.state_dict()
+    tanh pooler as ``encoder_c.pooler.dense``.  A tensor-parallel model's
+    blocks are joined back into the reference layout, bit for bit."""
+    sd = gather_state_dict(model)
     if not isinstance(model, UnifiedRetriever):
         return sd
     return unified_reference_names(sd)
@@ -539,16 +796,20 @@ class RetrieverTrainer:
     With ``cfg.momentum`` this is the stage-2 memory-bank trainer: the
     state carries encoder_k and the queue, and only encoder_q is written
     to ``checkpoint_*.pt``.  The model trains on the device its
-    parameters are on."""
+    parameters are on; with a ``mesh``, each batch is split over its data
+    axis (``DataParallel``), and the model's device is the first data
+    entry's."""
 
     def __init__(self, model: nn.Module, cfg: RetrieverTrainConfig,
                  train_loader, eval_loader, *,
                  total_steps: Optional[int] = None,
+                 mesh: Optional[Mesh] = None,
                  output_dir: Optional[str] = None, log_fn=print,
                  hidden_size: Optional[int] = None, enable_ema: bool = False):
         from ..core import checkpoint as ckpt
 
         self.cfg = cfg
+        self.mesh = mesh
         self.train_loader = train_loader
         self.eval_loader = eval_loader
         self.output_dir = output_dir
@@ -570,14 +831,14 @@ class RetrieverTrainer:
                 model, self.tx, queue_size=cfg.queue_size, hidden=hidden,
                 seed=cfg.seed)
             self.train_step = make_momentum_train_step(
-                enable_ema=enable_ema, momentum_m=cfg.momentum_m)
-            mstep = make_momentum_eval_step()
+                enable_ema=enable_ema, momentum_m=cfg.momentum_m, mesh=mesh)
+            mstep = make_momentum_eval_step(mesh=mesh)
             self.eval_step = lambda model, batch: mstep(
                 model, self.state.model_k, batch)
         else:
             self.state = TrainState.create(model, self.tx)
-            self.train_step = make_train_step(unified=cfg.unified)
-            self.eval_step = make_eval_step(unified=cfg.unified)
+            self.train_step = make_train_step(unified=cfg.unified, mesh=mesh)
+            self.eval_step = make_eval_step(unified=cfg.unified, mesh=mesh)
         self.best_mrr = 0.0
 
     def _save_model(self, name: str):

@@ -1296,3 +1296,102 @@ def test_default_card_encode_never_copies_the_encoder(dev, monkeypatch):
         "the encoder was copied"))
     assert build._replicas(model.encode_seq, [resolve_device(None)]) == \
         [model.encode_seq]
+
+
+def _small_mhop_batch(seed, b=8):
+    """A ragged multi-hop batch of ``b`` rows for a 96-token vocabulary."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    batch = {}
+    for name, width in (("q", 12), ("q_sp", 24), ("c1", 16), ("c2", 16),
+                        ("neg1", 16), ("neg2", 16)):
+        lens = rng.randint(4, width + 1, size=b)
+        mask = (np.arange(width)[None] < lens[:, None]).astype(np.int32)
+        batch[f"{name}_input_ids"] = np.where(
+            mask > 0, rng.randint(4, 96, size=(b, width)), 1).astype(np.int32)
+        batch[f"{name}_mask"] = mask
+    return batch
+
+
+def _parallel_devices(layout):
+    if layout == "two cards":
+        if torch.cuda.device_count() < 2:
+            pytest.skip("needs two cards")
+        return [torch.device("cuda", 0), torch.device("cuda", 1)]
+    return [torch.device("cuda", 0)] * 2
+
+
+@pytest.mark.parametrize("layout", ["one card twice", "two cards"])
+@pytest.mark.parametrize("tp", [False, True], ids=["dp", "tp"])
+def test_parallel_train_step_on_card_matches_single_device(dev, layout, tp):
+    """A data-parallel (data 2) or tensor-parallel (index 2) train step of
+    a 2-layer, 64-wide retriever (fp32 compute, TF32 off) on the card,
+    against the single-device card step from the same weights and batch:
+    chip_smoke.hold_step's criteria (leg j0's: the loss within 1e-5
+    relative, the gradients within 1e-6 + 1e-4 of each tensor's largest,
+    the parameters within ``adam_bound``), and for the tensor-parallel
+    step also tests/test_parallel.py's.  On two cards the data entries
+    compute on a copy of the model on cuda:1, the blocks live there."""
+    import chip_smoke
+    from multihop_dense_retrieval_tpu_torch.core.config import (
+        EncoderConfig, RetrieverTrainConfig)
+    from multihop_dense_retrieval_tpu_torch.core.mesh import make_mesh
+    from multihop_dense_retrieval_tpu_torch.models import MhopRetriever
+    from multihop_dense_retrieval_tpu_torch.parallel import shard_params
+    from multihop_dense_retrieval_tpu_torch.train import trainer as T
+
+    devs = _parallel_devices(layout)
+    torch.manual_seed(0)
+    base = MhopRetriever(EncoderConfig.tiny(
+        vocab_size=96, max_position_embeddings=40, hidden_size=64,
+        intermediate_size=128), cls_only=True, fp32_params=True)
+    batch = _small_mhop_batch(1)
+    mesh = make_mesh(data=1 if tp else 2, index=2 if tp else 1, devices=devs)
+    tcfg = RetrieverTrainConfig(learning_rate=1e-3, warmup_ratio=0.0)
+    ref = chip_smoke.run_step(T, base, T.make_train_step, batch, tcfg,
+                              devs[0])
+    got = chip_smoke.run_step(
+        T, base, lambda: T.make_train_step(mesh=mesh, tensor_parallel=tp),
+        batch, tcfg, devs[0],
+        prepare=(lambda m: shard_params(m, mesh)) if tp else None)
+    r = chip_smoke.hold_step(T, ref, got, tcfg)
+    if tp:
+        chip_smoke.jax_tp_criteria(got[2], ref[2], tcfg.learning_rate,
+                                   ref[1], r["clip"])
+        blocks = {p.device for n, p in got[4].model.named_parameters()
+                  if n.endswith("query.weight.1")}
+        assert blocks == {devs[1]}
+
+
+def test_dp_by_tp_step_on_four_cards_matches_single_device(dev):
+    """dp x tp in one step over four cards (data 2 x index 2: the model's
+    blocks on cuda:0 and cuda:1, the second data row on a copy whose
+    blocks sit on cuda:2 and cuda:3), against the single-device step by
+    chip_smoke.hold_step's criteria and tests/test_parallel.py's."""
+    import chip_smoke
+    from multihop_dense_retrieval_tpu_torch.core.config import (
+        EncoderConfig, RetrieverTrainConfig)
+    from multihop_dense_retrieval_tpu_torch.core.mesh import make_mesh
+    from multihop_dense_retrieval_tpu_torch.models import MhopRetriever
+    from multihop_dense_retrieval_tpu_torch.parallel import shard_params
+    from multihop_dense_retrieval_tpu_torch.train import trainer as T
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    devs = [torch.device("cuda", i) for i in range(4)]
+    torch.manual_seed(0)
+    base = MhopRetriever(EncoderConfig.tiny(
+        vocab_size=96, max_position_embeddings=40, hidden_size=64,
+        intermediate_size=128), cls_only=True, fp32_params=True)
+    batch = _small_mhop_batch(2)
+    mesh = make_mesh(data=2, index=2, devices=devs)
+    tcfg = RetrieverTrainConfig(learning_rate=1e-3, warmup_ratio=0.0)
+    ref = chip_smoke.run_step(T, base, T.make_train_step, batch, tcfg,
+                              devs[0])
+    got = chip_smoke.run_step(
+        T, base, lambda: T.make_train_step(mesh=mesh, tensor_parallel=True),
+        batch, tcfg, devs[0], prepare=lambda m: shard_params(m, mesh))
+    r = chip_smoke.hold_step(T, ref, got, tcfg)
+    chip_smoke.jax_tp_criteria(got[2], ref[2], tcfg.learning_rate, ref[1],
+                               r["clip"])

@@ -17,7 +17,9 @@ results must equal the single-process runs of the same CLIs:
   * ``sharded_mips_topk`` and ``sharded_mips_topk_pca`` over a 4-shard
     mesh across 2 processes (the worker below, run as this file) return
     the single-process 4-shard results bit for bit, certificates (the AND
-    over shards of two processes) included, on planted rows that certify.
+    over shards of two processes) included, on planted rows that certify;
+  * one data-parallel train step over a data-8 mesh of 2 processes x 4
+    entries (the dp worker) equals the single-process data-8 step.
 """
 
 import json
@@ -27,6 +29,7 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 import torch
 
 from multihop_dense_retrieval_tpu_torch.cli import encode_corpus
@@ -226,8 +229,97 @@ def test_two_process_sharded_mips_matches_single_process(tmp_path):
     assert got["pc"].mean() >= 0.5, got["pc"]
 
 
+def _dp_batch(b=8):
+    """The 8-row multi-hop train batch of both sides (numpy seeds; ragged
+    masks, ids under the tiny vocabulary)."""
+    rng = np.random.RandomState(0)
+    out = {}
+    for name, width in (("q", 12), ("q_sp", 24), ("c1", 16), ("c2", 16),
+                        ("neg1", 16), ("neg2", 16)):
+        lens = rng.randint(4, width + 1, size=b)
+        mask = (np.arange(width)[None] < lens[:, None]).astype(np.int32)
+        ids = np.where(mask > 0, rng.randint(4, 500, size=(b, width)), 1)
+        out[f"{name}_input_ids"] = ids.astype(np.int32)
+        out[f"{name}_mask"] = mask
+    return out
+
+
+def _dp_state():
+    """A seeded tiny retriever (fp32) and its TrainState."""
+    from multihop_dense_retrieval_tpu_torch.core.config import (
+        EncoderConfig, RetrieverTrainConfig)
+    from multihop_dense_retrieval_tpu_torch.models import MhopRetriever
+    from multihop_dense_retrieval_tpu_torch.train import trainer as T
+
+    torch.manual_seed(0)
+    model = MhopRetriever(EncoderConfig.tiny(vocab_size=512,
+                                             max_position_embeddings=64),
+                          cls_only=True, fp32_params=True)
+    return T.TrainState.create(model, T.make_optimizer(
+        RetrieverTrainConfig(batch_size=8, num_epochs=1), 10))
+
+
+def _dp_worker(argv):
+    """tests/test_pod_multiprocess.py's dp worker: each of 2 processes
+    holds 4 data entries of a data-8 mesh and its half of the global
+    batch (host_local_batch_to_global), the state replicated
+    (replicate_to_global); one train step; rank 0 saves the loss and the
+    parameters."""
+    import argparse
+
+    from multihop_dense_retrieval_tpu_torch.core import mesh as tmesh
+    from multihop_dense_retrieval_tpu_torch.train import trainer as T
+
+    p = argparse.ArgumentParser()
+    for flag in ("--coordinator", "--num-processes", "--process-id", "out"):
+        p.add_argument(flag)
+    args = p.parse_args(argv)
+    rank = int(args.process_id)
+    tmesh.init_pod(f"tcp://{args.coordinator}", int(args.num_processes),
+                   rank)
+    mesh = tmesh.make_mesh(data=8, index=1, devices=tmesh.pod_devices(
+        [torch.device("cpu")] * 4))
+    assert [i for i, _ in mesh.data_entries()] == list(range(4 * rank,
+                                                             4 * rank + 4))
+    local = {k: v[4 * rank:4 * rank + 4] for k, v in _dp_batch().items()}
+    batch = tmesh.host_local_batch_to_global(local, mesh)
+    state = tmesh.replicate_to_global(_dp_state(), mesh)
+    state, loss = T.make_train_step(mesh=mesh)(state, batch)
+    if rank == 0:
+        np.savez(args.out, loss=loss.numpy(), **{
+            k: v.numpy() for k, v in state.model.state_dict().items()})
+    tmesh.close_pod()
+    print("DP WORKER OK", flush=True)
+
+
+def test_two_process_dp_step_matches_single_process(tmp_path):
+    """tests/test_pod_multiprocess.py's case: one data-parallel step over
+    a data-8 mesh of 2 processes x 4 CPU entries (the vectors gathered
+    over gloo in rank order, the gradients summed over gloo) equals the
+    same step on a single-process mesh of 8 CPU entries: the loss rel
+    1e-6, every parameter rtol 1e-6 / atol 1e-7, JAX's criteria."""
+    from multihop_dense_retrieval_tpu_torch.core import mesh as tmesh
+    from multihop_dense_retrieval_tpu_torch.train import trainer as T
+
+    out = str(tmp_path / "pod.npz")
+    outs = _launch(2, [out], command=(os.path.abspath(__file__), "dp"))
+    assert all("DP WORKER OK" in o for o, _ in outs)
+    got = np.load(out)
+    state = _dp_state()
+    mesh = tmesh.make_mesh(data=8, index=1,
+                           devices=[torch.device("cpu")] * 8)
+    state, loss = T.make_train_step(mesh=mesh)(
+        state, {k: torch.from_numpy(v) for k, v in _dp_batch().items()})
+    assert float(got["loss"]) == pytest.approx(float(loss), rel=1e-6)
+    ref = state.model.state_dict()
+    assert set(got.files) == set(ref) | {"loss"}
+    for k, v in ref.items():
+        np.testing.assert_allclose(got[k], v.numpy(), rtol=1e-6, atol=1e-7,
+                                   err_msg=k)
+
+
 if __name__ == "__main__":
-    if sys.argv[1] == "mips":
-        _mips_worker(sys.argv[2:])
-    else:
+    workers = {"mips": _mips_worker, "dp": _dp_worker}
+    if sys.argv[1] not in workers:
         raise SystemExit(f"unknown worker {sys.argv[1]}")
+    workers[sys.argv[1]](sys.argv[2:])

@@ -1,7 +1,7 @@
 """examples/quickstart_torch.py must stay runnable: the port's documented
 tour of the whole pipeline (train -> momentum -> encode -> retrieve ->
 read -> export), here with ``--device cpu`` (the kernels' plain
-versions).  Its assertions mirror tests/test_quickstart_example.py."""
+versions; the trainers' ``--data-parallel 2`` on the CPU twice).  Its assertions mirror tests/test_quickstart_example.py."""
 
 import importlib.util
 import os
@@ -29,6 +29,9 @@ def test_quickstart_torch_runs_end_to_end(tmp_path):
     assert sd and all(torch.isfinite(v).all() for v in sd.values()
                       if v.is_floating_point())
     assert summary["momentum_final_loss"] > 0
+    # the JAX tour's --data-parallel 2 on the trainers: the CPU twice
+    assert summary["train_mesh"] == \
+        "Mesh({'data': 2, 'index': 1}, [['cpu'], ['cpu']])"
     # the exported .pt strict-loads into the serving retriever
     from multihop_dense_retrieval_tpu_torch.cli import common
     common.init_retriever(common.resolve_encoder_config("tiny"),

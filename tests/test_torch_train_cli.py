@@ -4,7 +4,9 @@ tests/test_variant_cli.py and tests/test_workflow.py, ported (stage 1 →
 momentum from the stage-1 checkpoint → encode_corpus → eval_mhop_retrieval,
 all through the port's CLIs); the checkpoints' reference layout, read by
 both packages' ``init_retriever`` with equal vectors (fp32, atol 1e-5, as
-tests/test_torch_encoder.py); and the flags that must raise.
+tests/test_torch_encoder.py); ``--data-parallel 2`` held to the JAX CLI's
+(tests/test_more_cli.py's cases run it) and to the port's single-device
+run; and the flags that must raise.
 """
 
 import json
@@ -17,18 +19,24 @@ import pytest
 import torch
 
 from multihop_dense_retrieval_tpu.cli import common as jcommon
+from multihop_dense_retrieval_tpu.cli import train_retriever as jtrain_retriever
 from multihop_dense_retrieval_tpu_torch.cli import common
 from multihop_dense_retrieval_tpu_torch.cli import (encode_corpus,
                                                     eval_mhop_retrieval,
                                                     train_momentum,
                                                     train_retriever)
 from multihop_dense_retrieval_tpu_torch.core import checkpoint as ckpt
+from multihop_dense_retrieval_tpu_torch.models import (
+    MhopRetriever, retriever_state_dict_from_jax)
 from tests import synth
 
-SMALL = ["--tokenizer", "hash", "--model-name", "tiny", "--device", "cpu",
-         "--train-batch-size", "4", "--predict-batch-size", "4",
-         "--num-epochs", "1", "--learning-rate", "1e-4",
-         "--max-q-len", "12", "--max-q-sp-len", "32", "--max-c-len", "24"]
+# the JAX CLIs' flags; SMALL adds the port's --device cpu
+COMMON = ["--tokenizer", "hash", "--model-name", "tiny",
+          "--train-batch-size", "4", "--predict-batch-size", "4",
+          "--num-epochs", "1", "--learning-rate", "1e-4",
+          "--max-q-len", "12", "--max-q-sp-len", "32", "--max-c-len", "24"]
+CPU = ["--device", "cpu"]
+SMALL = COMMON + CPU
 
 
 def _files(tmp_path, name="t.jsonl"):
@@ -156,12 +164,131 @@ def test_full_training_to_eval_workflow(tmp_path, capsys):
     assert agg["n"] == len(rows)
 
 
-@pytest.mark.parametrize("cli", [train_retriever, train_momentum])
-def test_data_parallel_raises_item_12(tmp_path, cli):
+@pytest.fixture
+def fp32_tiny(monkeypatch):
+    """The tiny preset computing in fp32 in both packages' CLIs (they
+    compute in bf16, whose rounding would swamp the comparisons)."""
+    for mod in (common, jcommon):
+        tiny = mod.MODEL_PRESETS["tiny"]
+        monkeypatch.setitem(mod.MODEL_PRESETS, "tiny",
+                            lambda dtype=None, tiny=tiny: tiny(dtype="float32"))
+
+
+def _init_checkpoint(tmp_path):
+    """A seeded tiny retriever in the reference layout: the common start
+    of the two packages' runs."""
+    model = common.init_retriever(common.resolve_encoder_config("tiny"),
+                                  seed=5, device="cpu")
+    path = str(tmp_path / "init.pt")
+    ckpt.save_pytree(path, model.state_dict())
+    return path
+
+
+def _vectors(sd):
+    """A retriever state dict's vectors of fixed ragged rows (fp32)."""
+    rng = np.random.RandomState(2)
+    ids = torch.from_numpy(rng.randint(4, 500, size=(4, 12)).astype(np.int32))
+    mask = torch.ones_like(ids)
+    mask[1, 7:] = 0
+    model = MhopRetriever(common.resolve_encoder_config("tiny",
+                                                        dtype="float32"))
+    model.load_state_dict(sd)
+    with torch.no_grad():
+        return model.encode_seq(ids, mask).numpy()
+
+
+def _jax_checkpoint(path):
+    from multihop_dense_retrieval_tpu.core import checkpoint as jckpt
+
+    return retriever_state_dict_from_jax(jckpt.restore_pytree(path))
+
+
+def test_train_retriever_data_parallel_matches_jax_cli(tmp_path, caplog,
+                                                       fp32_tiny):
+    """--data-parallel 2 (on --device cpu: the CPU twice) from one
+    --init-checkpoint, fp32 compute: the run's loss (the mean of its two steps, the
+    second after the first's update) within rel 1e-5 of the JAX CLI's
+    --data-parallel 2 run and of the port's single-device run, the same
+    best MRR, and checkpoints whose vectors agree within 1e-5."""
     train, _, _ = _files(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        cli.main(["--train-file", train, "--predict-file", train,
-                  "--data-parallel", "2"] + SMALL)
+    base = ["--train-file", train, "--predict-file", train,
+            "--init-checkpoint", _init_checkpoint(tmp_path)] + COMMON
+    jres = jtrain_retriever.main(base + ["--data-parallel", "2",
+                                         "--output-dir", str(tmp_path / "j")])
+    with caplog.at_level("INFO", logger="mdr_torch"):
+        res, trainer = train_retriever.main(
+            base + CPU + ["--data-parallel", "2", "--output-dir",
+                          str(tmp_path / "p")])
+    assert "training on Mesh({'data': 2, 'index': 1}" in caplog.text
+    one, _ = train_retriever.main(base + CPU + ["--output-dir",
+                                                str(tmp_path / "one")])
+    assert trainer.state.step == 2
+    assert res["final_loss"] == pytest.approx(jres["final_loss"], rel=1e-5)
+    assert res["final_loss"] == pytest.approx(one["final_loss"], rel=1e-5)
+    assert res["best_mrr"] == pytest.approx(jres["best_mrr"], abs=1e-6)
+    assert res["best_mrr"] == one["best_mrr"]
+    got = _vectors(ckpt.restore_pytree(str(tmp_path / "p/checkpoint_last.pt")))
+    for ref in (_jax_checkpoint(str(tmp_path / "j/checkpoint_last")),
+                ckpt.restore_pytree(str(tmp_path / "one/checkpoint_last.pt"))):
+        np.testing.assert_allclose(got, _vectors(ref), rtol=0, atol=1e-5)
+
+
+def test_train_momentum_data_parallel_matches_single_device(tmp_path,
+                                                           fp32_tiny):
+    """train_momentum --data-parallel 2 from a stage-1 checkpoint (fp32
+    compute) against
+    the port's single-device run (the JAX CLI draws its queue with
+    jax.random, which torch cannot reproduce): the loss rel 1e-5, the
+    global batch's key vectors enqueued in global order (atol 2e-5, the
+    pointer equal), checkpoints whose vectors agree within 1e-5."""
+    train, _, _ = _files(tmp_path)
+    base = ["--train-file", train, "--predict-file", train,
+            "--init-checkpoint", _init_checkpoint(tmp_path),
+            "--queue-size", "24"] + COMMON + CPU
+    res, tr = train_momentum.main(base + ["--data-parallel", "2",
+                                          "--output-dir", str(tmp_path / "p")])
+    one, tr1 = train_momentum.main(base + ["--output-dir",
+                                           str(tmp_path / "one")])
+    assert res["final_loss"] == pytest.approx(one["final_loss"], rel=1e-5)
+    assert tr.state.queue_ptr == tr1.state.queue_ptr == 16
+    torch.testing.assert_close(tr.state.queue, tr1.state.queue, rtol=0,
+                               atol=2e-5)
+    np.testing.assert_allclose(
+        _vectors(ckpt.restore_pytree(str(tmp_path / "p/checkpoint_last.pt"))),
+        _vectors(ckpt.restore_pytree(str(tmp_path /
+                                         "one/checkpoint_last.pt"))),
+        rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["train_retriever", "train_momentum",
+                                  "train_single", "launch"])
+def test_trainer_clis_refuse_more_than_one_process(monkeypatch, tmp_path,
+                                                   name):
+    """Under cli/pod with two processes each loader would read the whole
+    dataset: the trainers raise before reading anything."""
+    import importlib
+
+    monkeypatch.setattr(common, "world", lambda: (0, 2))
+    main = importlib.import_module(
+        f"multihop_dense_retrieval_tpu_torch.cli.{name}").main
+    missing = str(tmp_path / "missing.jsonl")
+    with pytest.raises(ValueError, match="duplicated data"):
+        main(["--train-file", missing, "--predict-file", missing,
+              "--tokenizer", "hash", "--model-name", "tiny"] + CPU)
+
+
+def test_data_parallel_beyond_the_cards_raises(monkeypatch, tmp_path):
+    """The bare --device cuda takes the visible cards: asking for more
+    data entries than there are raises make_mesh's error (a named device,
+    cuda:0 or cpu, repeats instead)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    missing = str(tmp_path / "missing.jsonl")
+    with pytest.raises(ValueError, match="does not fit the 1 available"):
+        train_retriever.main(["--train-file", missing, "--predict-file",
+                              missing, "--data-parallel", "2"] + COMMON)
+    mesh = common.train_mesh("cuda:0", 3)
+    assert mesh.data_devices() == [torch.device("cuda", 0)] * 3
 
 
 def test_unified_remat_raises(tmp_path):

@@ -5,7 +5,7 @@ files and seed over two epochs; then the JAX package's
 tests/test_resume.py, ported (the full trainer state, the replayed data
 order, the loader's RNG round trip, and the atomic ``.new`` / ``.old``
 protocol of ``train/preemption.py`` over ``.pt`` files).  The mesh case
-(``test_resume_on_device_mesh``) waits for ROADMAP item 12b.
+(``test_resume_on_device_mesh``) is in tests/test_torch_train_parallel.py.
 
 Every comparison is exact: the datasets and the loader are numpy only.
 """

@@ -5,9 +5,10 @@ then the JAX package's tests of them and of ``cli/train_single`` and
 ``cli/launch``, ported (tests/test_components.py::test_sp_dataset and
 test_nq_mhop_dataset_and_augmentation, tests/test_more_cli.py::
 test_train_single_cli, test_train_single_separate_encoders_from_checkpoint
-and test_launch_grid), on ``--device cpu`` and without ``--data-parallel``,
-which the port raises on (ROADMAP item 12b).  The single-hop train steps
-themselves are held to JAX's in tests/test_torch_train.py.
+and test_launch_grid), on ``--device cpu``; with ``--data-parallel 2``
+held to the JAX CLIs' runs from one ``--init-checkpoint``.  The single-hop
+train steps themselves are held to JAX's in tests/test_torch_train.py and
+tests/test_torch_train_parallel.py.
 """
 
 import json
@@ -17,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+from multihop_dense_retrieval_tpu.cli import launch as jlaunch
+from multihop_dense_retrieval_tpu.cli import train_single as jtrain_single
 from multihop_dense_retrieval_tpu.data import BatchLoader as JaxLoader
 from multihop_dense_retrieval_tpu.data import HashTokenizer as JaxTok
 from multihop_dense_retrieval_tpu.data import sp_datasets as jsp
@@ -29,6 +32,8 @@ from multihop_dense_retrieval_tpu_torch.data import sp_datasets as tsp
 from multihop_dense_retrieval_tpu_torch.models import NQRetriever
 from multihop_dense_retrieval_tpu_torch.train import trainer as T
 from tests import synth
+from tests.test_torch_train_cli import (  # noqa: F401 (a fixture)
+    _init_checkpoint, _jax_checkpoint, _vectors, fp32_tiny)
 
 
 def _sp_rows(n=8):
@@ -227,9 +232,78 @@ def test_train_single_separate_encoders_from_checkpoint(tmp_path):
                ckpt.restore_pytree(f"{out3}/checkpoint_last.pt"))
 
 
-def test_train_single_data_parallel_raises_item_12(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        train_single.main(_sp_file(tmp_path) + BASE + ["--data-parallel", "2"])
+def _jax_argv(argv):
+    """The port's argv without its --device (the JAX CLIs have none)."""
+    i = argv.index("--device")
+    return argv[:i] + argv[i + 2:]
+
+
+@pytest.mark.parametrize("momentum", [False, True])
+def test_train_single_data_parallel_matches_jax_cli(tmp_path, fp32_tiny,
+                                                    momentum):
+    """tests/test_more_cli.py::test_train_single_cli's runs, with
+    --data-parallel 2 from one --init-checkpoint (fp32 compute), shared
+    and with --momentum (the token queue starts from [CLS][SEP] rows in
+    both packages): the loss rel 1e-5 of the JAX CLI's run and of the
+    port's single-device run, the same best MRR, checkpoints whose
+    vectors agree within 1e-5; the token queue holds the global batches'
+    rows."""
+    argv = _sp_file(tmp_path) + BASE + [
+        "--init-checkpoint", _init_checkpoint(tmp_path)] + (
+        ["--momentum", "--queue-size", "8"] if momentum else [])
+    jres = jtrain_single.main(_jax_argv(argv) + [
+        "--data-parallel", "2", "--output-dir", str(tmp_path / "j")])
+    res, trainer = train_single.main(argv + [
+        "--data-parallel", "2", "--output-dir", str(tmp_path / "p")])
+    one, single = train_single.main(argv + ["--output-dir",
+                                            str(tmp_path / "one")])
+    assert res["final_loss"] == pytest.approx(jres["final_loss"], rel=1e-5)
+    assert res["final_loss"] == pytest.approx(one["final_loss"], rel=1e-5)
+    assert res["best_mrr"] == pytest.approx(jres["best_mrr"], abs=1e-6)
+    got = _vectors(ckpt.restore_pytree(str(tmp_path / "p/checkpoint_last.pt")))
+    for ref in (_jax_checkpoint(str(tmp_path / "j/checkpoint_last")),
+                ckpt.restore_pytree(str(tmp_path / "one/checkpoint_last.pt"))):
+        np.testing.assert_allclose(got, _vectors(ref), rtol=0, atol=1e-5)
+    if momentum:
+        for name in ("queue_ids", "queue_mask", "queue_type"):
+            assert torch.equal(getattr(trainer.state, name),
+                               getattr(single.state, name))
+        assert trainer.state.queue_ptr == single.state.queue_ptr == 0
+
+
+def test_launch_data_parallel_matches_jax_cli(tmp_path, fp32_tiny):
+    """tests/test_more_cli.py::test_launch_grid with --data-parallel 2
+    (forwarded to each grid point's train_retriever) from one
+    --init-checkpoint, fp32 compute: the same grid lines and best MRRs as
+    the JAX launcher's, each point's checkpoint vectors within 1e-5."""
+    rng = np.random.RandomState(2)
+    docs = synth.make_corpus(rng, 24)
+    synth.write_jsonl(tmp_path / "t.jsonl",
+                      synth.make_mhop_rows(rng, docs, n_rows=8))
+    argv = ["--grid-lr", "1e-4,1e-3", "--grid-warmup", "0.0",
+            "--train-file", str(tmp_path / "t.jsonl"),
+            "--predict-file", str(tmp_path / "t.jsonl"),
+            "--init-checkpoint", _init_checkpoint(tmp_path),
+            "--tokenizer", "hash", "--model-name", "tiny", "--device", "cpu",
+            "--train-batch-size", "4", "--predict-batch-size", "4",
+            "--num-epochs", "1", "--max-q-len", "12", "--max-q-sp-len", "32",
+            "--max-c-len", "24", "--data-parallel", "2"]
+    jbest = jlaunch.main(_jax_argv(argv) + ["--output-dir",
+                                            str(tmp_path / "j")])
+    best = launch.main(argv + ["--output-dir", str(tmp_path / "p")])
+    lines = {}
+    for tag in ("j", "p"):
+        with open(tmp_path / tag / "sweep_results.jsonl") as f:
+            lines[tag] = [json.loads(x) for x in f]
+    assert [(r["lr"], r["warmup"], r["seed"]) for r in lines["p"]] == \
+        [(r["lr"], r["warmup"], r["seed"]) for r in lines["j"]]
+    for a, b in zip(lines["p"], lines["j"]):
+        assert a["best_mrr"] == pytest.approx(b["best_mrr"], abs=1e-6)
+        np.testing.assert_allclose(
+            _vectors(ckpt.restore_pytree(f"{a['dir']}/checkpoint_last.pt")),
+            _vectors(_jax_checkpoint(f"{b['dir']}/checkpoint_last")),
+            rtol=0, atol=1e-5)
+    assert best["lr"] == jbest["lr"]
 
 
 def test_launch_grid(tmp_path):
