@@ -2,8 +2,9 @@
 encoding, question-answering and training paths (the retriever, reader
 and single-hop trainers, the grid launcher, checkpoint export), its
 single-hop bulk retrieval and offline-eval CLIs, its quickstart, its
-row-sharded serving, data-parallel encoding and pod runner, and its data-
-and tensor-parallel training on one GPU.
+row-sharded serving, data-parallel encoding and pod runner, its data- and
+tensor-parallel training, and its trained-weight measurement scripts on
+one GPU.
 Run from the repository root:  python3 chip_smoke.py
 
 Phases (each prints a line and flushes; any failure exits non-zero):
@@ -234,6 +235,35 @@ Phases (each prints a line and flushes; any failure exits non-zero):
                   o1's bf16 step in 2 processes through run_processes (one
                   entry each: gloo on the shared card, NCCL on two),
                   held to the single-process data-2 step.
+               p. trained weights (scripts_dev/prune_sweep_torch.py and
+                  fidelity_trained_torch.py; each sub-leg prints its
+                  seconds per stage; p1 and p3 run in processes of their
+                  own beside p2, each with its own launch counts, and
+                  kernels 1, 3 and 4 are timed after both have ended).  p1: the prune sweep at its
+                  defaults (make_data's 65,536 docs, 1,024 key docs, 512
+                  questions; the mini retriever trained 8 epochs through
+                  cli/train_retriever; a bf16 index; beam 4, batch 16):
+                  every margin's pruned_frac, chain_agreement, p_em, pr
+                  and gold_hop1_expanded beside docs/prune_sweep_r5.json;
+                  kernel 2 at both hops, every launch held to the plain
+                  scan.  p2 (the full-width main path): the same data, a
+                  roberta-base retriever (bf16) trained through
+                  cli/train_retriever (P_EPOCHS epochs at P_LR: the JAX
+                  recipe's 1e-3 does not train it), an int8 index with
+                  a 128-dim PCA prefilter from cli/encode_corpus; the
+                  512 questions at batch 192 and beam 4 (768 hop-2
+                  queries a batch: kernel 1 at hop 1, kernels 3 + 4 at
+                  hop 2), unpruned, at auto and auto:0.9, and over 4 row
+                  shards on the card: certified shares, pruned shares and
+                  chain agreement, kernels 1, 3 and 4 timed on the
+                  trained launches (the median of 20) beside their bounds
+                  and kernel 4's chunk skew; every hop held to the exact
+                  scans, every kernel 3 / 4 launch to its plain version,
+                  hop 1 over the shards bit-equal to the unsharded
+                  engine.  p3: the fidelity script at its defaults (mini
+                  reader, offsets 64-448, 40 questions each; no MIPS
+                  kernel) but P3_EPOCHS epochs: the matrix and bf16
+                  agreement beside docs/fidelity_r5.json.
   4. result  — one JSON line of kernel records, the card's name and power
                limit, and the final {"ok": true, ...} line.
 Exits with code 2 and no result when CUDA is not available.
@@ -244,9 +274,11 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import importlib
+import importlib.util
 import io
 import json
 import logging
+import os
 import subprocess
 import sys
 import tempfile
@@ -309,6 +341,14 @@ K3_B, K3_ROWS = 32, 128
 # each throughput run (two windows of half), the CLIs' rows; the relative
 # loss tolerance of a bf16 step against the single-device one
 O_WARM, O_ITERS, O_ROWS, O_LOSS_TOL = 2, 8, 64, 5e-3
+# leg p (trained weights): scripts_dev/prune_sweep_torch.py's defaults (p1:
+# docs, key docs, questions); p2's roberta-base training (epochs, learning
+# rate), its batch (h3's 768 hop-2 queries at beam 4), its row shards, and
+# the CUDA-event launches timed per kernel; p3's reader epochs (the
+# script's FIDELITY_EPOCHS, default 6: at 6 the port's seeded reader had
+# not yet learnt to rank the evidence, answer EM 0.343; at 12 it has, 0.839)
+P_DOCS, P_KEYS, P_Q, P3_EPOCHS = 65536, 1024, 512, 12
+P_EPOCHS, P_LR, P_BATCH, P_SHARDS, P_TIMED = 3, "2e-5", 192, 4, 20
 # leg l (single-hop bulk retrieval): questions, and cli/eval_retrieval's
 # defaults (batch, top k, query width)
 N_BULK_Q, BULK_BATCH, BULK_K, BULK_Q_LEN = 1024, 256, 100, 50
@@ -1188,6 +1228,8 @@ def run_main_path(port, mips, dev, gen, smi, table_path=None, iters=50):
         launches.update(run_training(port, mips, dev, smi, tmp))
         launches.update(run_reader_training(port, mips, dev, smi, tmp))
         launches.update(run_parallel_training(port, mips, dev, smi, tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        launches.update(run_trained_weights(mips, dev, smi, tmp))
     launches.update(run_quickstart(mips, dev, smi))
     return launches
 
@@ -1279,14 +1321,16 @@ def skipped_rows(lens, active, fracs, top_slot):
     return nt[skipped]
 
 
-def check_beam4_semantics(out, margin, thr, pass2, fracs, neg_inf):
+def check_beam4_semantics(out, margin, thr, pass2, fracs, neg_inf,
+                          n_real=None):
     """Hold one leg-h batch to the beam-4 rules on its own outputs: every
     finite chain's hop-1 candidate meets the margin rule on the engine's
     d1 (the auto:Q margin at the JAX engine's static index into the sorted
     gaps), the top-1 candidate is always kept; a stopped question keeps
     exactly beam2 finite chains, all through its top-1 candidate; every
     row of a skipped pass-2 tile has stop probability exactly 0.5.
-    Returns (pruned share, stop rate, skipped rows)."""
+    Returns (pruned share of the first ``n_real`` questions, all by
+    default; stop rate, skipped rows)."""
     d1 = out["hop1_cand_scores"]
     bsz = d1.shape[0]
     top1 = d1.max(1, keepdims=True)
@@ -1319,7 +1363,7 @@ def check_beam4_semantics(out, margin, thr, pass2, fracs, neg_inf):
         assert (out["stop_probs"].reshape(-1)[rows] == 0.5).all(), \
             "a skipped row's stop probability is not 0.5"
         n_skipped = len(rows)
-    return 1.0 - float(kept.mean()), stop_rate, n_skipped
+    return 1.0 - float(kept[:n_real].mean()), stop_rate, n_skipped
 
 
 def profile_steps(engine, q_inputs, q_raw, q_lens, batch_ms):
@@ -3115,6 +3159,452 @@ def run_parallel_training(port, mips, dev, smi, tmp):
     return {"parallel_training": assert_no_launches(mips, "o")}
 
 
+# ---- leg p: trained weights ------------------------------------------------
+
+
+def load_script(name):
+    """A script of scripts_dev/ as a module (they are not a package)."""
+    path = Path(__file__).resolve().parent / "scripts_dev" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def jax_record(name):
+    """A result the JAX package's script of the same name wrote (docs/)."""
+    with open(Path(__file__).resolve().parent / "docs" / name) as f:
+        return json.load(f)
+
+
+@contextlib.contextmanager
+def scoped_env(**kw):
+    old = {k: os.environ.get(k) for k in kw}
+    os.environ.update(kw)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def hold_scan_launches(seen, mips):
+    """Hold recorded kernel-2 launches (name, (queries, index, k, n_valid),
+    (vals, ids)) against the plain exact scan, as leg b does: values
+    within rtol 1e-5 (the kept rows rescored in fp32), ids equal apart
+    from near-ties.  Clears them; returns (launches, the largest relative
+    difference)."""
+    worst, n = 0.0, len(seen)
+    for _, (q, index, k, n_valid), (kv, ki) in seen:
+        pv, pi = mips.mips_scan_plain(q, index, k, n_valid)
+        rel = ((kv - pv).abs() / pv.abs().clamp(min=1e-30)).max().item()
+        assert rel <= 1e-5, f"kernel 2 (B={q.shape[0]}) off by {rel} relative"
+        qb = q.to(index.dtype).float()
+        alt = (qb[:, None, :] * index[ki.long()].float()).sum(-1)
+        tie_ok = (ki == pi) | ((alt - pv).abs() <= 1e-5 * pv.abs())
+        assert bool(tie_ok.all()), "kernel 2 ids disagree beyond near-ties"
+        worst = max(worst, rel)
+    seen.clear()
+    return n, worst
+
+
+def median_ms(fn, n):
+    """The median of ``n`` launches of ``fn``, each timed by CUDA events."""
+    fn()
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def run_prune_sweep(ps, mips, dev, smi, work):
+    """Leg (p1): prune_sweep_torch at its defaults (the mini retriever, 8
+    epochs over 512 questions, 65,536 docs, a bf16 index, beam 4, batch
+    16), stage by stage as its main() runs them: every margin beside
+    docs/prune_sweep_r5.json's, every kernel-2 launch of the sweep held
+    to the plain exact scan.  Returns the launch counts."""
+    mips.reset_launch_counts()
+    paths, docs, rows = ps.make_data(work, np.random.RandomState(0),
+                                     n_docs=P_DOCS, n_train=P_Q,
+                                     n_key_docs=P_KEYS)
+    stage1, index_dir = f"{work}/stage1", f"{work}/index"
+    trained = ps._train_and_encode(work, paths, stage1, index_dir, P_DOCS,
+                                   dev)
+    launched, restore = record_launches(mips, ("mips_scan",))
+    t0 = time.perf_counter()
+    try:
+        with scoped_env(PRUNE_OUT=f"{work}/p1.json", PRUNE_DEVICE=str(dev)):
+            res = ps._sweep(work, paths, docs, rows, stage1, index_dir,
+                            min(4096, P_DOCS), P_DOCS, P_KEYS, P_Q)
+    finally:
+        restore()
+    t_sweep = time.perf_counter() - t0
+    counts = leg_counts(mips)
+    n_held, rel = hold_scan_launches(launched, mips)
+    assert counts["mips_scan"] == n_held > 0, (counts, n_held)
+    others = {k: counts[k] for k in mips.LAUNCHES if k != "mips_scan"}
+    assert not any(others.values()), f"other kernels ran on leg p1: {others}"
+    say(f"  p1 prune_sweep_torch (mini, {P_DOCS} docs, {P_Q} questions): "
+        f"train {trained['train_s']:.1f} s (best MRR "
+        f"{trained['best_mrr']:.4f}), encode {trained['encode_s']:.1f} s, "
+        f"sweep {t_sweep:.1f} s; kernel 2 launched {n_held} times, each "
+        f"held to the plain scan (max relative difference {rel:.3g}); "
+        f"launches {json.dumps(counts)} [{smi}]")
+    ref = jax_record("prune_sweep_r5.json")
+
+    def short(name):
+        return name.rsplit("_", 1)[0] if name.startswith("margin_p") else name
+
+    jax_by = {short(k): v for k, v in ref.items() if k.startswith("margin_")}
+    for name, got in res.items():
+        if name.startswith("margin_"):
+            jax = jax_by.get(short(name), {})
+            say(f"    {name}: " + ", ".join(
+                f"{k} {got.get(k, '-')} (JAX, TPU record: {jax.get(k, '-')})"
+                for k in ("pruned_frac", "chain_agreement", "p_em", "pr",
+                          "gold_hop1_expanded")))
+    return counts
+
+
+def trained_batches(engine, tok, questions, index, mips, margin=0.0):
+    """Search ``questions`` with ``engine`` in batches of P_BATCH (the
+    last padded with its last question).  Every MIPS call is held to the
+    exact scans over ``index`` (check_recorded_hops: hop 1 bit-equal,
+    hop-2 scores bit-equal to their rows' rescan-order products,
+    certified queries the exact top-1), every kernel 3 and 4 launch to
+    its plain version, and each batch to the beam-4 margin rule.  Returns
+    (the real rows' outputs, concatenated; their certified hop-2 queries
+    and hop-2 queries; the pruned share of their hop-1 candidates; the
+    first batch's kernel 1, 3 and 4 launches)."""
+    rows, first = {}, None
+    n_cert = n_pca = n_pruned = 0
+    seen = record_queries(engine, outputs=True)
+    for s in range(0, len(questions), P_BATCH):
+        qs = questions[s:s + P_BATCH]
+        qs_p = qs + [qs[-1]] * (P_BATCH - len(qs))
+        raw = [tok.raw_ids_padded(q, 76) for q in qs_p]
+        launched, restore = record_launches(
+            mips, ("mips_scan_int8", "pca_chunk_max", "pca_rescan_int8"))
+        try:
+            out = engine.search(tok.encode_batch_one(qs_p, 24),
+                                np.stack([r[0] for r in raw]),
+                                np.array([r[1] for r in raw]))
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        check_recorded_hops(seen, index, mips)
+        seen.clear()
+        first = first or list(launched)
+        check_recorded_launches([x for x in launched
+                                 if x[0] != "mips_scan_int8"], mips)
+        pruned, _, _ = check_beam4_semantics(out, margin, 0.0, [], (),
+                                             mips.NEG_INF, n_real=len(qs))
+        n_pruned += pruned * len(qs) * B4
+        n_cert += int(out["pca_cert2"][:len(qs)].sum())
+        n_pca += len(qs) * B4
+        for key, val in out.items():
+            rows.setdefault(key, []).append(val[:len(qs)])
+    return ({k: np.concatenate(v) for k, v in rows.items()}, n_cert, n_pca,
+            n_pruned / n_pca, first)
+
+
+def chains(out, neg_inf):
+    """Each question's chains (hop-1 id, hop-2 id) with a finite score."""
+    return [tuple((int(a), int(b)) for a, b, s in zip(h1, h2, sc)
+                  if s > neg_inf / 2)
+            for h1, h2, sc in zip(out["hop1_ids"], out["hop2_ids"],
+                                  out["path_scores"])]
+
+
+def time_trained_kernels(launched, mips, smi):
+    """Kernels 1, 3 and 4 on the first full batch's own launches: the
+    median of P_TIMED CUDA-event launches each, beside its bound; kernel
+    4's chunk skew.  Returns {kernel: (ms, bound_ms, bound_by)}."""
+    args = {name: a for name, a, _ in launched}
+    out = {}
+    qi, qs, idx8, dsc, k, n_valid = args["mips_scan_int8"]
+    b, n = qi.shape[0], idx8.shape[0]
+    out["mips_scan_int8"] = (
+        median_ms(lambda: mips.mips_scan_int8(*args["mips_scan_int8"]),
+                  P_TIMED),
+        bound_ms(n * D + n * 4 + b * D + b * 4 + b * k * 8, 2 * b * n * D,
+                 "int8"), f"B={b}, N={n}, k={k}")
+    qp, proj, cand, n_valid = args["pca_chunk_max"]
+    b3, r = qp.shape
+    out["pca_chunk_max"] = (
+        median_ms(lambda: mips.pca_chunk_max(*args["pca_chunk_max"]),
+                  P_TIMED),
+        bound_ms(n * r * 2 + b3 * r * 2 + b3 * (n // cand) * 4,
+                 2 * b3 * n * r, "bf16"), f"B={b3}, N={n}, R={r}")
+    a = args["pca_rescan_int8"]
+    ids, q, index, cand = a[0], a[1], a[2], a[4]
+    b4, kc = ids.shape
+    # each query selects kc distinct chunks: a chunk's count is the
+    # queries that selected it
+    per_chunk = torch.bincount(ids.reshape(-1).long())
+    uniq = int((per_chunk > 0).sum())
+    out["pca_rescan_int8"] = (
+        median_ms(lambda: mips.pca_rescan_int8(*a), P_TIMED),
+        bound_ms(uniq * cand * (index.shape[1] + 4) + q.numel()
+                 + b4 * kc * 4 + b4 * kc * cand * 4,
+                 2 * b4 * kc * cand * index.shape[1], "int8"),
+        f"B={b4}, kc={kc}: {uniq} distinct chunks, at most "
+        f"{int(per_chunk.max())} queries on one (h3: 768 on one; kernel 4 "
+        f"there 0.2306 ms against a 0.0134 ms bound)")
+    for name, (ms, bnd, what) in out.items():
+        say(f"    {name} on p2's trained launches ({what}): {ms:.4f} ms "
+            f"(median of {P_TIMED}), bound {bnd[0]:.4f} ms by {bnd[1]} "
+            f"({bnd[0] / ms:.3f} of it) [{smi}]")
+    return {name: (ms, bnd[0], bnd[1]) for name, (ms, bnd, _) in out.items()}
+
+
+def train_p2_retriever(paths, stage1, lr, epochs, dev):
+    """p1's stage-1 recipe (batch 8, widths 24 / 80 / 64) at roberta-base
+    width through cli/train_retriever: its result dict."""
+    from multihop_dense_retrieval_tpu_torch.cli import train_retriever
+
+    trained, _ = train_retriever.main([
+        "--train-file", paths["mhop"], "--predict-file", paths["eval"],
+        "--output-dir", stage1, "--train-batch-size", "8",
+        "--predict-batch-size", "8", "--num-epochs", str(epochs),
+        "--learning-rate", str(lr), "--tokenizer", "hash",
+        "--model-name", "roberta-base", "--max-q-len", "24",
+        "--max-q-sp-len", "80", "--max-c-len", "64", "--device", str(dev)])
+    return trained
+
+
+def run_trained_full_width(mips, dev, smi, work, data):
+    """Leg (p2), the slice's main path at full width: p1's corpus and
+    questions, a roberta-base retriever (bf16, fp32 master weights)
+    trained through cli/train_retriever (P_EPOCHS epochs at learning rate
+    P_LR), the corpus encoded by cli/encode_corpus into an int8 index with
+    a 128-dim PCA prefilter, then the 512 questions at batch P_BATCH and
+    beam 4 (768 hop-2 queries a batch): hop 1 through kernel 1, hop 2
+    through kernels 3 + 4 (pca_hops="auto").  Unpruned, at auto and
+    auto:0.9 (pruned share, chain agreement with the unpruned engine),
+    and over P_SHARDS row shards on the card (the merged certificate is
+    the AND over shards; hop 1 bit-equal to the unsharded engine).
+    Every batch held as trained_batches says.  Returns (launch counts, the
+    first unsharded batch's kernel 1, 3 and 4 launches)."""
+    from multihop_dense_retrieval_tpu_torch.cli import common, encode_corpus
+    from multihop_dense_retrieval_tpu_torch.cli.eval_mhop_retrieval import \
+        load_searcher
+    from multihop_dense_retrieval_tpu_torch.core.config import SearchConfig
+    from multihop_dense_retrieval_tpu_torch.core.mesh import make_mesh
+
+    paths, _, rows = data
+    stage1, index_dir = f"{work}/p2_stage1", f"{work}/p2_index"
+    ckpt = f"{stage1}/checkpoint_best.pt"
+    mips.reset_launch_counts()
+    t0 = time.perf_counter()
+    trained = train_p2_retriever(paths, stage1, P_LR, P_EPOCHS, dev)
+    t1 = time.perf_counter()
+    torch.cuda.empty_cache()
+    encode_corpus.main([paths["corpus"], index_dir, "--checkpoint", ckpt,
+                        "--tokenizer", "hash", "--model-name", "roberta-base",
+                        "--batch-size", "256", "--chunk-rows", "4096",
+                        "--max-c-len", "64", "--index-dtype", "int8",
+                        "--pca-dims", "128", "--device", str(dev)])
+    t2 = time.perf_counter()
+    assert_no_launches(mips, "p2 training and encoding")
+    say(f"  p2 roberta-base retriever: train {t1 - t0:.1f} s ({P_EPOCHS} "
+        f"epochs, lr {P_LR}: best train MRR {trained['best_mrr']:.4f}, final "
+        f"loss {trained['final_loss']:.4f}), encode {t2 - t1:.1f} s "
+        f"({P_DOCS} docs, int8 + PCA 128) [{smi}]")
+
+    tok = common.resolve_tokenizer("hash")
+    model = common.init_retriever(common.resolve_encoder_config(
+        "roberta-base"), checkpoint=ckpt, device=dev)
+    questions = [r["question"][:-1] if r["question"].endswith("?")
+                 else r["question"] for r in rows]
+    cfg = SearchConfig(beam_size_1=B4, beam_size_2=B4, topk=B4,
+                       batch_size=P_BATCH, max_q_len=24, max_q_sp_len=80,
+                       chunk_rows=4096, hop2_buckets=(32, 48, 64, 80),
+                       hop2_tile_fracs=(0.25, 0.375, 0.25, 0.125),
+                       use_pca=True, pca_hops="auto")
+    engine = load_searcher(index_dir, tok, model, cfg, dev)
+    index = engine.index
+    counts = {}
+    t3 = time.perf_counter()
+    mips.reset_launch_counts()
+    base, cert, n_pca, _, first = trained_batches(engine, tok, questions,
+                                                  index, mips)
+    counts["trained_p2"] = leg_counts(mips)
+    launched = {k: counts["trained_p2"][k] for k in mips.LAUNCHES}
+    assert all(launched[k] > 0 for k in ("mips_scan_int8", "pca_chunk_max",
+                                         "pca_rescan_int8")) and not any(
+        n for k, n in launched.items() if k not in (
+            "mips_scan_int8", "pca_chunk_max", "pca_rescan_int8")), launched
+    say(f"  p2 unpruned: {n_pca} hop-2 queries of {len(questions)} "
+        f"questions, {cert} certified ({cert / n_pca:.4f}); hop 1 = exact "
+        f"scan, hop-2 scores = "
+        f"rescan-order products, certified = exact top-1, kernels 3/4 = "
+        f"plain; {time.perf_counter() - t3:.1f} s; launches "
+        f"{json.dumps(counts['trained_p2'])} [{smi}]")
+    ref = jax_record("prune_sweep_r5.json")
+    base_chains = chains(base, mips.NEG_INF)
+    for name, margin in (("auto", -0.5), ("auto:0.9", -0.9)):
+        eng = load_searcher(index_dir, tok, model, dataclasses.replace(
+            cfg, hop2_prune_margin=margin), dev)
+        out, _, _, pruned, _ = trained_batches(eng, tok, questions, index,
+                                               mips, margin)
+        agree = float(np.mean([a == b for a, b in zip(
+            chains(out, mips.NEG_INF), base_chains)]))
+        jax = ref[f"margin_auto_injit_q{-margin}"]
+        say(f"  p2 {name}: pruned share {pruned:.4f}, chain agreement with "
+            f"the unpruned engine {agree:.4f} (JAX mini on TPU: "
+            f"{jax['pruned_frac']} / {jax['chain_agreement']}) [{smi}]")
+        del eng
+
+    mesh = make_mesh(index=P_SHARDS, devices=shard_devices(dev, P_SHARDS))
+    sharded = load_searcher(index_dir, tok, model, cfg, dev, mesh=mesh)
+    mips.reset_launch_counts()
+    got, cert_s, n_s, _, _ = trained_batches(sharded, tok, questions, index,
+                                             mips)
+    counts["trained_p2_shards"] = leg_counts(mips)
+    # hop 1 is the beam's candidates; a chain's hop-1 id follows hop 2,
+    # whose uncertified rows may differ over shards
+    for key in ("hop1_cand_ids", "hop1_cand_scores"):
+        assert np.array_equal(got[key], base[key]), \
+            f"p2 over {P_SHARDS} shards: {key} differ from the unsharded"
+    say(f"  p2 over {P_SHARDS} row shards on {dev}: hop 1 bit-equal to the "
+        f"unsharded engine; {cert_s} of {n_s} hop-2 queries certified "
+        f"({cert_s / n_s:.4f}; unsharded {cert / n_pca:.4f}; random weights "
+        f"n1: 0 of 192); launches {json.dumps(counts['trained_p2_shards'])} "
+        f"[{smi}]")
+    return counts, first
+
+
+def run_fidelity(mips, dev, smi, work):
+    """Leg (p3): fidelity_trained_torch at its defaults (the mini reader,
+    offsets 64-448, 40 questions an offset) but P3_EPOCHS epochs: the
+    one-stage read, the (rank width x offset) matrix and bf16-vs-fp32
+    agreement beside docs/fidelity_r5.json.  No MIPS kernel runs (the
+    reader reads on the xla attention)."""
+    fs = load_script("fidelity_trained_torch")
+    mips.reset_launch_counts()
+    t0 = time.perf_counter()
+    with scoped_env(FIDELITY_OUT=f"{work}/p3.json", FIDELITY_DEVICE=str(dev),
+                    FIDELITY_EPOCHS=str(P3_EPOCHS)):
+        res = fs.main()
+    counts = assert_no_launches(mips, "p3")
+    ref = jax_record("fidelity_r5.json")
+    say(f"  p3 fidelity_trained_torch: {time.perf_counter() - t0:.1f} s; "
+        f"{res['n_questions']} questions [{smi}]")
+    offs = [str(o) for o in res["offsets"]]
+    say("    one-stage chain_em / em: " + ", ".join(
+        f"{o}: {res['one_stage'][o]['chain_em']:.3f}/"
+        f"{res['one_stage'][o]['em']:.3f} (JAX "
+        f"{ref['one_stage'][o]['chain_em']}/{ref['one_stage'][o]['em']})"
+        for o in offs))
+    for tag, row in res["matrix"].items():
+        say(f"    {tag} agreement: " + ", ".join(
+            f"{o}: {row[o]['agreement']:.3f} (JAX "
+            f"{ref['matrix'][tag][o]['agreement']})" for o in offs))
+    say("    bf16 scores agreement: " + ", ".join(
+        f"{o}: {res['bf16_scores'][o]} (JAX {ref['bf16_scores'][o]})"
+        for o in offs))
+    return counts
+
+
+# p1 and p3 run in processes of their own beside p2, whose host work they
+# overlap: each writes its lines to a log, which the parent echoes, and
+# ends with "P_RESULT <its launch counts as JSON>"
+P_CHILD = r"""
+import importlib, json, sys
+import torch
+import chip_smoke as cs
+from multihop_dense_retrieval_tpu_torch.ops import mips
+cs.track_routes(mips, importlib.import_module(
+    "multihop_dense_retrieval_tpu_torch.ops.fused_attention"))
+name, work, smi, consts = sys.argv[1:5]
+for key, val in json.loads(consts).items():
+    setattr(cs, key, val)
+out = getattr(cs, name)(mips, torch.device("cuda", 0), smi, work)
+print("P_RESULT " + json.dumps(out), flush=True)
+"""
+P_CONSTS, P_SUB_TIMEOUT = ("P_DOCS", "P_KEYS", "P_Q", "P3_EPOCHS"), 900
+
+
+def p1_sub_leg(mips, dev, smi, work):
+    os.makedirs(f"{work}/p1")
+    return {"trained_p1": run_prune_sweep(load_script("prune_sweep_torch"),
+                                          mips, dev, smi, f"{work}/p1")}
+
+
+def p3_sub_leg(mips, dev, smi, work):
+    return {"trained_p3": run_fidelity(mips, dev, smi, work)}
+
+
+def start_sub_leg(name, smi, work):
+    """Start the sub-leg function ``name`` in a process of its own, with
+    this process's leg-p constants; its output goes to work/<name>.log."""
+    consts = json.dumps({k: globals()[k] for k in P_CONSTS})
+    with open(f"{work}/{name}.log", "w") as log:
+        return subprocess.Popen(
+            [sys.executable, "-c", P_CHILD, name, work, smi, consts],
+            cwd=Path(__file__).resolve().parent, stdout=log,
+            stderr=subprocess.STDOUT, text=True)
+
+
+def join_sub_leg(proc, name, work):
+    """Wait for a sub-leg's process, echo its own lines (the indented ones
+    and the scripts' stage seconds); fail with its log's tail if it
+    failed.  Returns its launch counts."""
+    proc.wait(timeout=P_SUB_TIMEOUT)
+    lines = Path(f"{work}/{name}.log").read_text().splitlines()
+    assert proc.returncode == 0, \
+        f"{name} exited {proc.returncode}:\n" + "\n".join(lines[-40:])
+    for line in lines:
+        if line.startswith(("  ", "== trained", "== encoded", "== measured")):
+            say(line[:2000])
+    (res,) = [x for x in lines if x.startswith("P_RESULT ")]
+    return json.loads(res[len("P_RESULT "):])
+
+
+def run_trained_weights(mips, dev, smi, tmp):
+    """Leg (p): the trained-weight measurements (p1 the JAX script's own
+    scale, p2 the full-width main path, p3 the reader's fidelity).  p1
+    and p3 run in processes of their own while p2 runs here; kernels 1,
+    3 and 4 are timed on p2's launches once they have ended.  Returns
+    each sub-leg's launch counts."""
+    t0 = time.perf_counter()
+    ps = load_script("prune_sweep_torch")
+    os.makedirs(f"{tmp}/p2")
+    data = ps.make_data(f"{tmp}/p2", np.random.RandomState(0), n_docs=P_DOCS,
+                        n_train=P_Q, n_key_docs=P_KEYS)
+    subs = {}
+    try:
+        for name in ("p1_sub_leg", "p3_sub_leg"):
+            subs[name] = start_sub_leg(name, smi, tmp)
+        out, launched = run_trained_full_width(mips, dev, smi, f"{tmp}/p2",
+                                               data)
+        for name, proc in subs.items():
+            out.update(join_sub_leg(proc, name, tmp))
+    finally:
+        for proc in subs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    times = time_trained_kernels(launched, mips, smi)
+    say("  leg p kernels: " + json.dumps({
+        leg: {k: n for k, n in c.items() if k != "routes" and n}
+        for leg, c in out.items()} | {"p2_times_ms": {
+            k: {"ms": ms, "bound_ms": b, "bound_by": by}
+            for k, (ms, b, by) in times.items()}}))
+    say(f"  leg p: {time.perf_counter() - t0:.1f} s [{smi}]")
+    return out
+
+
 def write_corpus(path, rng):
     """N_DOCS passages as JSONL: a two-word title and a text of
     synth_doc_lens words (20-300); the hash tokenizer maps each word to
@@ -4464,7 +4954,8 @@ MMA_LEGS = ("int8", "int8_two_phase", "fused_serving", "bf16", "fever_c1",
             "fever_c2", "qa_serving", "qa_end2end", "bulk_l1_exact",
             "bulk_l1_pca", "bulk_l2_exact", "bulk_l2_pca", "bulk_l3_bf16",
             "bulk_l3_int8", "sharded_int8", "sharded_two_phase",
-            "sharded_c1", "sharded_c2") + tuple(
+            "sharded_c1", "sharded_c2", "trained_p1", "trained_p2",
+            "trained_p2_shards") + tuple(
                 f"beam4_{name}" for name, *_ in H_ENGINES)
 MMA_KERNELS = ("mips_scan_int8", "mips_scan", "pca_chunk_max",
                "chunk_max_int8", "pca_rescan_int8", "rescan")

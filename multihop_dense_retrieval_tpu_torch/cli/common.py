@@ -26,7 +26,7 @@ from ..core.device import process_index, resolve_device, world
 from ..core.mesh import Mesh, local_devices, make_mesh, pod_devices
 from ..data.tokenization import HashTokenizer, HFTokenizer
 from ..models import (MhopRetriever, QAReader, UnifiedRetriever,
-                      unified_state_dict_from_reference)
+                      reference_init_, unified_state_dict_from_reference)
 
 
 def setup_logging(output_dir: Optional[str] = None) -> logging.Logger:
@@ -287,8 +287,9 @@ def init_retriever(config: EncoderConfig, *, unified: bool = False,
                    checkpoint: str = "", seed: int = 0, device=None,
                    fp32_params: bool = False, remat: bool = False):
     """The retriever in eval mode on ``device`` (``cuda`` unless named):
-    loaded from ``checkpoint``, or random weights from ``seed`` without one
-    (the caller's global RNG state is left as it was).  The last layer
+    loaded from ``checkpoint``, or random weights from ``seed`` without one,
+    drawn from the JAX package's initialisers (``reference_init_``; the
+    caller's global RNG state is left as it was).  The last layer
     computes the CLS position only (``cls_only``; a loss reads only the
     CLS vector, so training's gradients are the same).  ``unified``: a
     ``UnifiedRetriever``, whose head layout a reference checkpoint decides
@@ -311,15 +312,15 @@ def init_retriever(config: EncoderConfig, *, unified: bool = False,
         with torch.random.fork_rng(devices=devices):
             torch.manual_seed(seed)
             with dev:
-                model = UnifiedRetriever(config, cls_only=True,
-                                         fp32_params=fp32_params, **kw)
+                model = reference_init_(UnifiedRetriever(
+                    config, cls_only=True, fp32_params=fp32_params, **kw))
         if sd is not None:
             model.load_state_dict(sd)
         return model.eval()
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        model = MhopRetriever(config, cls_only=True, fp32_params=fp32_params,
-                              remat=remat)
+        model = reference_init_(MhopRetriever(
+            config, cls_only=True, fp32_params=fp32_params, remat=remat))
     if checkpoint:
         model.load_state_dict(load_retriever_params(checkpoint))
     return model.to(dev).eval()
@@ -331,8 +332,9 @@ def init_reader(model_name: str, checkpoint: str = "", sp_pred: bool = True,
                 train: bool = False):
     """(config, QAReader on ``device``, ``cuda`` unless named): loaded
     from a reference ``QAModel`` ``.pt``, or random weights from ``seed``
-    made on the device itself without one (the caller's RNG state is left
-    as it was).  ``scores_dtype`` is the attention scores' dtype; the
+    made on the device itself without one, drawn from the JAX package's
+    initialisers (``reference_init_``; the caller's RNG state is left as
+    it was).  ``scores_dtype`` is the attention scores' dtype; the
     serving CLIs default to bf16.  In eval mode, or in train mode with
     ``train``; the reader trainer asks for ``fp32_params`` (fp32 master
     weights) and may ask for ``remat``.  Orbax directories raise, as in
@@ -347,8 +349,8 @@ def init_reader(model_name: str, checkpoint: str = "", sp_pred: bool = True,
     with torch.random.fork_rng(devices=devices):
         torch.manual_seed(seed)
         with dev:
-            model = QAReader(cfg, sp_pred=sp_pred, fp32_params=fp32_params,
-                             remat=remat)
+            model = reference_init_(QAReader(
+                cfg, sp_pred=sp_pred, fp32_params=fp32_params, remat=remat))
     if checkpoint:
         model.load_state_dict(load_retriever_params(checkpoint))
     return cfg, model.train(train)

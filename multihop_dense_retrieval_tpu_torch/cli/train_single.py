@@ -30,7 +30,7 @@ from ..core.config import RetrieverTrainConfig
 from ..core.device import resolve_device
 from ..data import BatchLoader
 from ..data.sp_datasets import SPDataset, sp_collate
-from ..models import SingleRetriever
+from ..models import SingleRetriever, reference_init_
 from ..train import trainer as T
 from . import common
 
@@ -74,8 +74,8 @@ def main(argv=None):
     tok = common.resolve_tokenizer(args.tokenizer)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(args.seed)
-        model = SingleRetriever(enc_cfg, shared=not args.separate_encoders,
-                                fp32_params=True)
+        model = reference_init_(SingleRetriever(
+            enc_cfg, shared=not args.separate_encoders, fp32_params=True))
     if args.init_checkpoint:
         # the checkpoint holds one tower (encoder, project): loaded over the
         # seeded weights, and with --separate-encoders the question tower

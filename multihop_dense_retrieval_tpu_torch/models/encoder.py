@@ -118,6 +118,36 @@ def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
     return (xf - mean) * mul + ln.bias.float()
 
 
+# Flax's truncated normal draws from [-2, 2] and divides the scale by this
+# factor, the std of a unit normal truncated there
+_TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def reference_init_(model: nn.Module) -> nn.Module:
+    """Draw ``model``'s weights (in place, from torch's global RNG) from the
+    JAX package's initialisers, Flax's defaults: a Linear weight from a
+    normal truncated at 2 std of std 1/sqrt(fan_in) (``lecun_normal``), an
+    Embedding from a normal of std 1/sqrt(width), every bias 0, every
+    LayerNorm 1 and 0.  PyTorch's own defaults (uniform Linear weights and
+    biases, N(0, 1) embeddings) train otherwise: Adam moves every weight
+    by about the learning rate a step, and an N(0, 1) embedding is 8x the
+    JAX package's at width 64, so at the JAX reader recipe's learning rate
+    it barely moves."""
+    for mod in model.modules():
+        if isinstance(mod, nn.Linear):
+            std = mod.in_features ** -0.5 / _TRUNC_STD
+            nn.init.trunc_normal_(mod.weight, std=std, a=-2 * std, b=2 * std)
+            if mod.bias is not None:
+                nn.init.zeros_(mod.bias)
+        elif isinstance(mod, nn.Embedding):
+            nn.init.normal_(mod.weight, std=mod.embedding_dim ** -0.5)
+        elif isinstance(mod, nn.LayerNorm):
+            nn.init.ones_(mod.weight)
+            nn.init.zeros_(mod.bias)
+    return model
+
+
 def roberta_position_ids(input_ids: torch.Tensor, pad_id: int) -> torch.Tensor:
     mask = (input_ids != pad_id).to(torch.int64)
     return torch.cumsum(mask, dim=1) * mask + pad_id

@@ -23,8 +23,16 @@ JAX_PKG = "multihop_dense_retrieval_tpu"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "regex", JAX_PKG}
 # importable only inside a function, behind options no card path takes
 LAZY = {"transformers", "tqdm"}
+# the port's scripts in scripts_dev/: what they return (or raise) without
+# a card
+SCRIPTS = {"scripts_dev/prune_sweep_torch.py": "CUDA is not available",
+           "scripts_dev/fidelity_trained_torch.py": "CUDA is not available",
+           "scripts_dev/trained_weights.py": 2,
+           "scripts_dev/parallel_training.py": 2,
+           "scripts_dev/kernel_variants.py": 2}
 SOURCES = sorted([str(p.relative_to(ROOT)) for p in (ROOT / PORT).rglob("*.py")]
-                 + ["chip_smoke.py", "examples/quickstart_torch.py"])
+                 + ["chip_smoke.py", "examples/quickstart_torch.py"]
+                 + list(SCRIPTS))
 
 
 def _port_modules():
@@ -72,6 +80,40 @@ print(json.dumps(loaded))
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-3000:]
     assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
+def test_scripts_import_nothing_of_jax_and_need_the_card():
+    """Each of the port's scripts in scripts_dev/, loaded and run in a
+    process where JAX and the JAX package cannot be imported and no card
+    is visible: it loads, and its main() raises "CUDA is not available"
+    (the two trained-weight scripts, whose device defaults to cuda) or
+    returns 2 having run nothing; no JAX module is ever loaded."""
+    code = f"""
+import importlib.util, json, sys
+for name in {sorted(FORBIDDEN)!r}:
+    sys.modules[name] = None
+out = {{}}
+for path in {sorted(SCRIPTS)!r}:
+    spec = importlib.util.spec_from_file_location(
+        path.split("/")[-1][:-3], path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    sys.argv = [path]
+    try:
+        out[path] = mod.main()
+    except RuntimeError as e:
+        out[path] = str(e).split(";")[0]
+loaded = sorted(m for m in sys.modules if sys.modules[m] is not None and
+                m.split(".")[0] in {sorted(FORBIDDEN)!r})
+print(json.dumps([out, loaded]))
+"""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env.pop("PYTHONPATH", None)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
+    out, loaded = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out == SCRIPTS and loaded == []
 
 
 def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch,

@@ -274,6 +274,58 @@ def test_tp_step_gradients_match_unsharded():
                                  1e-3)).all(), k
 
 
+@pytest.fixture
+def one_torch_thread():
+    """The port's side on one intra-op thread (see
+    tests/test_torch_prune_sweep.py::one_torch_thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_tp_bf16_loss_lies_from_the_unsharded_step_as_jax_s_does(
+        one_torch_thread):
+    """bf16 compute (fp32 master weights), the (data 2, index 4) TP step
+    against the unsharded step, in each package from the same weights and
+    ragged batches (4 seeds): the relative distance of the TP step's loss
+    from its own package's unsharded loss.  The port adds each shard's
+    bf16 partial product in fp32, then rounds once
+    (``models/encoder.py::row_parallel``); XLA reduces the partials in the
+    dot's dtype.  Either way the distance is bf16 rounding noise: the
+    port's mean distance must stay within twice JAX's, and within twice
+    the distance between the two packages' own unsharded bf16 losses
+    (all three printed)."""
+    kw = dict(TP_KW, dtype="bfloat16")
+    jmodel = JaxMhop(JaxEncoderConfig.tiny(**kw))
+    tx = JT.make_optimizer(JaxTrainConfig(warmup_ratio=0.0, learning_rate=LR),
+                           10)
+    plain_step = JT.make_train_step(jmodel, tx)
+    tp_step = JT.make_train_step(jmodel, tx, mesh=jax_mesh(data=2, index=4),
+                                 tensor_parallel=True)
+    jax_d, port_d, across = [], [], []
+    for seed in range(4):
+        batch = _mhop_batch(seed, b=8)
+        host = jax.device_get(jmodel.init(jax.random.PRNGKey(seed),
+                                          _j(batch)))
+        losses = [float(step(JT.TrainState.create(jax.device_put(host), tx),
+                             _j(batch))[1])
+                  for step in (plain_step, tp_step)]
+        base = MhopRetriever(EncoderConfig.tiny(**kw), fp32_params=True)
+        base.load_state_dict(retriever_state_dict_from_jax(host))
+        lp, _, _ = _tp_run(base, batch, None)
+        lt, _, _ = _tp_run(base, batch, _cpu_mesh(2, 4))
+        assert np.isfinite([lp, lt] + losses).all()
+        jax_d.append(abs(losses[1] - losses[0]) / abs(losses[0]))
+        port_d.append(abs(lt - lp) / abs(lp))
+        across.append(abs(lp - losses[0]) / abs(losses[0]))
+    print(f"TP bf16 mean relative loss distance over 4 seeds: port "
+          f"{np.mean(port_d):.4g}, JAX {np.mean(jax_d):.4g}; the packages' "
+          f"unsharded losses {np.mean(across):.4g} apart")
+    assert 0 < np.mean(port_d) <= 2 * np.mean(jax_d), (port_d, jax_d)
+    assert np.mean(port_d) <= 2 * np.mean(across), (port_d, across)
+
+
 def test_tp_model_reference_state_dict_is_bit_equal():
     """After a TP step, the model's reference layout (the checkpoint
     files' ``reference_state_dict``) joins the blocks back bit for bit,
