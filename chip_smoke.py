@@ -345,8 +345,9 @@ O_WARM, O_ITERS, O_ROWS, O_LOSS_TOL = 2, 8, 64, 5e-3
 # docs, key docs, questions); p2's roberta-base training (epochs, learning
 # rate), its batch (h3's 768 hop-2 queries at beam 4), its row shards, and
 # the CUDA-event launches timed per kernel; p3's reader epochs (the
-# script's FIDELITY_EPOCHS, default 6: at 6 the port's seeded reader had
-# not yet learnt to rank the evidence, answer EM 0.343; at 12 it has, 0.839)
+# script's FIDELITY_EPOCHS, default 6: whether a reader clears the
+# script's EM 0.5 by then depends on the run's start, in either package,
+# PERF.md §6; at 12 the seed-42 reader cleared it in every run on the card)
 P_DOCS, P_KEYS, P_Q, P3_EPOCHS = 65536, 1024, 512, 12
 P_EPOCHS, P_LR, P_BATCH, P_SHARDS, P_TIMED = 3, "2e-5", 192, 4, 20
 # leg l (single-hop bulk retrieval): questions, and cli/eval_retrieval's
@@ -3526,13 +3527,11 @@ import chip_smoke as cs
 from multihop_dense_retrieval_tpu_torch.ops import mips
 cs.track_routes(mips, importlib.import_module(
     "multihop_dense_retrieval_tpu_torch.ops.fused_attention"))
-name, work, smi, consts = sys.argv[1:5]
-for key, val in json.loads(consts).items():
-    setattr(cs, key, val)
+name, work, smi = sys.argv[1:4]
 out = getattr(cs, name)(mips, torch.device("cuda", 0), smi, work)
 print("P_RESULT " + json.dumps(out), flush=True)
 """
-P_CONSTS, P_SUB_TIMEOUT = ("P_DOCS", "P_KEYS", "P_Q", "P3_EPOCHS"), 900
+P_SUB_TIMEOUT = 900
 
 
 def p1_sub_leg(mips, dev, smi, work):
@@ -3546,12 +3545,11 @@ def p3_sub_leg(mips, dev, smi, work):
 
 
 def start_sub_leg(name, smi, work):
-    """Start the sub-leg function ``name`` in a process of its own, with
-    this process's leg-p constants; its output goes to work/<name>.log."""
-    consts = json.dumps({k: globals()[k] for k in P_CONSTS})
+    """Start the sub-leg function ``name`` in a process of its own; its
+    output goes to work/<name>.log."""
     with open(f"{work}/{name}.log", "w") as log:
         return subprocess.Popen(
-            [sys.executable, "-c", P_CHILD, name, work, smi, consts],
+            [sys.executable, "-c", P_CHILD, name, work, smi],
             cwd=Path(__file__).resolve().parent, stdout=log,
             stderr=subprocess.STDOUT, text=True)
 

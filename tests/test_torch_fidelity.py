@@ -159,3 +159,97 @@ def test_seeded_weights_draw_from_the_jax_initialisers(arch):
         elif e.numel() >= 1000:
             ratio = g.std().item() / e.float().std().item()
             assert 0.9 <= ratio <= 1.1, (name, ratio)
+
+
+def test_reader_training_tracks_jax_step_by_step(tmp_path, monkeypatch):
+    """The fidelity script's training recipe (``cli/train_qa``: lr 2e-3,
+    no warmup, batch 8, 4 negatives, 4 answer slots, 8 sentences) in both
+    packages from one set of initial weights (a seeded ``tiny`` reader
+    made by JAX, exported to ``.pt``, which both CLIs read with
+    ``--checkpoint``), on the script's rows at offsets 64 and 128 (so 256
+    tokens hold the chains), 8 questions each: the same loss at every
+    step of an epoch (10 steps), each within 1e-4 relative of JAX's.
+    fp32 rounding makes the two runs drift apart step by step, as two
+    runs of either package on different hardware would, but no step may
+    take a different update: the port trains as JAX does."""
+    from multihop_dense_retrieval_tpu.train import qa as jqa
+    from multihop_dense_retrieval_tpu_torch.train import qa as tqa
+
+    rng = np.random.RandomState(0)
+    offsets = (64, 128)
+    rows = [r for off in offsets
+            for r in PF.make_qa_rows(rng, NQ, off, qid_prefix="t")]
+    rng.shuffle(rows)
+    PF.write_jsonl(str(tmp_path / "train.jsonl"), rows)
+    PF.write_jsonl(str(tmp_path / "eval.jsonl"), [
+        r for off in offsets for r in PF.make_qa_rows(
+            np.random.RandomState(1), 2, off, qid_prefix="e",
+            key_prefix="t", ans_shift=13)])
+    _, _, params = jtrain_qa.init_reader(MODEL, "", True, seed=3)
+    jckpt.save_pytree(str(tmp_path / "init"), params)
+    jexport.main(["--checkpoint", str(tmp_path / "init"), "--arch",
+                  "reader", "--out", str(tmp_path / "init.pt")])
+    argv = ["--train-file", str(tmp_path / "train.jsonl"),
+            "--predict-file", str(tmp_path / "eval.jsonl"),
+            "--checkpoint", str(tmp_path / "init.pt"),
+            "--tokenizer", "hash", "--model-name", MODEL,
+            "--batch-size", "8", "--predict-batch-size", "32",
+            "--num-epochs", "1", "--learning-rate", "2e-3",
+            "--max-seq-len", "256", "--max-q-len", "16",
+            "--num-answer-slots", "4", "--max-sents", "8", "--neg-num", "4",
+            "--max-ans-len", "4", "--warmup-ratio", "0.0"]
+    losses = {}
+    for name, qa, cli, extra in (("jax", jqa, jtrain_qa, []),
+                                 ("port", tqa, ttrain_qa,
+                                  ["--device", "cpu"])):
+        make = qa.make_qa_train_step
+        seen = losses[name] = []
+
+        def recording(*a, make=make, seen=seen, **kw):
+            step = make(*a, **kw)
+
+            def run(state, batch):
+                state, loss = step(state, batch)
+                seen.append(float(loss))
+                return state, loss
+
+            return run
+
+        monkeypatch.setattr(qa, "make_qa_train_step", recording)
+        cli.main(argv + extra)
+    assert len(losses["jax"]) == len(losses["port"]) == 10
+    np.testing.assert_allclose(losses["port"], losses["jax"], rtol=1e-4)
+
+
+def test_two_stage_read_keeping_every_chain_is_the_one_stage_read():
+    """``eval/qa_eval.py::predict``'s two-stage read with the
+    length-bucketed rank pass (``rank_width=None``) and ``rank_topm=9``
+    keeps all 9 chains of every fidelity question, so it must give the
+    one-stage read's answers and chain EM exactly: a disagreement of the
+    bucketed pass at ``rank_topm=5`` is then the ranker's, not predict's.
+    A seeded ``tiny`` reader (kernels scaled by WIDEN) on the script's
+    eval rows at 2 offsets, 4 questions each."""
+    from multihop_dense_retrieval_tpu_torch.cli import common
+    from multihop_dense_retrieval_tpu_torch.data.qa_dataset import QADataset
+    from multihop_dense_retrieval_tpu_torch.eval.qa_eval import predict
+    from multihop_dense_retrieval_tpu_torch.train import qa as tqa
+
+    cfg, model = common.init_reader(MODEL, seed=3, device="cpu")
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.dim() == 2 and "embeddings" not in name:
+                p.mul_(WIDEN)
+    tok = common.resolve_reader_tokenizer("hash", cfg)
+    rows = [r for off in OFFSETS for r in PF.make_qa_rows(
+        np.random.RandomState(1), NQ // 2, off, qid_prefix="e",
+        key_prefix="t", ans_shift=13)]
+    ds = QADataset(tok, rows, max_seq_len=PF.MAX_SEQ, max_q_len=16,
+                   num_answer_slots=4, max_sents=8, train=False)
+    pred = tqa.make_qa_predict_step(model, max_ans_len=4)
+    one = predict(pred, ds, batch_size=8)
+    every = predict(pred, ds, batch_size=8,
+                    rank_step=tqa.make_qa_rank_step(model), rank_topm=9,
+                    rank_width=None)
+    assert every["best"]["answers"] == one["best"]["answers"]
+    assert every["chain_em"] == one["chain_em"]
+    assert len(set(one["best"]["answers"].values())) > 1

@@ -128,10 +128,11 @@ def _recorded(mp, cls):
     return seen
 
 
-def _sweeps(tmp, dtype):
+def _sweeps(tmp, dtype, jax_sweep=True):
     """Both packages' sweeps over one JAX-made mini retriever and one JAX
     index directory: (JAX results, port results, the chains of every JAX
-    search, those of every port search)."""
+    search, those of every port search); without ``jax_sweep`` the port's
+    alone (None and [] for JAX's)."""
     with pytest.MonkeyPatch.context() as mp:
         if dtype == "float32":
             for mod in (jcommon, tcommon):
@@ -140,8 +141,9 @@ def _sweeps(tmp, dtype):
                            lambda dtype=None, f=mini: f(dtype="float32"))
         mp.setattr(jconfig, "SearchConfig", functools.partial(
             jconfig.SearchConfig, use_pallas=False))
+        sides = (("jax", JS), ("port", PS)) if jax_sweep else (("port", PS),)
         data = {}
-        for name, mod in (("jax", JS), ("port", PS)):
+        for name, mod in sides:
             (tmp / name).mkdir()
             data[name] = mod.make_data(str(tmp / name),
                                        np.random.RandomState(0),
@@ -158,7 +160,8 @@ def _sweeps(tmp, dtype):
                       "--arch", "mhop",
                       "--out", str(pstage / "checkpoint_best.pt")])
         index_dir = str(tmp / "index")
-        jencode.main([data["jax"][0]["corpus"], index_dir, "--checkpoint",
+        jencode.main([data[sides[0][0]][0]["corpus"], index_dir,
+                      "--checkpoint",
                       str(jstage / "checkpoint_best"), "--tokenizer", "hash",
                       "--model-name", "mini", "--batch-size", "64",
                       "--chunk-rows", str(N_DOCS), "--max-c-len", "64"]
@@ -169,6 +172,8 @@ def _sweeps(tmp, dtype):
         res = {}
         for name, mod, stage, kw in (("jax", JS, jstage, {}),
                                      ("port", PS, pstage, {"device": "cpu"})):
+            if name not in data:
+                continue
             paths, docs, rows = data[name]
             mp.setenv("PRUNE_OUT", str(tmp / f"{name}.json"))
             res[name] = mod._sweep(str(tmp / name), paths, docs, rows,
@@ -176,7 +181,7 @@ def _sweeps(tmp, dtype):
                                    N_DOCS, N_TRAIN, **kw)
             assert json.loads((tmp / f"{name}.json").read_text()) == \
                 res[name]
-    return res["jax"], res["port"], seen["jax"], seen["port"]
+    return res.get("jax"), res["port"], seen["jax"], seen["port"]
 
 
 @pytest.fixture(scope="module")
