@@ -62,13 +62,13 @@ Phases (each prints a line and flushes; any failure exits non-zero):
                   1e-5; the worst relative difference is printed).
                c. FEVER: cli/eval_mhop_fever.main over an index directory
                   (262,144 bf16 rows + PCA, token store, id2doc.json) with
-                  500 claims, beam 2 / 20, batch 100, run twice: c1 exact
+                  200 claims, beam 2 / 20, batch 100, run twice: c1 exact
                   (hop 2 through kernels 6 + 5), c2 --pca (kernels 3 + 5).
                   Every MIPS call is held against the plain exact scan
                   (rtol 1e-5; hop 1's worst relative difference printed);
                   c2 must certify some hop-2 queries.  Each run's batches
                   are timed and its last batch profiled.
-               e. corpus encoding: 32,768 wiki-like passages (JSONL,
+               e. corpus encoding: 8,192 wiki-like passages (JSONL,
                   20-300 words), max_c_len 300, batch 256, length sort.
                   e1: index.build.build_index with a fused retriever
                   (int8, PCA R=128): kernel 8 once a layer for every
@@ -158,14 +158,14 @@ Phases (each prints a line and flushes; any failure exits non-zero):
                   cli/export_ckpt --arch mhop of j3's stage-1 checkpoint
                   serves its vectors bit for bit.
                l. single-hop bulk retrieval: cli/eval_retrieval.main at
-                  its defaults (batch 256, top 100, max_q_len 50), 1,024
+                  its defaults (batch 256, top 100, max_q_len 50), 512
                   questions whose own vectors (twice over) are planted
-                  with DenseIndex.replace over 1,024 documents whose
+                  with DenseIndex.replace over 512 documents whose
                   titles are the gold answers and SP titles: recall@k
                   1.0 at every k.  l1 over leg c's directory (262,144
                   bf16 rows): exact (kernels 6 + 5: 2048-row chunks, kc
-                  = 100) and --pca (3 + 5); l2 over leg e2's (32,768 int8
-                  rows): exact (7 + 4: 16 chunks, every query on every
+                  = 100) and --pca (3 + 5); l2 over leg e2's (8,192 int8
+                  rows): exact (7 + 4: 4 chunks, every query on every
                   chunk) and --pca (3 + 4); l3 --topk 5 over both
                   (kernels 2, 1).  Each run's launch counts, its q/s,
                   every kernel on its tensor-core template, and every
@@ -230,16 +230,26 @@ Phases (each prints a line and flushes; any failure exits non-zero):
                   tensor-parallel step (index 2: 6 heads and 1,536 FFN
                   columns a shard) as o1, and by tests/test_parallel.py's
                   criteria.  o4: cli/train_retriever, train_momentum and
-                  train_single with --data-parallel 2, 64 rows each at
+                  train_single with --data-parallel 2, 32 rows each at
                   roberta-base; each checkpoint strict-loads back.  o5:
                   o1's bf16 step in 2 processes through run_processes (one
                   entry each: gloo on the shared card, NCCL on two),
-                  held to the single-process data-2 step.
+                  held to o1's single-process data-2 step.  o6: o3's
+                  tensor-parallel step in 2 processes through
+                  run_processes, one index shard each (the row-parallel
+                  sums and the column input's gradient gathered over the
+                  index group: gloo on the shared card, NCCL on two),
+                  held to o3's single-process index-2 steps: j0's fp32
+                  model by j0's criteria, roberta-base bf16 in units of
+                  n; ms a step of the bf16 step at j1's batch.  o5 and
+                  o6 share one pod of 2 processes (its seconds printed).
                p. trained weights (scripts_dev/prune_sweep_torch.py and
                   fidelity_trained_torch.py; each sub-leg prints its
                   seconds per stage; p1 and p3 run in processes of their
-                  own beside p2, each with its own launch counts, and
-                  kernels 1, 3 and 4 are timed after both have ended).  p1: the prune sweep at its
+                  own, started once leg o's throughput runs are done,
+                  beside the rest of leg o and p2, each with its own launch
+                  counts, and kernels 1, 3 and 4 are timed after both
+                  have ended).  p1: the prune sweep at its
                   defaults (make_data's 65,536 docs, 1,024 key docs, 512
                   questions; the mini retriever trained 8 epochs through
                   cli/train_retriever; a bf16 index; beam 4, batch 16):
@@ -261,8 +271,9 @@ Phases (each prints a line and flushes; any failure exits non-zero):
                   scans, every kernel 3 / 4 launch to its plain version,
                   hop 1 over the shards bit-equal to the unsharded
                   engine.  p3: the fidelity script at its defaults (mini
-                  reader, offsets 64-448, 40 questions each; no MIPS
-                  kernel) but P3_EPOCHS epochs: the matrix and bf16
+                  reader, offsets 64-448; no MIPS kernel) but P3_EPOCHS
+                  epochs and P3_NQ_EVAL eval questions an offset (24 of
+                  its 40): the matrix and bf16
                   agreement beside docs/fidelity_r5.json.
   4. result  — one JSON line of kernel records, the card's name and power
                limit, and the final {"ok": true, ...} line.
@@ -301,19 +312,19 @@ VOCAB, TEXT_LEN, Q_LEN, QSP_LEN = 50265, 300, 40, 350
 # 512 rows) and the int8 engine leg (hop 2 of batch 192 x beam 2)
 FEVER_BATCH = 100
 B_F, N_F, C_F, K_F, KC_PCA_F = 2 * FEVER_BATCH, 1 << 18, 2048, 20, 16
-N_CLAIMS, CLAIM_LEN = 500, 45
+N_CLAIMS, CLAIM_LEN = 200, 45
 B_I8, C_I8 = 2 * B, 2048
 # kernel 8 (fused attention): roberta-base's 12 heads of 64; the corpus
 # encoding leg (e) encodes N_DOCS wiki-like passages in batches of C_BATCH
 # at widths up to C_LEN
 NH = 12
-N_DOCS, C_BATCH, C_LEN = 32768, 256, 300
+N_DOCS, C_BATCH, C_LEN = 8192, 256, 300
 # leg g (question answering): the server's micro-batch cap, the concurrent
 # /answer and /retrieve requests
 QA_BATCH, N_ANSWERS, N_RETRIEVE = 16, 64, 16
 # leg h (beam-4 serving): beam 4 / 4, top 4, timed batches per engine;
 # the engines: (name, retriever, hop2_prune_margin, target stop rate in %)
-B4, H_ITERS = 4, 8
+B4, H_ITERS = 4, 3
 H_ENGINES = (("h0", "mhop", 0.0, None), ("h1", "mhop", -0.5, None),
              ("h2", "mhop", -0.9, None), ("h3", "unified", 0.0, None),
              ("h4", "unified", 0.0, 30), ("h5", "unified", 0.0, 60),
@@ -326,36 +337,44 @@ N_HNSW_Q, HNSW_M, HNSW_EF_C = 2 * B, 32, 200
 # the momentum stage) and the momentum queue
 J_WIDTHS = (("q", 70), ("q_sp", 350), ("c1", 300), ("c2", 300),
             ("neg1", 300), ("neg2", 300))
-J_B, J_REMAT_B, J_WARM, J_ITERS = 16, 64, 3, 6
-J_ROWS, J_DEV_ROWS, J_MOM_ROWS, J_QUEUE = 256, 64, 64, 76800
+J_B, J_REMAT_B, J_WARM, J_ITERS = 16, 64, 1, 3
+J_ROWS, J_DEV_ROWS, J_MOM_ROWS, J_QUEUE = 128, 64, 64, 76800
 # leg k (the rest of training): the reader trainer's JAX CLI defaults
 # (batch, max_seq_len, answer slots, sentences), the timed reader steps;
 # cli/train_qa's questions (4 chains each) and dev questions; the
 # single-hop trainer's batch (the CLI's 128 cut to 32: without remat 128 x
 # 650 tokens would not fit in 80 GB) and rows
 K_B, K_LEN, K_SLOTS, K_SENTS = 8, 512, 10, 40
-K_WARM, K_ITERS = 2, 4
+K_WARM, K_ITERS = 1, 3
 K_QA_ROWS, K_QA_DEV = 64, 16
 K3_B, K3_ROWS = 32, 128
 # leg o (data- and tensor-parallel training): warm-up and timed steps of
 # each throughput run (two windows of half), the CLIs' rows; the relative
 # loss tolerance of a bf16 step against the single-device one
-O_WARM, O_ITERS, O_ROWS, O_LOSS_TOL = 2, 8, 64, 5e-3
+O_WARM, O_ITERS, O_ROWS, O_LOSS_TOL = 1, 4, 32, 5e-3
+# o6 (the tensor-parallel step across 2 processes): its timed steps (its
+# two checked steps before them warm it up)
+O6_ITERS = 1
 # leg p (trained weights): scripts_dev/prune_sweep_torch.py's defaults (p1:
 # docs, key docs, questions); p2's roberta-base training (epochs, learning
 # rate), its batch (h3's 768 hop-2 queries at beam 4), its row shards, and
-# the CUDA-event launches timed per kernel; p3's reader epochs (the
+# the CUDA-event launches timed per kernel (p2's epochs cut from 3 to 2
+# for time); p3's reader epochs (the
 # script's FIDELITY_EPOCHS, default 6: whether a reader clears the
 # script's EM 0.5 by then depends on the run's start, in either package,
 # PERF.md §6; at 12 the seed-42 reader cleared it in every run on the card)
-P_DOCS, P_KEYS, P_Q, P3_EPOCHS = 65536, 1024, 512, 12
-P_EPOCHS, P_LR, P_BATCH, P_SHARDS, P_TIMED = 3, "2e-5", 192, 4, 20
+# and its eval questions an offset (the script's 40, cut to 24 for time)
+P_DOCS, P_KEYS, P_Q, P3_EPOCHS, P3_NQ_EVAL = 65536, 1024, 512, 12, 24
+P_EPOCHS, P_LR, P_BATCH, P_SHARDS, P_TIMED = 2, "2e-5", 192, 4, 20
 # leg l (single-hop bulk retrieval): questions, and cli/eval_retrieval's
 # defaults (batch, top k, query width)
-N_BULK_Q, BULK_BATCH, BULK_K, BULK_Q_LEN = 1024, 256, 100, 50
+N_BULK_Q, BULK_BATCH, BULK_K, BULK_Q_LEN = 512, 256, 100, 50
+# the int8 rows of the k = 100 kernel records (their first size, kept so
+# that the records stay comparable)
+L_K100_ROWS = 32768
 # leg n (row-sharded serving): index shards and timed batches of n1, n3's
 # passages, n4's questions and its processes' time limit
-N_SHARDS, N_ITERS, N3_DOCS, N4_Q, POD_TIMEOUT = 4, 20, 8192, 192, 300
+N_SHARDS, N_ITERS, N3_DOCS, N4_Q, POD_TIMEOUT = 4, 10, 8192, 192, 300
 # (what, B, Wq, W, dtype) of the kernel-8 checks; the first is the record
 ATTN_CASES = (("corpus square", C_BATCH, C_LEN, C_LEN, torch.bfloat16),
               ("corpus cls layer", C_BATCH, 1, C_LEN, torch.bfloat16),
@@ -1083,6 +1102,19 @@ def timed_batches(engine, q_inputs, q_raw, q_lens, iters):
     return out, np.array(secs)
 
 
+def leg_clock():
+    """``lap(leg)`` prints the seconds since the last lap (or this call)
+    under the leg's name: where the script's time goes."""
+    last = [time.perf_counter()]
+
+    def lap(leg):
+        now = time.perf_counter()
+        say(f"  [leg {leg}: {now - last[0]:.1f} s]")
+        last[0] = now
+
+    return lap
+
+
 def run_main_path(port, mips, dev, gen, smi, table_path=None, iters=50):
     cfgmod, data, index_mod, models, search = port
     cfg = cfgmod.EncoderConfig.roberta_base(dtype="bfloat16",
@@ -1096,6 +1128,7 @@ def run_main_path(port, mips, dev, gen, smi, table_path=None, iters=50):
         if isinstance(mod, torch.nn.Linear):
             torch.nn.init.normal_(mod.weight, std=0.05)
     model = model.to(dev).eval()
+    lap = leg_clock()
     spec = data.TokenizerSpec(cls_id=0, sep_id=2, pad_id=1, vocab_size=VOCAB)
     rng = np.random.RandomState(0)
     q_inputs, q_raw, q_lens = make_questions(rng, spec)
@@ -1165,16 +1198,21 @@ def run_main_path(port, mips, dev, gen, smi, table_path=None, iters=50):
     assert not missing, f"kernels not launched on the int8 path: {missing}"
     assert launches["int8"]["mips_scan"] == 0, "bf16 scan ran on the int8 path"
     profile_batch(engine, q_inputs, q_raw, q_lens, med * 1e3, smi, table_path)
+    lap("a")
     launches["int8_two_phase"] = run_int8_two_phase(
         engine, scfg, q_inputs, q_raw, q_lens, mips, search, n_valid, smi)
+    lap("d")
     launches["fused_serving"] = run_fused_serving(
         engine, model, models, search, q_inputs, q_raw, q_lens, planted, mips,
         n_valid, smi)
+    lap("f")
     launches.update(run_beam4_serving(
         engine, model, port, q_inputs, q_raw, q_lens, mips, smi))
+    lap("h")
     launches.update(run_sharded_serving(
         engine, scfg, q_inputs, q_raw, q_lens, planted, mips, search,
         B / med, smi))
+    lap("n1")
     del engine, index
 
     # path 2: a bf16 index engine without prefilter (kernel 2)
@@ -1205,6 +1243,7 @@ def run_main_path(port, mips, dev, gen, smi, table_path=None, iters=50):
     assert sum(launches["bf16"][k] for k in mips.LAUNCHES) == \
         launches["bf16"]["mips_scan"], "int8 kernels ran on the bf16 path"
     del bf16_engine, bf16_index, text_ids, text_lens, empty
+    lap("b")
 
     # leg l searches leg c's directory (in ftmp) and leg e2's, and scores
     # leg g2's predictions; leg g serves from e2's directory and checkpoint
@@ -1212,26 +1251,46 @@ def run_main_path(port, mips, dev, gen, smi, table_path=None, iters=50):
         fever_configs = {}
         launches.update(run_fever_cli(port, model, mips, dev, gen, smi, ftmp,
                                       fever_configs))
+        lap("c")
         launches.update(run_sharded_fever(mips, dev, smi, ftmp,
                                           fever_configs, launches))
+        lap("n2")
         with tempfile.TemporaryDirectory() as tmp:
             launches.update(run_corpus_encoding(port, model.state_dict(),
                                                 mips, dev, smi, tmp))
+            lap("e")
             launches.update(run_data_parallel_encoding(
                 port, model.state_dict(), mips, dev, smi, tmp))
+            lap("n3")
             run_pod_runner(smi, tmp)
+            lap("n4")
             launches.update(run_qa_serving(mips, dev, smi, tmp))
+            lap("g")
             launches.update(run_hnsw_tier(port, mips, dev, smi, tmp))
+            lap("i")
             launches.update(run_bulk_retrieval(mips, dev, gen, smi, ftmp,
                                                tmp))
-    # leg k exports leg j's stage-1 checkpoint and reuses its rows
-    with tempfile.TemporaryDirectory() as tmp:
-        launches.update(run_training(port, mips, dev, smi, tmp))
-        launches.update(run_reader_training(port, mips, dev, smi, tmp))
-        launches.update(run_parallel_training(port, mips, dev, smi, tmp))
-    with tempfile.TemporaryDirectory() as tmp:
-        launches.update(run_trained_weights(mips, dev, smi, tmp))
+            lap("l")
+    # leg k exports leg j's stage-1 checkpoint and reuses its rows; leg p's
+    # processes start inside leg o, once its throughput runs are done
+    subs = {}
+    with tempfile.TemporaryDirectory() as tmp, \
+            tempfile.TemporaryDirectory() as ptmp:
+        try:
+            launches.update(run_training(port, mips, dev, smi, tmp))
+            lap("j")
+            launches.update(run_reader_training(port, mips, dev, smi, tmp))
+            lap("k")
+            launches.update(run_parallel_training(
+                port, mips, dev, smi, tmp,
+                then=lambda: subs.update(start_p_sub_legs(smi, ptmp))))
+            lap("o")
+            launches.update(run_trained_weights(mips, dev, smi, ptmp, subs))
+            lap("p")
+        finally:
+            stop_processes(subs)
     launches.update(run_quickstart(mips, dev, smi))
+    lap("m")
     return launches
 
 
@@ -1753,7 +1812,7 @@ def time_top100_kernels(mips, dev, gen, smi):
     every chunk) kernels 7 and 4; l1 (B = 256 over 262,144 bf16 rows, 128
     chunks of 2048, kc = 100) kernels 6 and 5."""
     recs = {}
-    n8, nb = N_DOCS, N_F
+    n8, nb = L_K100_ROWS, N_F
     # the chunk mips_topk takes at these shapes (2048 rows for both)
     c8 = mips.two_phase_chunk(n8, BULK_BATCH, D, 1, BULK_K)
     cb = mips.two_phase_chunk(nb, BULK_BATCH, D, 2, BULK_K)
@@ -1844,13 +1903,13 @@ def run_bulk_retrieval(mips, dev, gen, smi, ftmp, tmp):
     """Leg (l): cli/eval_retrieval.main, the single-hop bulk entry point, at
     roberta-base width with the legs' seeded weights, over N_BULK_Q
     questions at the CLI's defaults (batch 256, top 100, max_q_len 50).
-    The questions' own vectors (twice over) are planted over 1,024
+    The questions' own vectors (twice over) are planted over N_BULK_Q
     documents of each directory (plant_questions), whose titles are their
     gold answers and SP titles, so recall@k must be 1.0 at every k.
     l1: leg c's directory (262,144 bf16 rows, PCA R=128) in ``ftmp``,
     exact (kernels 6 + 5: 128 chunks of 2048 rows, kc = 100) and --pca
-    (kernels 3 + 5).  l2: leg e2's directory (32,768 int8 rows, PCA) in
-    ``tmp``, exact (kernels 7 + 4: 16 chunks of 2048, every query on every
+    (kernels 3 + 5).  l2: leg e2's directory (8,192 int8 rows, PCA) in
+    ``tmp``, exact (kernels 7 + 4: 4 chunks of 2048, every query on every
     chunk) and --pca (kernels 3 + 4).  l3: --topk 5 over both (kernels 2
     and 1).  Each run has its own launch counts and every kernel its
     tensor-core template; every MIPS call is held to the plain exact scan
@@ -2019,9 +2078,13 @@ def adam_bound(g, delta, p, lr, eps, tight=1e-3, steps=1):
 
 def joined_grads(model):
     """The gradients of ``model``'s parameters on the CPU, under their
-    unsharded names: a tensor-parallel linear's blocks joined."""
+    unsharded names: a tensor-parallel linear's blocks joined (across
+    processes gathered over the index group: every process of it calls
+    this)."""
     from multihop_dense_retrieval_tpu_torch.parallel.sharding import \
         ShardedLinear
+
+    from multihop_dense_retrieval_tpu_torch.core.mesh import all_gather
 
     out = {n: p.grad.detach().cpu().clone()
            for n, p in model.named_parameters() if p.grad is not None}
@@ -2031,9 +2094,11 @@ def joined_grads(model):
         for what, blocks, dim in (("weight", mod.weight, mod.dim),
                                   ("bias", mod.bias, 0)):
             if isinstance(blocks, torch.nn.ParameterList):
-                out[f"{name}.{what}"] = torch.cat(
-                    [out.pop(f"{name}.{what}.{s}") for s in
-                     range(len(blocks))], dim)
+                joined = torch.cat([out.pop(f"{name}.{what}.{s}") for s in
+                                    range(len(blocks))], dim)
+                # across processes: the other blocks are the index group's
+                out[f"{name}.{what}"] = joined if mod.group is None else \
+                    all_gather(joined, dim, mod.group)
     return out
 
 
@@ -2735,7 +2800,8 @@ def check_parallel_fp32(T, models, cfgmod, dev, smi, leg, mesh, name, tp):
     """o1 / o3 at fp32: j0's model, B=J_B ragged at the reference widths,
     one step over ``mesh`` (``tp``: laid out over its index shards)
     against the single-device card step, by j0's criteria
-    (``hold_step``), and for ``tp`` also tests/test_parallel.py's."""
+    (``hold_step``), and for ``tp`` also tests/test_parallel.py's.
+    Returns the mesh step (``run_step``'s result without its state)."""
     from multihop_dense_retrieval_tpu_torch.parallel import shard_params
 
     base = o_fp32_base(models, cfgmod)
@@ -2761,7 +2827,7 @@ def check_parallel_fp32(T, models, cfgmod, dev, smi, leg, mesh, name, tp):
         f"its tolerance ({r['worst_g'][1]}); worst parameter "
         f"{r['worst_p'][0]:.3f} of its Adam bound ({r['worst_p'][1]})"
         f"{extra} [{smi}]")
-    return r
+    return got[:4] + (None,)
 
 
 def local_negatives_step(T, losses, base, batch, tcfg, dev, n=2):
@@ -2793,8 +2859,8 @@ def check_bf16_spread(T, losses, models, cfgmod, dev, smi, runs):
     ~1e-3 of the loss between two such roundings: 1.5e-3 for the tensor-
     parallel step in the CPU rehearsal at 64 wide), the gradients within
     2 n.  The negative control (local in-batch negatives, averaged
-    gradients) must fail both.  Returns the noise and the control's
-    readings."""
+    gradients) must fail both.  Returns the noise, the control's readings
+    and each run's (loss, gradients, parameters) by its name."""
     base, batch, tcfg = o_bf16_setup(models, cfgmod)
     ref = run_step(T, base, T.make_train_step, batch, tcfg, dev)[:3]
     wide = models.MhopRetriever(cfgmod.EncoderConfig.roberta_base(
@@ -2815,8 +2881,10 @@ def check_bf16_spread(T, losses, models, cfgmod, dev, smi, runs):
         f"averaged gradients) reads loss rel {control[0]:.4g} (bound "
         f"{O_LOSS_TOL:g}), gradients {control[1]:.2f} n (bound 2 n): it fails, as "
         f"it must [{smi}]")
+    steps = {}
     for leg, name, make_step, prepare in runs:
         got = run_step(T, base, make_step, batch, tcfg, dev, prepare=prepare)
+        steps[name] = got[:3]
         lr_ = abs(got[0] - ref[0]) / abs(ref[0])
         gn = rel_dist(got[1], ref[1]) / noise
         say(f"  leg {leg} bf16 {name} vs the single-device step "
@@ -2827,7 +2895,7 @@ def check_bf16_spread(T, losses, models, cfgmod, dev, smi, runs):
             f"{rel_dist(got[1], g32) / noise:.3f} n from the fp32 step's "
             f"[{smi}]")
         assert lr_ <= O_LOSS_TOL and gn <= 2.0, (leg, name, lr_, gn)
-    return {"noise": noise, "control": control}
+    return {"noise": noise, "control": control, "steps": steps}
 
 
 def time_parallel_steps(T, models, cfgmod, dev, smi, runs):
@@ -3018,8 +3086,9 @@ def run_parallel_clis(cfgmod, dev, smi, tmp):
         torch.cuda.empty_cache()
 
 
-# one process of o5: joins the pod, runs o1's step on its half of the
-# batch, and rank 0 saves what it consumed and made
+# one process of o5 and o6: joins the pod, runs o1's data-parallel step on
+# its half of the batch (o5), then lays o3's steps out over an index-2 mesh
+# of one shard a process (o6); rank 0 saves what they consumed and made
 POD_STEP = r"""
 import sys
 import chip_smoke
@@ -3028,13 +3097,18 @@ chip_smoke.pod_step_worker(*sys.argv[1:])
 
 
 def pod_step_worker(init, rank, out, device, card):
-    """o5's process ``rank`` of 2 on ``device``: a card shared by the two
-    (``card`` "shared"), or its own (``card`` "own": the only one it then
-    sees, so that init_pod takes NCCL); a data-2 mesh of one entry a
-    process, its half of o1's batch
-    (host_local_batch_to_global), the replicated state
-    (replicate_to_global), one step; rank 0 saves the loss, the
-    gradients the update consumed and the parameters to ``out``."""
+    """o5's and o6's process ``rank`` of 2 on ``device``: a card shared by
+    the two (``card`` "shared"), or its own (``card`` "own": the only one
+    it then sees, so that init_pod takes NCCL).  o5: a data-2 mesh of one
+    entry a process, its half of o1's batch (host_local_batch_to_global),
+    the replicated state (replicate_to_global), one step.  o6: an index-2
+    mesh of one shard a process, so every layer's row-parallel sums and
+    its column input's gradient cross the processes; o3's two steps from
+    the replicated weights, each laid out first (parallel.shard_params);
+    then O6_ITERS bf16 steps at j1's batch (full masks), timed by CUDA
+    events.  Rank 0 saves each step's loss, the gradients its update
+    consumed and its parameters (o6's gathered over the index group), and
+    o6's step times, to ``out``."""
     import copy
     import os
 
@@ -3044,12 +3118,15 @@ def pod_step_worker(init, rank, out, device, card):
     from multihop_dense_retrieval_tpu_torch import models
     from multihop_dense_retrieval_tpu_torch.core import config as cfgmod
     from multihop_dense_retrieval_tpu_torch.core import mesh as M
+    from multihop_dense_retrieval_tpu_torch.parallel import shard_params
     from multihop_dense_retrieval_tpu_torch.train import trainer as T
 
-    backend = M.init_pod(init, 2, rank)
-    mesh = M.make_mesh(data=2, index=1, devices=M.pod_devices(
-        [torch.device(device)]))
-    base, batch, tcfg = o_bf16_setup(models, cfgmod)
+    dev = torch.device(device)
+    res = {"backend": M.init_pod(init, 2, rank)}
+    # o5
+    mesh = M.make_mesh(data=2, index=1, devices=M.pod_devices([dev]))
+    bf16 = o_bf16_setup(models, cfgmod)
+    base, batch, tcfg = bf16
     half = J_B // 2
     local = {k: v[rank * half:(rank + 1) * half] for k, v in batch.items()}
     state = M.replicate_to_global(T.TrainState.create(
@@ -3064,55 +3141,115 @@ def pod_step_worker(init, rank, out, device, card):
     state.opt.update = kept
     state, loss = T.make_train_step(mesh=mesh)(
         state, M.host_local_batch_to_global(local, mesh))
+    res["o5"] = (float(loss), grads, {k: v.cpu() for k, v in
+                                      state.model.state_dict().items()})
+    del state
+    # o6: j0's model at fp32 (check_parallel_fp32's batch), o1's bf16 step
+    mesh = M.make_mesh(data=1, index=2, devices=M.pod_devices([dev]))
+    assert mesh.spans_processes and mesh.ranks == ((0, 1),), mesh
+
+    def make():
+        return T.make_train_step(mesh=mesh, tensor_parallel=True)
+
+    fp32 = (o_fp32_base(models, cfgmod),
+            train_batch(np.random.RandomState(61), J_B, full=False),
+            cfgmod.RetrieverTrainConfig(warmup_ratio=0.0, learning_rate=1e-3))
+    for name, (base, batch, tcfg) in (("fp32", fp32), ("bf16", bf16)):
+        res[name] = run_step(T, base, make, batch, tcfg, dev,
+                             prepare=lambda m: shard_params(m, mesh))[:4]
+    model = copy.deepcopy(bf16[0]).to(dev)
+    shard_params(model, mesh)
+    state = T.TrainState.create(model, T.make_optimizer(
+        cfgmod.RetrieverTrainConfig(batch_size=J_B), 1000))
+    step = make()
+    batch = T.to_device(train_batch(np.random.RandomState(11), J_B), dev)
+    ms = []
+    for _ in range(O6_ITERS):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        state, loss = step(state, batch)
+        ev[1].record()
+        torch.cuda.synchronize()
+        assert torch.isfinite(loss).all(), float(loss)
+        ms.append(ev[0].elapsed_time(ev[1]))
+    res["ms"] = ms
+    res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
     if rank == 0:
-        torch.save({"loss": float(loss), "grads": grads, "backend": backend,
-                    "params": {k: v.cpu() for k, v in
-                               state.model.state_dict().items()}}, out)
+        torch.save(res, out)
     M.close_pod()
-    print(f"POD STEP OK {backend}", flush=True)
+    print(f"POD STEP OK {res['backend']}", flush=True)
 
 
-def run_pod_step(T, models, cfgmod, dev, smi, M, tmp):
-    """o5: o1's step (roberta-base, bf16, B=J_B) in 2 processes through
-    ``run_processes``, each holding one entry of a data-2 mesh and its
-    half of the batch: on one card they share it and go over gloo, on two
-    each takes its own and NCCL.  Held to the single-process step on the
-    card twice: the loss within 1e-6 relative, the gradients and
-    parameters by j0's criteria (the processes sum the two halves'
-    gradients in another grouping than one process's autograd)."""
+def run_pod_steps(T, cfgmod, dev, smi, tmp, spread, refs, tp_ms):
+    """o5 and o6 in one pod of 2 processes through ``run_processes``
+    (pod_step_worker): on one card they share it and go over gloo, on two
+    each takes its own and NCCL.  o5,
+    o1's data-parallel step, is held to o1's single-process data-2 step
+    on the card twice (``spread``'s): the loss within 1e-6 relative, the
+    gradients and parameters by j0's criteria (the processes sum the two
+    halves' gradients in another grouping than one process does).  o6,
+    o3's tensor-parallel steps, are held to o3's single-process index-2
+    steps ``refs`` (over the card twice, or cuda:0 + cuda:1 where there
+    are two): the fp32 step by j0's criteria, the bf16 step's loss within
+    O_LOSS_TOL relative and its gradients within 2 n of the bf16 noise n
+    (o1).  Prints the pod's seconds and o6's bf16 ms a step beside o3's
+    one-process ``tp_ms``."""
     own = torch.cuda.device_count() > 1
-    out = f"{tmp}/o5.pt"
+    out = f"{tmp}/o56.pt"
+    torch.cuda.empty_cache()
     t = time.perf_counter()
     outs = run_processes([["-c", POD_STEP, "tcp://localhost:{port}",
-                           "{rank}", out, str(dev),
+                           "{rank}", out, "cuda:0" if own else str(dev),
                            "own" if own else "shared"]] * 2)
     secs = time.perf_counter() - t
     assert all("POD STEP OK" in o for o, _ in outs), outs
     got = torch.load(out, weights_only=True)
-    assert got["backend"] == ("nccl" if own else "gloo"), got["backend"]
-    base, batch, tcfg = o_bf16_setup(models, cfgmod)
-    mesh = M.make_mesh(data=2, index=1, devices=[dev] * 2)
-    ref = run_step(T, base, lambda: T.make_train_step(mesh=mesh), batch,
-                   tcfg, dev)
-    assert abs(got["loss"] - ref[0]) <= 1e-6 * abs(ref[0]), \
-        (got["loss"], ref[0])
-    r = hold_step(T, ref, (got["loss"], got["grads"], got["params"], secs,
-                           None), tcfg)
-    say(f"  leg o5 two processes ({got['backend']}, data-2 mesh of one entry "
-        f"each, roberta-base bf16, B={J_B}): {secs:.1f} s; loss "
-        f"{got['loss']:.7f} vs the single-process mesh's {ref[0]:.7f}; "
-        f"worst gradient error {r['worst_g'][0]:.3f} of its tolerance; "
-        f"worst parameter {r['worst_p'][0]:.3f} of its Adam bound [{smi}]")
+    backend = got["backend"]
+    assert backend == ("nccl" if own else "gloo"), backend
+    tcfg = cfgmod.RetrieverTrainConfig(warmup_ratio=0.0, learning_rate=1e-3)
+    ref = spread["steps"][f"DP over {dev} x2"]
+    mine = got["o5"]
+    assert abs(mine[0] - ref[0]) <= 1e-6 * abs(ref[0]), (mine[0], ref[0])
+    r = hold_step(T, ref + (None, None), mine + (None, None), tcfg)
+    say(f"  leg o5 two processes ({backend}, data-2 mesh of one entry each, "
+        f"roberta-base bf16, B={J_B}) vs o1's single-process data-2 step "
+        f"on {dev} x2: loss {mine[0]:.7f} vs {ref[0]:.7f}; worst gradient "
+        f"error {r['worst_g'][0]:.3f} of its tolerance; worst parameter "
+        f"{r['worst_p'][0]:.3f} of its Adam bound [{smi}]")
+    mine, ref = got["fp32"] + (None,), refs["fp32"]
+    r = hold_step(T, ref, mine, tcfg)
+    (lb, gb), (rl, rg) = got["bf16"][:2], refs["bf16"][:2]
+    lr_, gn = abs(lb - rl) / abs(rl), rel_dist(gb, rg) / spread["noise"]
+    assert lr_ <= O_LOSS_TOL and gn <= 2.0, (lr_, gn)
+    say(f"  leg o6 tensor parallelism across 2 processes ({backend}, "
+        f"index-2 mesh of one shard each, "
+        f"{'two cards' if own else 'the card shared'}) vs o3's "
+        f"single-process index-2 step: fp32 (2 x 768, B={J_B} ragged) loss "
+        f"{mine[0]:.7f} vs {ref[0]:.7f}; worst gradient error "
+        f"{r['worst_g'][0]:.3f} of its tolerance; worst parameter "
+        f"{r['worst_p'][0]:.3f} of its Adam bound; roberta-base bf16 loss "
+        f"{lb:.6f} vs {rl:.6f} (rel {lr_:.3g}, bound {O_LOSS_TOL:g}); "
+        f"gradients {gn:.4f} n apart (bound 2 n) [{smi}]")
+    med = float(np.median(got["ms"]))
+    say(f"  leg o5 + o6 pod: {secs:.1f} s; o6's bf16 step at j1's batch "
+        f"{med:.2f} ms/step (min {min(got['ms']):.2f}, max "
+        f"{max(got['ms']):.2f}; {len(got['ms'])} timed after the two "
+        f"checked ones), {J_B / med * 1e3:.1f} examples/s, rank 0's peak "
+        f"allocated {got['peak_gib']:.2f} GiB; in one process (o3) "
+        f"{tp_ms:.2f} ms [{smi}]")
 
 
-def run_parallel_training(port, mips, dev, smi, tmp):
+def run_parallel_training(port, mips, dev, smi, tmp, then=lambda: None):
     """Leg (o): data- and tensor-parallel training, which launches none of
     the eight kernels (the counts must stay 0): o1 the data-parallel step
     (fp32 by j0's criteria, bf16 at roberta-base against the bf16 noise,
-    the negative control, throughput beside j1's), o2 the momentum and
-    token-queue steps, o3 the tensor-parallel step (as o1; each card's
-    peak memory), o4 the trainer CLIs with --data-parallel 2, o5 the step
-    in two processes."""
+    the negative control, throughput beside j1's), o3 the tensor-parallel
+    step (as o1; each card's peak memory), o5 and o6 the data- and
+    tensor-parallel steps in two processes, o2 the momentum and
+    token-queue steps, o4 the trainer CLIs with --data-parallel 2.
+    ``then()`` runs once the throughput runs are done: leg p starts its
+    processes there, beside o5 and o6's pod, o2 and o4."""
     from multihop_dense_retrieval_tpu_torch.core import mesh as M
     from multihop_dense_retrieval_tpu_torch.parallel import shard_params
     from multihop_dense_retrieval_tpu_torch.train import losses
@@ -3127,15 +3264,18 @@ def run_parallel_training(port, mips, dev, smi, tmp):
     for name, mesh in dps:
         check_parallel_fp32(T, models, cfgmod, dev, smi, "o1", mesh, name,
                             False)
-    for name, mesh in tps:
-        check_parallel_fp32(T, models, cfgmod, dev, smi, "o3", mesh, name,
-                            True)
+    # o3's steps, by mesh: o6 is held to them
+    tp_refs = {name: {"fp32": check_parallel_fp32(
+        T, models, cfgmod, dev, smi, "o3", mesh, name, True)}
+        for name, mesh in tps}
     runs = [("o1", f"DP over {n}", lambda m=m: T.make_train_step(mesh=m),
              None) for n, m in dps]
     runs += [("o3", f"TP over {n}", lambda m=m: T.make_train_step(
         mesh=m, tensor_parallel=True), lambda x, m=m: shard_params(x, m))
         for n, m in tps]
-    check_bf16_spread(T, losses, models, cfgmod, dev, smi, runs)
+    spread = check_bf16_spread(T, losses, models, cfgmod, dev, smi, runs)
+    for name, _ in tps:
+        tp_refs[name]["bf16"] = spread["steps"][f"TP over {name}"]
     torch.cuda.empty_cache()
     def cards(m):
         return sorted({d for row in m.devices for d in row}, key=str)
@@ -3147,7 +3287,13 @@ def run_parallel_training(port, mips, dev, smi, tmp):
     timed += [(f"TP over {n}", lambda m=m: T.make_train_step(
         mesh=m, tensor_parallel=True), lambda x, m=m: shard_params(x, m),
         cards(m)) for n, m in tps]
-    time_parallel_steps(T, models, cfgmod, dev, smi, timed)
+    tp_ms = time_parallel_steps(T, models, cfgmod, dev, smi, timed)
+    then()
+    # o6 runs on two cards where the host shows them (tps' last mesh)
+    pick = tps[-1][0]
+    run_pod_steps(T, cfgmod, dev, smi, tmp, spread, tp_refs[pick],
+                  tp_ms[f"TP over {pick}"][0])
+    del spread, tp_refs
     torch.cuda.empty_cache()
     for name, mesh in dps:
         check_parallel_momentum(T, models, cfgmod, dev, smi, mesh, name)
@@ -3155,7 +3301,6 @@ def run_parallel_training(port, mips, dev, smi, tmp):
                                dps[0][0])
     torch.cuda.empty_cache()
     run_parallel_clis(cfgmod, dev, smi, tmp)
-    run_pod_step(T, models, cfgmod, dev, smi, M, tmp)
     say(f"  leg o: {time.perf_counter() - t0:.1f} s [{smi}]")
     return {"parallel_training": assert_no_launches(mips, "o")}
 
@@ -3487,7 +3632,8 @@ def run_trained_full_width(mips, dev, smi, work, data):
 
 def run_fidelity(mips, dev, smi, work):
     """Leg (p3): fidelity_trained_torch at its defaults (the mini reader,
-    offsets 64-448, 40 questions an offset) but P3_EPOCHS epochs: the
+    offsets 64-448) but P3_EPOCHS epochs and P3_NQ_EVAL eval questions an
+    offset: the
     one-stage read, the (rank width x offset) matrix and bf16-vs-fp32
     agreement beside docs/fidelity_r5.json.  No MIPS kernel runs (the
     reader reads on the xla attention)."""
@@ -3495,7 +3641,8 @@ def run_fidelity(mips, dev, smi, work):
     mips.reset_launch_counts()
     t0 = time.perf_counter()
     with scoped_env(FIDELITY_OUT=f"{work}/p3.json", FIDELITY_DEVICE=str(dev),
-                    FIDELITY_EPOCHS=str(P3_EPOCHS)):
+                    FIDELITY_EPOCHS=str(P3_EPOCHS),
+                    FIDELITY_NQ_EVAL=str(P3_NQ_EVAL)):
         res = fs.main()
     counts = assert_no_launches(mips, "p3")
     ref = jax_record("fidelity_r5.json")
@@ -3569,30 +3716,35 @@ def join_sub_leg(proc, name, work):
     return json.loads(res[len("P_RESULT "):])
 
 
-def run_trained_weights(mips, dev, smi, tmp):
+def start_p_sub_legs(smi, tmp):
+    """Start p1 and p3 in processes of their own (``start_sub_leg``)."""
+    return {name: start_sub_leg(name, smi, tmp)
+            for name in ("p1_sub_leg", "p3_sub_leg")}
+
+
+def stop_processes(procs):
+    """Kill whichever of ``procs`` (name -> process) still run."""
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def run_trained_weights(mips, dev, smi, tmp, subs):
     """Leg (p): the trained-weight measurements (p1 the JAX script's own
     scale, p2 the full-width main path, p3 the reader's fidelity).  p1
-    and p3 run in processes of their own while p2 runs here; kernels 1,
-    3 and 4 are timed on p2's launches once they have ended.  Returns
-    each sub-leg's launch counts."""
+    and p3 run in processes of their own, ``subs``, started before this
+    (``start_p_sub_legs``, in ``tmp``), beside leg o's last steps;
+    p2 runs here; kernels 1, 3 and 4 are timed on p2's launches once all
+    have ended.  Returns each sub-leg's launch counts."""
     t0 = time.perf_counter()
     ps = load_script("prune_sweep_torch")
     os.makedirs(f"{tmp}/p2")
     data = ps.make_data(f"{tmp}/p2", np.random.RandomState(0), n_docs=P_DOCS,
                         n_train=P_Q, n_key_docs=P_KEYS)
-    subs = {}
-    try:
-        for name in ("p1_sub_leg", "p3_sub_leg"):
-            subs[name] = start_sub_leg(name, smi, tmp)
-        out, launched = run_trained_full_width(mips, dev, smi, f"{tmp}/p2",
-                                               data)
-        for name, proc in subs.items():
-            out.update(join_sub_leg(proc, name, tmp))
-    finally:
-        for proc in subs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait(timeout=30)
+    out, launched = run_trained_full_width(mips, dev, smi, f"{tmp}/p2", data)
+    for name, proc in subs.items():
+        out.update(join_sub_leg(proc, name, tmp))
     times = time_trained_kernels(launched, mips, smi)
     say("  leg p kernels: " + json.dumps({
         leg: {k: n for k, n in c.items() if k != "routes" and n}
@@ -3815,7 +3967,7 @@ def run_qa_serving(mips, dev, smi, tmp):
     on 127.0.0.1, port 0, --max-batch 16, in a thread): /healthz; 64
     concurrent /answer (each 5 chains of 2 titles and an answer string,
     micro-batched; the reader's rank and span scores finite); 16 /retrieve;
-    /add_doc (32,768 rows fill their chunks: the index grows), whose own
+    /add_doc (8,192 rows fill their chunks: the index grows), whose own
     vector, encoded as the pipeline encodes it, is the plain scan's top-1
     at its new id; 16 /retrieve over the grown index (n_docs inside a
     chunk); /delete_doc of a middle document (the last moves in: id table
@@ -5023,6 +5175,7 @@ def main():
             "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     assert not idle, f"kernels not launched on their paths: {idle}"
+    say(f"chip_smoke: {time.perf_counter() - t0:.1f} s from the build on")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -26,6 +26,17 @@ group: gloo always (host objects, barriers, CPU tensors), plus an NCCL group
 for CUDA tensors when no two processes share a card (NCCL refuses two ranks
 on one GPU).  The choice is made from where the processes run and logged;
 it is never changed after a failure.
+
+Who calls which collective.  Every collective here is called by every
+process of its group, in the same order:
+  * ``init_pod`` and ``close_pod``: every process of the world;
+  * ``axis_groups`` (reached from ``DataParallel`` with
+    ``tensor_parallel`` and from ``parallel.shard_params``): every process
+    of the world, also those outside a group, since
+    ``torch.distributed.new_group`` is collective over the world; it makes
+    every group of a mesh's layout at once, in one order, and caches them;
+  * ``all_gather``, ``gather_rows``, ``all_reduce_sum``: the processes of
+    the group they are given (default: the world).
 """
 
 from __future__ import annotations
@@ -49,6 +60,9 @@ POD_TIMEOUT = datetime.timedelta(seconds=600)
 
 # the NCCL group of a pod whose processes hold distinct cards (init_pod)
 _NCCL_GROUP = None
+# rank layout of a mesh -> {ranks: AxisGroup} of its axes (Mesh.axis_groups);
+# emptied by close_pod with the process group they belong to
+_AXIS_GROUPS = {}
 
 
 def local_devices(device="cuda", n: int = 1) -> list:
@@ -117,20 +131,22 @@ class Mesh:
         return [row[0] for row in self.devices]
 
     def data_entries(self, tensor_parallel: bool = False) -> list:
-        """(global position, devices) of this process's entries of the data
-        axis: each data row it holds, as its first device or, with
-        ``tensor_parallel``, the row's index shards (a row then must be
-        one process's: tensor parallelism across processes is ROADMAP item
-        12c).  A data axis across processes must hold its rows rank by
-        rank, equally many each, so that gathering every process's rows in
-        rank order keeps the global order."""
-        owners = []
-        for row in self.ranks:
-            if tensor_parallel and len(set(row)) > 1:
-                raise NotImplementedError(
-                    "tensor parallelism over an index axis that spans "
-                    "processes is not ported (ROADMAP item 12c)")
-            owners.append(row[0])
+        """This process's entries of the data axis, each with its global
+        position: (row, (device,)), the row's first device, or, with
+        ``tensor_parallel``, (row, ((shard id, device), ...)), this
+        process's index shards of the row (``check_tensor_parallel``).
+        A data axis across processes must hold its rows rank by rank,
+        equally many each, so that gathering every process's rows in rank
+        order keeps the global order."""
+        if tensor_parallel:
+            self.check_tensor_parallel()
+            return [(i, tuple((s, d) for s, (d, r) in enumerate(zip(drow,
+                                                                    rrow))
+                              if r == self.rank))
+                    for i, (drow, rrow) in enumerate(zip(self.devices,
+                                                         self.ranks))
+                    if self.rank in rrow]
+        owners = [row[0] for row in self.ranks]
         if len(set(owners)) > 1:
             size = world()[1]
             per = len(owners) // size
@@ -138,9 +154,74 @@ class Mesh:
                 raise ValueError(f"data rows on ranks {owners}: a data axis "
                                  f"across processes needs them rank by "
                                  f"rank, equally many each")
-        return [(i, tuple(row) if tensor_parallel else (row[0],))
-                for i, (row, owner) in enumerate(zip(self.devices, owners))
-                if owner == self.rank]
+        return [(i, (row[0],)) for i, (row, owner) in
+                enumerate(zip(self.devices, owners)) if owner == self.rank]
+
+    def check_tensor_parallel(self) -> None:
+        """Raise ``ValueError`` unless the mesh's layout is one that
+        tensor parallelism across processes runs on: the processes of a
+        data row each hold a contiguous run of its index shards, equally
+        many, in rank order; a process holds the same shard positions,
+        beside the same processes, in every row it touches; and at each
+        shard position the rows' processes come rank by rank, equally
+        many rows each (so that gathering rows in rank order keeps the
+        data axis's order).  A mesh of one process always passes."""
+        n = len(self.ranks[0])
+        held = {}
+        for i, row in enumerate(self.ranks):
+            procs = sorted(set(row))
+            if n % len(procs) or tuple(row) != tuple(
+                    r for r in procs for _ in range(n // len(procs))):
+                raise ValueError(
+                    f"data row {i} has its index shards on ranks {row}: "
+                    f"each process of a row must hold a contiguous run of "
+                    f"its shards, equally many each, in rank order")
+            for r in procs:
+                mine = (tuple(s for s, x in enumerate(row) if x == r),
+                        tuple(procs))
+                if held.setdefault(r, mine) != mine:
+                    raise ValueError(
+                        f"rank {r} holds shards {held[r][0]} beside ranks "
+                        f"{held[r][1]} in one data row and shards {mine[0]} "
+                        f"beside {mine[1]} in row {i}: a process must hold "
+                        f"the same shard positions with the same peers in "
+                        f"every row")
+        for s in range(n):
+            col = [row[s] for row in self.ranks]
+            procs = sorted(set(col))
+            if len(col) % len(procs) or col != [
+                    r for r in procs for _ in range(len(col) // len(procs))]:
+                raise ValueError(
+                    f"shard {s} of the data rows is on ranks {col}: the "
+                    f"data axis needs them rank by rank, equally many each")
+
+    def axis_groups(self) -> tuple:
+        """(index group, data group) of this process on the mesh's
+        tensor-parallel layout (``check_tensor_parallel``): the processes
+        of its data rows, and those that hold its shard positions.
+        Collective over the world where the mesh spans processes (see
+        the module's docstring); one-process groups otherwise."""
+        self.check_tensor_parallel()
+        if not self.spans_processes:
+            solo = AxisGroup((self.rank,))
+            return solo, solo
+        made = _AXIS_GROUPS.get(self.ranks)
+        if made is None:
+            n = len(self.ranks[0])
+            sets = [tuple(sorted(set(row))) for row in self.ranks]
+            sets += [tuple(sorted({row[s] for row in self.ranks}))
+                     for s in range(n)]
+            made = {}
+            for ranks in sets:
+                if ranks not in made:
+                    made[ranks] = _new_group(ranks)
+            _AXIS_GROUPS[self.ranks] = made
+        row = next((r for r in self.ranks if self.rank in r), None)
+        if row is None:
+            raise ValueError(f"rank {self.rank} holds no entry of {self}")
+        pos = row.index(self.rank)
+        return (made[tuple(sorted(set(row)))],
+                made[tuple(sorted({r[pos] for r in self.ranks}))])
 
     @property
     def home(self) -> torch.device:
@@ -325,24 +406,82 @@ def close_pod() -> None:
         dist.barrier()
         dist.destroy_process_group()
     _NCCL_GROUP = None
+    _AXIS_GROUPS.clear()
 
 
-def _all_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """Every process's ``x`` (all of one shape) joined along ``dim`` in rank
-    order, on ``x``'s device: over NCCL for a CUDA tensor where
-    ``init_pod`` made an NCCL group, else over gloo through host copies."""
+@dataclasses.dataclass(frozen=True, eq=False)
+class AxisGroup:
+    """Processes that run a collective together, in rank order: ``ranks``,
+    with their gloo group (None: the default group, the world's) and,
+    where ``init_pod`` made an NCCL group, their NCCL one.  A
+    group of one process runs no collective.  A deep copy (of a model
+    that holds it) shares the group."""
+    ranks: tuple
+    gloo: object = None
+    nccl: object = None
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+    @property
+    def position(self) -> int:
+        """This process's place in ``ranks``."""
+        return self.ranks.index(world()[0])
+
+    def backend(self, x: torch.Tensor):
+        """(torch group, whether ``x`` travels as it is): NCCL for a CUDA
+        tensor where there is an NCCL group, else gloo (host copies)."""
+        if x.is_cuda and self.nccl is not None:
+            return self.nccl, True
+        return self.gloo, False
+
+    def __deepcopy__(self, memo):
+        return self
+
+
+def _world_group() -> AxisGroup:
+    return AxisGroup(tuple(range(world()[1])), None, _NCCL_GROUP)
+
+
+def _new_group(ranks: tuple) -> AxisGroup:
+    """The ``AxisGroup`` of ``ranks``: no torch group for one process, the
+    default groups for the world, else a new gloo group and, where
+    ``init_pod`` made an NCCL group, a new NCCL one.  Collective over the
+    world for a new group (every process calls it, in the same order)."""
     dist = torch.distributed
-    nccl = x.is_cuda and _NCCL_GROUP is not None
-    y = (x if nccl else x.cpu()).contiguous()
-    parts = [torch.empty_like(y) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, y, group=_NCCL_GROUP if nccl else None)
+    if len(ranks) == 1:
+        return AxisGroup(ranks)
+    if ranks == tuple(range(world()[1])):
+        return _world_group()
+    gloo = dist.new_group(list(ranks), timeout=POD_TIMEOUT, backend="gloo")
+    nccl = None
+    if _NCCL_GROUP is not None:
+        nccl = dist.new_group(list(ranks), timeout=POD_TIMEOUT,
+                              backend="nccl")
+    return AxisGroup(ranks, gloo, nccl)
+
+
+def all_gather(x: torch.Tensor, dim: int,
+               group: Optional[AxisGroup] = None) -> torch.Tensor:
+    """Every process's ``x`` (all of one shape) of ``group`` (default: the
+    world) joined along ``dim`` in rank order, on ``x``'s device: over
+    NCCL for a CUDA tensor where ``init_pod`` made an NCCL group, else
+    over gloo through host copies."""
+    group = group or _world_group()
+    if group.size == 1:
+        return x
+    pg, direct = group.backend(x)
+    y = (x if direct else x.cpu()).contiguous()
+    parts = [torch.empty_like(y) for _ in range(group.size)]
+    torch.distributed.all_gather(parts, y, group=pg)
     return torch.cat(parts, dim=dim).to(x.device)
 
 
 def all_gather_columns(x: torch.Tensor) -> torch.Tensor:
     """(B, c) on every process → (B, world·c), the processes' blocks in
     rank order."""
-    return _all_gather(x, 1)
+    return all_gather(x, 1)
 
 
 class _GatherRows(torch.autograd.Function):
@@ -351,55 +490,64 @@ class _GatherRows(torch.autograd.Function):
     where every process computes the same loss from the gathered rows."""
 
     @staticmethod
-    def forward(ctx, x):
-        ctx.lo, ctx.n = world()[0] * x.shape[0], x.shape[0]
-        return _all_gather(x, 0)
+    def forward(ctx, x, group):
+        ctx.lo, ctx.n = group.position * x.shape[0], x.shape[0]
+        return all_gather(x, 0, group)
 
     @staticmethod
     def backward(ctx, grad):
-        return grad[ctx.lo:ctx.lo + ctx.n]
+        return grad[ctx.lo:ctx.lo + ctx.n], None
 
 
-def gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """(B, ...) on every process → (world·B, ...), the processes' rows in
-    rank order, differentiable (``_GatherRows``)."""
+def gather_rows(x: torch.Tensor,
+                group: Optional[AxisGroup] = None) -> torch.Tensor:
+    """(B, ...) on every process of ``group`` (default: the world) →
+    (size·B, ...), the processes' rows in rank order, differentiable
+    (``_GatherRows``)."""
+    group = group or _world_group()
     if x.requires_grad:
-        return _GatherRows.apply(x)
-    return _all_gather(x, 0)
+        return _GatherRows.apply(x, group)
+    return all_gather(x, 0, group)
 
 
-def all_reduce_sum(tensors: Sequence[torch.Tensor]) -> None:
-    """Sum each tensor over the processes, in place: one collective per
-    device, over NCCL for CUDA tensors where ``init_pod`` made an NCCL
-    group, else over gloo through host copies.  Every process ends with
-    the same sums."""
-    dist = torch.distributed
+def all_reduce_sum(tensors: Sequence[torch.Tensor],
+                   group: Optional[AxisGroup] = None) -> None:
+    """Sum each tensor over the processes of ``group`` (default: the
+    world), in place: one collective per device, over NCCL for CUDA
+    tensors where ``init_pod`` made an NCCL group, else over gloo through
+    host copies.  Every process ends with the same sums."""
+    group = group or _world_group()
+    if group.size == 1:
+        return
     by_device = {}
     for t in tensors:
         by_device.setdefault(t.device, []).append(t)
-    for dev, group in by_device.items():
-        nccl = dev.type == "cuda" and _NCCL_GROUP is not None
-        flat = torch.cat([t.reshape(-1) for t in group])
-        buf = flat if nccl else flat.cpu()
-        dist.all_reduce(buf, group=_NCCL_GROUP if nccl else None)
+    for dev, ts in by_device.items():
+        flat = torch.cat([t.reshape(-1) for t in ts])
+        pg, direct = group.backend(flat)
+        buf = flat if direct else flat.cpu()
+        torch.distributed.all_reduce(buf, group=pg)
         flat = buf.to(dev)
         at = 0
-        for t in group:
+        for t in ts:
             t.copy_(flat[at:at + t.numel()].view_as(t))
             at += t.numel()
 
 
 def _home(mesh: Mesh) -> torch.device:
-    """This process's first data entry's device."""
-    return mesh.data_entries()[0][1][0]
+    """This process's first device on the mesh, row by row: where its
+    first data entry (or, tensor-parallel, its first shard of it) runs."""
+    return next(d for drow, rrow in zip(mesh.devices, mesh.ranks)
+                for d, r in zip(drow, rrow) if r == mesh.rank)
 
 
 def host_local_batch_to_global(batch, mesh: Mesh):
     """Pod mode: each process holds its local slice of a global batch (its
-    data entries' rows).  The eager port needs no global array: the slice
-    goes, as tensors, to this process's first data entry's device, and a
-    step over ``mesh`` gathers what it needs across the processes.  A
-    no-op in a single process."""
+    data entries' rows; the processes of one data row, tensor-parallel,
+    pass the same rows, as in JAX's ``P(DATA_AXIS)``).  The eager port
+    needs no global array: the slice goes, as tensors, to this process's
+    first device on the mesh, and a step over ``mesh`` gathers what it
+    needs across the processes.  A no-op in a single process."""
     if world()[1] == 1:
         return batch
     dev = _home(mesh)
@@ -408,7 +556,7 @@ def host_local_batch_to_global(batch, mesh: Mesh):
 
 def replicate_to_global(tree, mesh: Mesh):
     """Pod mode: identical per-process values placed on this process's
-    first data entry's device: a train state (its ``to``), a module, a
+    first device on the mesh: a train state (its ``to``), a module, a
     dict of them or a tensor.  A no-op in a single process."""
     if world()[1] == 1:
         return tree

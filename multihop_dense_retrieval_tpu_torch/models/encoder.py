@@ -43,7 +43,13 @@ step, so a checkpoint gives the same vectors in both:
     each index shard's heads and FFN columns on its device and adds the
     shards' partial output projections in fp32, in shard order, before
     the replicated bias and one downcast: in bf16 that rounds otherwise
-    than the unsharded product (one rounding of the whole sum);
+    than the unsharded product (one rounding of the whole sum).  The
+    gradient of the shards' common input is the sum of the shards' own,
+    in shard order.  Where other processes hold some of the shards (the
+    index group), both sums gather the shards' terms over the group
+    first and then add them in the same order, so a step across
+    processes computes what the one-process step does, and every process
+    of the group gets the same sums, bit for bit;
   * ``remat`` recomputes each layer in the backward pass
     (``torch.utils.checkpoint``, as ``nn.remat`` in JAX): less activation
     memory for more FLOPs, the same numbers.
@@ -62,6 +68,7 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.config import EncoderConfig
+from ..core.mesh import all_gather
 from ..ops.fused_attention import fused_attention
 from ..parallel.sharding import ShardedLinear
 
@@ -99,13 +106,61 @@ def _dense(x, weight, bias=None):
     return y if bias is None else y + bias.to(x.dtype)
 
 
+def _in_order(terms):
+    """The terms added left to right."""
+    acc = terms[0]
+    for t in terms[1:]:
+        acc = acc + t
+    return acc
+
+
+class _RowParallelSum(torch.autograd.Function):
+    """Forward: this process's shards' fp32 partial sums (on one device)
+    gathered with the other processes' over the index group, and added in
+    global shard order (the one-process fold, so fp32 stays equal to it;
+    no all-reduce, whose order of summation is unspecified).  Backward:
+    each of this process's partials gets the incoming gradient
+    unchanged."""
+
+    @staticmethod
+    def forward(ctx, group, *parts):
+        ctx.n = len(parts)
+        return _in_order(list(all_gather(torch.stack(parts), 0, group)))
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (None,) + (grad,) * ctx.n
+
+
+class _ShardInputs(torch.autograd.Function):
+    """Forward: the column-parallel linears' input, once on each of this
+    process's shards' devices (the identity).  Backward: the shards'
+    gradients of it added in shard order on the input's device; with an
+    index group, gathered over it first, so that the replicated
+    LayerNorms and embeddings upstream see the whole gradient, the same on
+    every process of the group."""
+
+    @staticmethod
+    def forward(ctx, x, devices, group):
+        ctx.home, ctx.group = x.device, group
+        return tuple(x.to(d) for d in devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        grads = [g.to(ctx.home) for g in grads]
+        if ctx.group is not None:
+            grads = list(all_gather(torch.stack(grads), 0, ctx.group))
+        return _in_order(grads), None, None
+
+
 def row_parallel(parts, lin: ShardedLinear, home: torch.device, dt):
     """The index shards' partial products of a row-parallel linear, added
-    in shard order in fp32 on ``home``, then its replicated bias (rounded
+    in shard order in fp32 on ``home`` (across processes: over ``lin``'s
+    index group, ``_RowParallelSum``), then its replicated bias (rounded
     to the compute dtype, as ``dense`` uses it) once, then one downcast."""
-    acc = parts[0].float().to(home)
-    for p in parts[1:]:
-        acc = acc + p.float().to(home)
+    parts = [p.float().to(home) for p in parts]
+    acc = _in_order(parts) if lin.group is None else \
+        _RowParallelSum.apply(lin.group, *parts)
     return (acc + lin.bias.to(dt).float().to(home)).to(dt)
 
 
@@ -212,7 +267,7 @@ class Attention(nn.Module):
         if shard is None:
             proj = dense
         else:
-            nh //= len(sa.query.weight)
+            nh //= sa.query.n_shards
 
             def proj(inp, lin):
                 return _dense(inp, *lin.block(shard))
@@ -273,25 +328,29 @@ class EncoderLayer(nn.Module):
 
     def _tensor_parallel(self, x, attn_bias, attention_mask, q_positions):
         """The layer over index shards (``parallel/sharding.py``): each
-        shard computes its heads' context and its partial output
-        projection, then its FFN columns and their partial output
-        projection, on its device; ``row_parallel`` adds the partial sums
-        on ``x``'s device, where the residuals and LayerNorms run.
-        Autograd carries each block's gradient back to its device."""
+        of this process's shards computes its heads' context and its
+        partial output projection, then its FFN columns and their partial
+        output projection, on its device; ``row_parallel`` adds the
+        partial sums on ``x``'s device, where the residuals and LayerNorms
+        run.  Autograd carries each block's gradient back to its device,
+        and ``_ShardInputs`` adds the shards' gradients of their input."""
         dt, home = self.c.torch_dtype, x.device
         att_out, inter_lin = self.attention.output.dense, self.intermediate.dense
         parts = []
-        for s, dev in enumerate(att_out.devices):
+        for s, xs in enumerate(_ShardInputs.apply(x, att_out.devices,
+                                                  att_out.group)):
+            dev = xs.device
             ctx = self.attention.context(
-                x.to(dev), attn_bias.to(dev), attention_mask.to(dev),
+                xs, attn_bias.to(dev), attention_mask.to(dev),
                 q_positions, shard=s)
             parts.append(_dense(ctx, att_out.weight[s]))
         res = x if q_positions is None else x[:, :q_positions]
         x = layer_norm(res + row_parallel(parts, att_out, home, dt),
                        self.attention.output.LayerNorm).to(dt)
         parts = []
-        for s, dev in enumerate(inter_lin.devices):
-            inter = self.act(_dense(x.to(dev), *inter_lin.block(s)))
+        for s, xs in enumerate(_ShardInputs.apply(x, inter_lin.devices,
+                                                  inter_lin.group)):
+            inter = self.act(_dense(xs, *inter_lin.block(s)))
             parts.append(_dense(inter, self.output.dense.weight[s]))
         out = row_parallel(parts, self.output.dense, home, dt)
         return layer_norm(x + out, self.output.LayerNorm).to(dt)

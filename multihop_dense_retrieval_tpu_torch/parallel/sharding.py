@@ -24,8 +24,14 @@ parameters stay where they are: on the mesh's home device.  The encoder's
 layers see the blocks and compute each shard's heads and FFN columns on
 its device (``models/encoder.py``).
 
-Tensor parallelism over an index axis that spans processes is not ported
-(ROADMAP item 12c) and raises.
+Over an index axis that spans processes (``Mesh.check_tensor_parallel``
+says which layouts run), a process keeps only its own blocks, with their
+global shard ids, and the ``ShardedLinear`` holds the index group (the
+processes of its data row, ``Mesh.axis_groups``): the encoder gathers the
+shards' partial sums over it, and ``gather_state_dict`` gathers the
+blocks.  Every process of the world calls ``shard_params`` (it may make
+the mesh's groups) and ``constrain_params``; every process of an index
+group calls ``gather_state_dict`` together.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn as nn
 
-from ..core.mesh import INDEX_AXIS, Mesh
+from ..core.mesh import INDEX_AXIS, AxisGroup, Mesh, all_gather
 
 # (suffix of a parameter name, the dim its weight splits on, whether its
 # bias splits too)
@@ -52,25 +58,32 @@ def _rule(linear_name: str):
 
 
 class ShardedLinear(nn.Module):
-    """An ``nn.Linear`` cut into equal blocks along ``dim`` of its (out, in)
-    weight, block s a parameter of its own on ``devices[s]``.  dim 0
-    (column-parallel) cuts the bias with the weight; dim 1 (row-parallel)
-    keeps the bias whole, a replicated parameter on the linear's own
-    device.  ``weight[s]`` and (column-parallel) ``bias[s]`` are the
-    blocks; ``gathered()`` is the linear's (weight, bias) in one piece."""
+    """An ``nn.Linear`` cut into ``n_shards`` equal blocks along ``dim`` of
+    its (out, in) weight; this process keeps the blocks of ``shards``
+    ((global shard id, device), in shard order), each a parameter of its
+    own on its device.  dim 0 (column-parallel) cuts the bias with the
+    weight; dim 1 (row-parallel) keeps the bias whole, a replicated
+    parameter on the linear's own device.  ``weight[s]`` and
+    (column-parallel) ``bias[s]`` are the blocks of ``shard_ids[s]``;
+    ``group``, where other processes hold the other blocks, is the index
+    group (None where this process holds every block); ``gathered()`` is
+    the linear's (weight, bias) in one piece."""
 
-    def __init__(self, lin: nn.Linear, dim: int, devices):
+    def __init__(self, lin: nn.Linear, dim: int, shards, n_shards: int,
+                 group: Optional[AxisGroup] = None):
         super().__init__()
-        self.dim = dim
-        n = len(devices)
+        self.dim, self.n_shards, self.group = dim, n_shards, group
+        self.shard_ids = tuple(s for s, _ in shards)
         with torch.no_grad():
+            ws = lin.weight.chunk(n_shards, dim)
             self.weight = nn.ParameterList(
-                nn.Parameter(w.to(d, copy=True), lin.weight.requires_grad)
-                for w, d in zip(lin.weight.chunk(n, dim), devices))
+                nn.Parameter(ws[s].to(d, copy=True), lin.weight.requires_grad)
+                for s, d in shards)
             if dim == 0:
+                bs = lin.bias.chunk(n_shards, 0)
                 self.bias = nn.ParameterList(
-                    nn.Parameter(b.to(d, copy=True), lin.bias.requires_grad)
-                    for b, d in zip(lin.bias.chunk(n, 0), devices))
+                    nn.Parameter(bs[s].to(d, copy=True), lin.bias.requires_grad)
+                    for s, d in shards)
             else:
                 self.bias = lin.bias
 
@@ -78,26 +91,40 @@ class ShardedLinear(nn.Module):
     def devices(self) -> tuple:
         return tuple(w.device for w in self.weight)
 
+    def blocks(self) -> list:
+        """This process's block parameters: the weight's, then the
+        bias's (column-parallel)."""
+        return list(self.weight) + (list(self.bias) if self.dim == 0 else [])
+
     def block(self, s: int):
         """(weight, bias) of block s; a row-parallel block has no bias."""
         return self.weight[s], (self.bias[s] if self.dim == 0 else None)
 
     def gathered(self):
         """The unsplit (weight, bias) on block 0's device (the bias on
-        its own device when it is replicated), bit for bit."""
+        its own device when it is replicated), bit for bit.  Collective
+        over ``group``, where there is one."""
         home = self.weight[0].device
-        w = torch.cat([b.detach().to(home) for b in self.weight], self.dim)
+
+        def join(blocks, dim):
+            x = torch.cat([b.detach().to(home) for b in blocks], dim)
+            return x if self.group is None else all_gather(x, dim,
+                                                           self.group)
+
         if self.dim == 0:
-            return w, torch.cat([b.detach().to(home) for b in self.bias])
-        return w, self.bias.detach()
+            return join(self.weight, 0), join(self.bias, 0)
+        return join(self.weight, 1), self.bias.detach()
 
 
-def _axis_devices(mesh: Mesh, axis: str) -> list:
-    """The index shards' devices of this process's first data row."""
+def _axis_shards(mesh: Mesh, axis: str):
+    """((shard id, device) of this process's index shards of its first data
+    row, the index group: None where the row is this process's alone)."""
     if axis != INDEX_AXIS:
         raise ValueError(f"tensor parallelism runs over the {INDEX_AXIS!r} "
                          f"axis, not {axis!r}")
-    return list(mesh.data_entries(tensor_parallel=True)[0][1])
+    shards = list(mesh.data_entries(tensor_parallel=True)[0][1])
+    group = mesh.axis_groups()[0]
+    return shards, (group if group.size > 1 else None)
 
 
 def _check_divides(model: nn.Module, n: int):
@@ -147,27 +174,32 @@ def _split_modules(model: nn.Module):
 def shard_params(model: nn.Module, mesh: Mesh,
                  axis: str = INDEX_AXIS) -> nn.Module:
     """Lay ``model`` out tensor-parallel over the mesh's ``axis``, in
-    place: each split linear becomes a ``ShardedLinear`` with block s on
-    shard s's device.  Returns the model."""
-    devs = _axis_devices(mesh, axis)
-    _check_divides(model, len(devs))
+    place: each split linear becomes a ``ShardedLinear`` that keeps this
+    process's blocks, block s on shard s's device.  Returns the model."""
+    shards, group = _axis_shards(mesh, axis)
+    n = mesh.shape[axis]
+    _check_divides(model, n)
     for parent, name, child, (dim, _) in list(_split_modules(model)):
         if isinstance(child, ShardedLinear):
             raise ValueError(f"{name} is already split; constrain_params "
                              f"takes a model that may be")
-        setattr(parent, name, ShardedLinear(child, dim, devs))
+        setattr(parent, name, ShardedLinear(child, dim, shards, n, group))
     return model
 
 
 def is_sharded(model: nn.Module, mesh: Mesh, axis: str = INDEX_AXIS) -> bool:
     """Whether every split linear of ``model`` is in the mesh's layout;
-    raises where the model is split over other devices."""
-    devs = tuple(torch.device(d) for d in _axis_devices(mesh, axis))
+    raises where the model is split over other shards or devices."""
+    shards, _ = _axis_shards(mesh, axis)
+    ids = tuple(s for s, _ in shards)
+    devs = tuple(torch.device(d) for _, d in shards)
     kinds = [child for *_, child, _ in _split_modules(model)]
     split = [c for c in kinds if isinstance(c, ShardedLinear)]
     if not split:
         return False
-    if len(split) != len(kinds) or any(c.devices != devs for c in split):
+    if len(split) != len(kinds) or any(
+            c.devices != devs or c.shard_ids != ids or
+            c.n_shards != mesh.shape[axis] for c in split):
         raise ValueError("the model is split over other devices than the "
                          "mesh's index shards")
     return True
@@ -185,7 +217,10 @@ def constrain_params(model: nn.Module, mesh: Mesh,
 def gather_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
     """``model.state_dict()`` under the unsharded names, in their order:
     each ``ShardedLinear``'s blocks joined back into one weight (and bias),
-    bit for bit; the state dict itself where nothing is split."""
+    bit for bit; the state dict itself where nothing is split.  Where
+    other processes hold blocks, the blocks are gathered over the index
+    group: every process of the group must call this, and each gets the
+    whole state dict."""
     sharded = {name: mod for name, mod in model.named_modules()
                if isinstance(mod, ShardedLinear)}
     out = {}

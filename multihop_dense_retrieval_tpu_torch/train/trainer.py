@@ -25,7 +25,7 @@ and the epoch loop (the JAX package's ``train/trainer.py``).
     global loss, summed over the replicas in a fixed order before one
     clip and one update.  ``tensor_parallel=True`` on ``make_train_step``
     also splits the attention heads and the FFN over the index axis
-    (``parallel/sharding.py``).
+    (``parallel/sharding.py``), across processes too.
   * ``RetrieverTrainer.run`` is the epoch loop: in-batch MRR after every
     epoch, ``checkpoint_last.pt`` / ``checkpoint_best.pt`` as state dicts
     in the reference layout (the serving CLIs' ``--checkpoint`` reads
@@ -49,8 +49,8 @@ import torch
 import torch.nn as nn
 
 from ..core.config import RetrieverTrainConfig
-from ..core.mesh import (DATA_AXIS, Mesh, all_reduce_sum, gather_rows,
-                         on_device)
+from ..core.mesh import (DATA_AXIS, Mesh, all_gather, all_reduce_sum,
+                         gather_rows, on_device)
 from ..models.export import unified_reference_names
 from ..models.retriever import UnifiedRetriever
 from ..parallel.sharding import (ShardedLinear, constrain_params,
@@ -109,20 +109,33 @@ def _by_device(tensors) -> dict:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(grads, max_norm: float, split=None) -> torch.Tensor:
     """optax's ``clip_by_global_norm``, in place, without a host sync:
     every gradient becomes ``(g / norm) * max_norm`` when the global norm
     is >= ``max_norm`` and stays as it is below.  Gradients on several
     devices (tensor-parallel blocks): the per-tensor norms are reduced,
-    in the gradients' order, on the first gradient's device.  Returns the
-    norm."""
+    in the gradients' order, on the first gradient's device.  ``split``
+    = (mask, index group), where other processes hold some blocks: the
+    squares of the gradients that ``mask`` marks (this process's blocks)
+    are summed over the group, in rank order, and each of the others
+    (replicated) is added once, so every process clips by the same norm.
+    Returns the norm."""
     home = grads[0].device
     groups = _by_device(grads)
     norms = [None] * len(grads)
     for idx in groups.values():
         for i, n in zip(idx, torch._foreach_norm([grads[i] for i in idx])):
             norms[i] = n.to(home)
-    norm = torch.linalg.vector_norm(torch.stack(norms))
+    if split is None:
+        norm = torch.linalg.vector_norm(torch.stack(norms))
+    else:
+        mask, group = split
+        sq = torch.stack(norms) ** 2
+        blocks = sq[torch.tensor(mask, device=home)].sum().reshape(1)
+        total = sq[torch.tensor([not m for m in mask], device=home)].sum()
+        for part in all_gather(blocks, 0, group):
+            total = total + part
+        norm = torch.sqrt(total)
     keep = norm < max_norm
     div, mul = torch.where(keep, 1.0, norm), torch.where(keep, 1.0, max_norm)
     for dev, idx in groups.items():
@@ -130,6 +143,18 @@ def clip_by_global_norm(grads, max_norm: float) -> torch.Tensor:
         torch._foreach_div_(group, div.to(dev))
         torch._foreach_mul_(group, mul.to(dev))
     return norm
+
+
+def _split(model: nn.Module, params) -> Optional[tuple]:
+    """(which of ``params`` are blocks that other processes' blocks
+    complete, the index group) of a model laid out across processes;
+    None elsewhere."""
+    mods = [m for m in model.modules()
+            if isinstance(m, ShardedLinear) and m.group is not None]
+    if not mods:
+        return None
+    blocks = {id(p) for m in mods for p in m.blocks()}
+    return [id(p) in blocks for p in params], mods[0].group
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,6 +187,7 @@ class OptState:
         named = [(n, p) for n, p in model.named_parameters()
                  if p.requires_grad]
         self.params = [p for _, p in named]
+        self.split = _split(model, self.params)
         groups = [{"params": [p for n, p in named if n not in skip],
                    "weight_decay": cfg.weight_decay},
                   {"params": [p for n, p in named if n in skip],
@@ -200,7 +226,7 @@ class OptState:
             for g, a in zip(grads, self.acc):
                 g.copy_(a)
                 a.zero_()
-        clip_by_global_norm(grads, self.max_grad_norm)
+        clip_by_global_norm(grads, self.max_grad_norm, self.split)
         self.adam.step()
         self.sched.step()
         self.adam.zero_grad(set_to_none=True)
@@ -458,19 +484,36 @@ class DataParallel:
     model's, replica by replica in entry order, then over the processes
     (``core.mesh.all_reduce_sum``); one clip and one Adam update follow.
 
-    A replica whose devices are the model's own is the model itself (a
-    mesh of ``[cpu] * 8`` runs every slice through the one model, as the
-    JAX tests' 8 virtual devices each compute with the same replicated
-    parameters); elsewhere it is a copy made once and set to the model's
-    parameters before every use, so it equals the model whenever it
-    computes.  With ``tensor_parallel`` an entry is a whole data row, its
-    index shards holding the blocks (``parallel/sharding.py``)."""
+    The first entry on the model's own devices computes on the model
+    itself; every other entry on a twin of its own (``replicas``): on the
+    model's devices its parameters share the model's storage (a mesh of
+    ``[cpu] * 8`` computes every slice with the one set of parameters, as
+    the JAX tests' 8 virtual devices each compute with the same
+    replicated parameters), elsewhere it is a copy made once and set to
+    the model's parameters before every use, so it equals the model
+    whenever it computes.  Each entry's gradient thus collects on its
+    own before the entries' are added, in entry order.
+
+    With ``tensor_parallel`` an entry is a whole data row, or this
+    process's shards of it, its index shards holding the blocks
+    (``parallel/sharding.py``); the rows are then gathered, and the
+    gradients summed, over the data group only (``Mesh.axis_groups``: the
+    processes that hold this process's shard positions), since the
+    processes of one data row hold the same rows and the same replicated
+    gradients."""
 
     def __init__(self, mesh: Mesh, tensor_parallel: bool = False):
         self.tp = tensor_parallel
-        self.entries = mesh.data_entries(tensor_parallel)
         self.n_data = mesh.shape[DATA_AXIS]
-        self.across = len(self.entries) < self.n_data
+        if tensor_parallel:
+            self.entries = [(i, tuple(d for _, d in shards)) for i, shards
+                            in mesh.data_entries(tensor_parallel=True)]
+            self.group = mesh.axis_groups()[1]
+            self.across = self.group.size > 1
+        else:
+            self.entries = mesh.data_entries()
+            self.group = None
+            self.across = len(self.entries) < self.n_data
         self._copies = weakref.WeakKeyDictionary()
 
     def split(self, batch: Dict) -> list:
@@ -488,33 +531,44 @@ class DataParallel:
                 for j, (_, devs) in enumerate(self.entries)]
 
     def replicas(self, model: nn.Module) -> list:
-        """The model for each entry: itself, or a copy set to it."""
+        """The replica of each entry: the model itself for the first
+        entry on the model's own devices; for every other entry a twin of
+        its own, made once: on the model's devices one whose parameters
+        share the model's storage, elsewhere a copy set to the model
+        before every use.  So each entry's gradient collects on its own,
+        and ``reduce_grads`` adds the entries' in entry order."""
         own = _layout(model)
-        copies = self._copies.setdefault(model, {})
+        twins = self._copies.setdefault(model, {})
         shapes = [p.shape for p in model.parameters()]
         out = []
-        for _, devs in self.entries:
+        for j, (_, devs) in enumerate(self.entries):
             want = (devs[0],) + (devs if self.tp else ())
-            if want == own:
+            if want == own and not any(m is model for m in out):
                 out.append(model)
                 continue
-            twin = copies.get(want)
+            twin = twins.get(j)
             if twin is None or [p.shape for p in twin.parameters()] != shapes:
-                twin = copies[want] = _placed_copy(model, want)
+                # never an inference tensor: an eval may make the twin
+                with torch.inference_mode(False):
+                    twin = twins[j] = _placed_copy(model, want)
             with torch.no_grad():
                 for a, b in zip(twin.parameters(), model.parameters()):
-                    a.copy_(b, non_blocking=True)
+                    if want == own:
+                        a.data = b.data
+                    else:
+                        a.copy_(b, non_blocking=True)
             out.append(twin)
         return out
 
     def rows(self, tensors: Dict, home: torch.device) -> Dict:
         """Each entry's rows (a dict of tensors, None kept), joined in
-        data-axis order on ``home``, then over the processes."""
+        data-axis order on ``home``, then over the processes (of the data
+        group, tensor-parallel)."""
         out = {}
         for k, v in tensors.items():
             if v is not None:
                 v = torch.as_tensor(v).to(home)
-                v = gather_rows(v) if self.across else v
+                v = gather_rows(v, self.group) if self.across else v
             out[k] = v
         return out
 
@@ -534,18 +588,20 @@ class DataParallel:
 
     def reduce_grads(self, model: nn.Module):
         """The gradients of the global loss, summed into ``model``'s: its
-        own, then each copy's in entry order, then over the processes."""
+        own, then each twin's in entry order, then over the processes (of
+        the data group, tensor-parallel)."""
         params = [p for p in model.parameters() if p.requires_grad]
         for p in params:
             if p.grad is None:        # a parameter the loss never reached
                 p.grad = torch.zeros_like(p)
-        for twin in self._copies.get(model, {}).values():
-            for p, q in zip(model.parameters(), twin.parameters()):
+        twins = self._copies.get(model, {})
+        for j in sorted(twins):
+            for p, q in zip(model.parameters(), twins[j].parameters()):
                 if q.grad is not None:
                     p.grad += q.grad.to(p.device)
                     q.grad = None
         if self.across:
-            all_reduce_sum([p.grad for p in params])
+            all_reduce_sum([p.grad for p in params], self.group)
 
 
 def _data_parallel(mesh: Optional[Mesh], tensor_parallel: bool = False
@@ -781,7 +837,9 @@ def reference_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
     retriever's own names, except that a UnifiedRetriever keeps its
     transformer under ``encoder_c.``, its stop head as ``stop`` and its
     tanh pooler as ``encoder_c.pooler.dense``.  A tensor-parallel model's
-    blocks are joined back into the reference layout, bit for bit."""
+    blocks are joined back into the reference layout, bit for bit; where
+    other processes hold some of them, they are gathered over the index
+    group, so every process of the group must call this."""
     sd = gather_state_dict(model)
     if not isinstance(model, UnifiedRetriever):
         return sd

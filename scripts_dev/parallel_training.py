@@ -1,9 +1,9 @@
 """chip_smoke.py's leg o alone: the port's data- and tensor-parallel
-training (o1-o5) on the visible cards.  Where the host shows two or more,
+training (o1-o6) on the visible cards.  Where the host shows two or more,
 every check also runs over cuda:0 and cuda:1 (the data entries' copy of
 the model on cuda:1, the tensor-parallel blocks on two cards, NCCL
-between the two processes of o5), and the throughput lines carry each
-card's peak memory.
+between the two processes of o5 and of o6), and the throughput lines
+carry each card's peak memory.
 
 Run on a GPU host from the repository root:
   python3 scripts_dev/parallel_training.py

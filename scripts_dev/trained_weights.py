@@ -189,9 +189,14 @@ def main():
     chip_smoke.track_routes(mips, importlib.import_module(
         "multihop_dense_retrieval_tpu_torch.ops.fused_attention"))
     chip_smoke.say(f"card: {smi}; build {_build.build_all():.1f} s")
+    subs = {}
     with tempfile.TemporaryDirectory() as tmp:
-        launches = chip_smoke.run_trained_weights(
-            mips, torch.device("cuda", 0), smi, tmp)
+        try:
+            subs = chip_smoke.start_p_sub_legs(smi, tmp)
+            launches = chip_smoke.run_trained_weights(
+                mips, torch.device("cuda", 0), smi, tmp, subs)
+        finally:
+            chip_smoke.stop_processes(subs)
     for leg, counts in launches.items():
         for name in chip_smoke.MMA_KERNELS:
             taken = counts["routes"].get(name, [])

@@ -171,24 +171,39 @@ def test_shards_that_do_not_divide_raise(heads, inter, what):
         encoder_param_specs(model, _cpu_mesh(1, 3))
 
 
-def test_tensor_parallel_across_processes_raises_item_12c():
-    """An index axis whose shards two processes hold: not ported."""
-    mesh = Mesh(devices=((CPU, CPU),), ranks=((0, 1),), rank=0)
+@pytest.mark.parametrize("ranks", [((0, 1, 0, 1),), ((0, 0, 1, 1), (1, 1, 0, 0)),
+                                   ((0, 1, 1, 0),), ((0, 0, 1, 1), (0, 0, 2, 2))],
+                         ids=["interleaved", "rank-order", "not-contiguous",
+                              "other-peers"])
+def test_tensor_parallel_layout_that_interleaves_ranks_raises(ranks):
+    """A data row whose index shards interleave processes, or come out of
+    rank order, or a process holding its shards beside other processes
+    in another row: ``ValueError`` from the layout check, before any
+    group or collective (no process group exists here)."""
+    mesh = Mesh(devices=tuple((CPU,) * 4 for _ in ranks), ranks=ranks,
+                rank=0)
     model = MhopRetriever(EncoderConfig.tiny(**TP_KW))
-    with pytest.raises(NotImplementedError, match="item 12c"):
+    with pytest.raises(ValueError, match="rank"):
         shard_params(model, mesh)
-    with pytest.raises(NotImplementedError, match="item 12c"):
+    with pytest.raises(ValueError, match="rank"):
         T.make_train_step(mesh=mesh, tensor_parallel=True)
+    assert not torch.distributed.is_initialized()
 
 
 # ---- the TP step ---------------------------------------------------------
 
 
-def _jax_tp_steps():
-    """JAX's base and TP steps (tests/test_parallel.py) from one init."""
+def _jax_tp_init():
+    """tests/test_parallel.py's model, batch and initial parameters."""
     model = JaxMhop(JaxEncoderConfig.tiny(**TP_KW))
     batch = _j(_tp_batch())
-    params = model.init(jax.random.PRNGKey(0), batch)
+    return model, batch, model.init(jax.random.PRNGKey(0), batch)
+
+
+def _jax_tp_steps(init=None):
+    """JAX's base and TP steps (tests/test_parallel.py) from one init
+    (``_jax_tp_init``'s)."""
+    model, batch, params = init or _jax_tp_init()
     host = jax.device_get(params)       # the step donates its state
     tx = JT.make_optimizer(JaxTrainConfig(warmup_ratio=0.0, learning_rate=LR),
                            10)

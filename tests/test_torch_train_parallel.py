@@ -212,10 +212,10 @@ def _joined(grads, model):
 
 @pytest.mark.parametrize("tp", [False, True], ids=["dp", "dp_x_tp"])
 def test_data_parallel_step_through_replica_copies(monkeypatch, tp):
-    """Where an entry's devices are not the model's, it computes on a copy:
-    made once (with ``tp``, its blocks placed on the entry's index
-    shards), set to the model before every use, its gradient summed into
-    the model's and cleared.  Forced here on the CPU (the model reports
+    """Where an entry's devices are not the model's, it computes on a copy
+    of its own: made once (with ``tp``, its blocks placed on the entry's
+    index shards), set to the model before every use, its gradient summed
+    into the model's, in entry order, and cleared.  Forced here on the CPU (the model reports
     another device), the step equals the one that runs every slice
     through the model itself, and the copies equal the model when they
     compute again."""
@@ -251,8 +251,8 @@ def test_data_parallel_step_through_replica_copies(monkeypatch, tp):
     dp = next(c.cell_contents for c in dp
               if isinstance(c.cell_contents, T.DataParallel))
     twins = dp.replicas(model)
-    assert len(twins) == 4 and all(t is twins[0] for t in twins)
-    assert twins[0] is not model
+    assert len({id(t) for t in twins}) == 4
+    assert not any(t is model for t in twins)
     for p, q in zip(model.parameters(), twins[0].parameters()):
         assert torch.equal(p, q) and q.grad is None
 
