@@ -1,0 +1,11 @@
+"""mips_ms.retrieve: device milliseconds per batch of the operations
+launched inside the search's ranges (the program's ``hop1_mips`` and
+``hop2_mips``, or the benchmark's ``mips``) in the traced segment."""
+
+
+def read(r):
+    names = r.extra.get("mips_ranges")
+    if r.trace is None or not names or not r.trace_steps:
+        return None
+    us = r.trace.device_us_in(names)
+    return us * 1e-3 / r.trace_steps if us > 0 else None
