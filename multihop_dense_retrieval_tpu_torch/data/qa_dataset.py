@@ -21,7 +21,8 @@ Differences from the reference (all static-shape driven):
 
 A copy of the JAX package's ``data/qa_dataset.py`` (which imports no JAX)
 over the port's ``data/tokenization.py``; tests/test_torch_reader.py holds
-the two to bit-equal features.
+the two to bit-equal features.  An item's featurization is the span
+``read_featurize`` of ``utils/profiling.py``.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from ..utils.profiling import span
 from .tokenization import _Base as Tokenizer
 
 
@@ -295,7 +297,8 @@ class QADataset:
         return len(self.data)
 
     def __getitem__(self, i: int) -> Dict:
-        return self.builder.build(self.data[i], self.train)
+        with span("read_featurize"):
+            return self.builder.build(self.data[i], self.train)
 
 
 class QAGroupSampler:

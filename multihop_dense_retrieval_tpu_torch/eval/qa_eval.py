@@ -8,6 +8,15 @@ their longest row rounded up to a multiple of 64, and the two-stage read
 (rank_filter) keeps the top-m chains per question, as in the JAX package.
 The steps take the collated numpy inputs and return tensors; results come
 back to the host once per batch.
+
+``predict``'s steps are spans of ``utils/profiling.py``: ``read`` (the
+call), ``read_featurize`` (each item, ``data/qa_dataset.py``),
+``read_collate`` (a batch's collate and width trim), ``read_step`` (the
+step's copies in and launches), ``read_fetch`` (its results to the host),
+``read_decode`` (answers and supporting facts) and ``read_rank`` (chain EM
+and the λ sweep).  With a recorder on, each batch counts
+``read.tokens_real`` (its real rows' tokens) and ``read.tokens_run``
+(batch × width, pad rows included).
 """
 
 from __future__ import annotations
@@ -19,6 +28,7 @@ import numpy as np
 import torch
 
 from ..data.qa_dataset import QADataset, qa_collate, decode_answer
+from ..utils.profiling import count, recording, span
 from .hotpot_metrics import (update_answer, update_sp,
                              joint_metrics, new_metrics)
 
@@ -52,13 +62,19 @@ def _batches(dataset: QADataset, batch_size: int, *,
     for s in range(0, len(idxs), batch_size):
         chunk = idxs[s:s + batch_size]
         pad = batch_size - len(chunk)
-        batch = qa_collate([dataset[i] for i in chunk + chunk[-1:] * pad])
-        if width_multiple:
+        samples = [dataset[i] for i in chunk + chunk[-1:] * pad]
+        with span("read_collate"):
+            batch = qa_collate(samples)
             ni = batch["net_inputs"]
-            max_len = int(ni["attention_mask"].sum(1).max())
-            _truncate_width(ni, max(width_multiple,
-                                    -(-max_len // width_multiple)
-                                    * width_multiple))
+            if width_multiple:
+                max_len = int(ni["attention_mask"].sum(1).max())
+                _truncate_width(ni, max(width_multiple,
+                                        -(-max_len // width_multiple)
+                                        * width_multiple))
+        if recording():
+            mask = ni["attention_mask"]
+            count("read.tokens_real", int(mask[:len(chunk)].sum()))
+            count("read.tokens_run", mask.size)
         yield batch, len(chunk)
 
 
@@ -85,7 +101,8 @@ class _Subset:
 
 
 def _host(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    return {k: v.cpu().numpy() for k, v in out.items()}
+    with span("read_fetch"):
+        return {k: v.cpu().numpy() for k, v in out.items()}
 
 
 def rank_filter(rank_step: Callable, dataset: QADataset, *,
@@ -163,19 +180,39 @@ def predict(predict_step: Callable, dataset: QADataset, *,
     per-batch width (None = never truncate — exact w.r.t. a full-width
     rank pass).
     """
-    if rank_topm and rank_step is not None:
-        keep, cache = rank_filter(rank_step, dataset,
-                                  batch_size=batch_size, topm=rank_topm,
-                                  rank_width=rank_width)
-        dataset = _Subset(dataset, keep, cache)
-    id2result = collections.defaultdict(list)
-    id2answer = collections.defaultdict(list)
-    id2gold, id2goldsp = {}, {}
+    with span("read"):
+        if rank_topm and rank_step is not None:
+            keep, cache = rank_filter(rank_step, dataset,
+                                      batch_size=batch_size, topm=rank_topm,
+                                      rank_width=rank_width)
+            dataset = _Subset(dataset, keep, cache)
+        chains = _Chains()
+        for batch, n_real in _batches(dataset, batch_size,
+                                      length_sort=length_sort,
+                                      width_multiple=width_multiple):
+            with span("read_step"):
+                out = predict_step(batch["net_inputs"])
+            out = _host(out)
+            with span("read_decode"):
+                chains.decode(batch, out, n_real, sp_pred)
+        with span("read_rank"):
+            return chains.rank(lambdas, sp_pred)
 
-    for batch, n_real in _batches(dataset, batch_size,
-                                  length_sort=length_sort,
-                                  width_multiple=width_multiple):
-        out = _host(predict_step(batch["net_inputs"]))
+
+class _Chains:
+    """Per question: each chain's label and rank score, its decoded
+    answer, span score and supporting facts, and the gold answer and
+    facts."""
+
+    def __init__(self):
+        self.id2result = collections.defaultdict(list)
+        self.id2answer = collections.defaultdict(list)
+        self.id2gold, self.id2goldsp = {}, {}
+
+    def decode(self, batch: Dict, out: Dict[str, np.ndarray], n_real: int,
+               sp_pred: bool) -> None:
+        id2result, id2answer = self.id2result, self.id2answer
+        id2gold, id2goldsp = self.id2gold, self.id2goldsp
         for i in range(n_real):
             qid = batch["qid"][i]
             label = int(batch["net_inputs"]["label"][i])
@@ -213,42 +250,46 @@ def predict(predict_step: Callable, dataset: QADataset, *,
                 "pred_sp": pred_sp,
             })
 
-    # chain ranking EM (train_qa.py:305-310)
-    chain_acc = []
-    for qid, res in id2result.items():
-        res.sort(key=lambda x: x[1], reverse=True)
-        chain_acc.append(res[0][0] == 1)
-    chain_em = float(np.mean(chain_acc)) if chain_acc else 0.0
+    def rank(self, lambdas: Optional[List[float]], sp_pred: bool) -> Dict:
+        id2result, id2answer = self.id2result, self.id2answer
+        id2gold, id2goldsp = self.id2gold, self.id2goldsp
+        # chain ranking EM (train_qa.py:305-310)
+        chain_acc = []
+        for qid, res in id2result.items():
+            res.sort(key=lambda x: x[1], reverse=True)
+            chain_acc.append(res[0][0] == 1)
+        chain_em = float(np.mean(chain_acc)) if chain_acc else 0.0
 
-    lambdas = lambdas or [i / 10 for i in range(11)]
-    per_lambda, sweep = {}, []
-    for lam in lambdas:
-        m = new_metrics()
-        n = len(id2result)
-        answers, sps = {}, {}
-        for qid in id2result:
-            cands = sorted(id2answer[qid],
-                           key=lambda x: lam * x["rank_score"]
-                           + (1 - lam) * x["span_score"], reverse=True)
-            top = cands[0]
-            answers[qid], sps[qid] = top["pred_str"], top["pred_sp"]
-            gold = id2gold[qid][0] if id2gold[qid] else ""
-            em, prec, rec = update_answer(m, top["pred_str"], gold)
-            sp_em, sp_prec, sp_rec = update_sp(m, top["pred_sp"], id2goldsp[qid])
-            joint_metrics(m, em, prec, rec, sp_em, sp_prec, sp_rec)
-        stats = {k: v / max(n, 1) for k, v in m.items()}
-        stats["lambda"] = lam
-        per_lambda[lam] = stats
-        sweep.append((stats, answers, sps))
-    # select by joint F1 when sp scores exist (train_qa.py:350-361
-    # --final-metric joint_f1).  Without an sp head — OR when the eval
-    # rows simply carry no sp gold, which also pins joint_f1 at 0 for
-    # every lambda — fall back to answer F1 instead of silently keeping
-    # lambdas[0].  The chosen metric is reported so callers (best-ckpt
-    # selection in cli/train_qa.py) track the same signal.
-    metric = ("joint_f1" if sp_pred
-              and any(s["joint_f1"] > 0 for s, _, _ in sweep) else "f1")
-    stats, answers, sps = max(sweep, key=lambda t: t[0][metric])
-    best = dict(stats, selection_metric=metric, answers=answers, sp=sps)
-    return {"chain_em": chain_em, "best": best, "per_lambda": per_lambda,
-            "n_questions": len(id2result)}
+        lambdas = lambdas or [i / 10 for i in range(11)]
+        per_lambda, sweep = {}, []
+        for lam in lambdas:
+            m = new_metrics()
+            n = len(id2result)
+            answers, sps = {}, {}
+            for qid in id2result:
+                cands = sorted(id2answer[qid],
+                               key=lambda x: lam * x["rank_score"]
+                               + (1 - lam) * x["span_score"], reverse=True)
+                top = cands[0]
+                answers[qid], sps[qid] = top["pred_str"], top["pred_sp"]
+                gold = id2gold[qid][0] if id2gold[qid] else ""
+                em, prec, rec = update_answer(m, top["pred_str"], gold)
+                sp_em, sp_prec, sp_rec = update_sp(m, top["pred_sp"],
+                                                   id2goldsp[qid])
+                joint_metrics(m, em, prec, rec, sp_em, sp_prec, sp_rec)
+            stats = {k: v / max(n, 1) for k, v in m.items()}
+            stats["lambda"] = lam
+            per_lambda[lam] = stats
+            sweep.append((stats, answers, sps))
+        # select by joint F1 when sp scores exist (train_qa.py:350-361
+        # --final-metric joint_f1).  Without an sp head — OR when the eval
+        # rows simply carry no sp gold, which also pins joint_f1 at 0 for
+        # every lambda — fall back to answer F1 instead of silently keeping
+        # lambdas[0].  The chosen metric is reported so callers (best-ckpt
+        # selection in cli/train_qa.py) track the same signal.
+        metric = ("joint_f1" if sp_pred
+                  and any(s["joint_f1"] > 0 for s, _, _ in sweep) else "f1")
+        stats, answers, sps = max(sweep, key=lambda t: t[0][metric])
+        best = dict(stats, selection_metric=metric, answers=answers, sp=sps)
+        return {"chain_em": chain_em, "best": best, "per_lambda": per_lambda,
+                "n_questions": len(id2result)}

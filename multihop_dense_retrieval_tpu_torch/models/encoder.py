@@ -57,6 +57,10 @@ step, so a checkpoint gives the same vectors in both:
 Module and parameter names are those of HF RoBERTa/BERT, so a reference
 ``.pt`` loads with ``load_state_dict``; an HF pooler in the checkpoint is
 accepted and ignored (the retriever never reads it).
+
+``TransformerEncoder.forward`` is the span ``encoder_forward`` of
+``utils/profiling.py``, which every encode reaches (the retriever's
+hops, each hop-2 tile, the reader).
 """
 
 from __future__ import annotations
@@ -71,6 +75,7 @@ from ..core.config import EncoderConfig
 from ..core.mesh import all_gather
 from ..ops.fused_attention import fused_attention
 from ..parallel.sharding import ShardedLinear
+from ..utils.profiling import span
 
 NEG_INF = -1e9  # attention mask bias, as in the JAX encoder
 
@@ -404,32 +409,33 @@ class TransformerEncoder(nn.Module):
                                                  with_module=True)
 
     def forward(self, input_ids, attention_mask, token_type_ids=None):
-        c = self.config
-        B, L = input_ids.shape
-        input_ids = input_ids.long()
-        if token_type_ids is None:
-            token_type_ids = torch.zeros_like(input_ids)
-        if c.roberta_positions:
-            position_ids = roberta_position_ids(input_ids, c.pad_token_id)
-        else:
-            position_ids = torch.arange(L, device=input_ids.device
-                                        ).expand(B, L)
-        x = self.embeddings(input_ids, token_type_ids.long(), position_ids)
-        if self.embeddings_project is not None:
-            x = dense(x, self.embeddings_project)
-        attn_bias = torch.where(attention_mask[:, None, None, :].bool(),
-                                0.0, NEG_INF).to(torch.float32)
-        layers = self.encoder.layer
-        hiddens = [x]
-        for i, layer in enumerate(layers):
-            last = i == len(layers) - 1
-            qp = 1 if (self.cls_only and last
-                       and not self.return_all_hiddens) else None
-            if self.remat and torch.is_grad_enabled():
-                x = checkpoint(layer, x, attn_bias, attention_mask, qp,
-                               use_reentrant=False)
+        with span("encoder_forward"):
+            c = self.config
+            B, L = input_ids.shape
+            input_ids = input_ids.long()
+            if token_type_ids is None:
+                token_type_ids = torch.zeros_like(input_ids)
+            if c.roberta_positions:
+                position_ids = roberta_position_ids(input_ids, c.pad_token_id)
             else:
-                x = layer(x, attn_bias, attention_mask, q_positions=qp)
-            if self.return_all_hiddens:
-                hiddens.append(x)
-        return hiddens if self.return_all_hiddens else x
+                position_ids = torch.arange(L, device=input_ids.device
+                                            ).expand(B, L)
+            x = self.embeddings(input_ids, token_type_ids.long(), position_ids)
+            if self.embeddings_project is not None:
+                x = dense(x, self.embeddings_project)
+            attn_bias = torch.where(attention_mask[:, None, None, :].bool(),
+                                    0.0, NEG_INF).to(torch.float32)
+            layers = self.encoder.layer
+            hiddens = [x]
+            for i, layer in enumerate(layers):
+                last = i == len(layers) - 1
+                qp = 1 if (self.cls_only and last
+                           and not self.return_all_hiddens) else None
+                if self.remat and torch.is_grad_enabled():
+                    x = checkpoint(layer, x, attn_bias, attention_mask, qp,
+                                   use_reentrant=False)
+                else:
+                    x = layer(x, attn_bias, attention_mask, q_positions=qp)
+                if self.return_all_hiddens:
+                    hiddens.append(x)
+            return hiddens if self.return_all_hiddens else x

@@ -17,9 +17,16 @@ The beam-4 options run as in the JAX engine: candidate pruning
 the unified stop head (``encode_qsp_fn``: ``stop_probs`` and
 ``top_stop_probs`` in the output) and the two-pass stop-skip cascade
 (``stop_skip_threshold``).
-The search steps carry ``torch.profiler`` ranges (hop1_encode, hop1_mips,
-hop2_assemble, hop2_encode, hop2_mips, chain_topk); they cost nothing
-unless a profiler is recording.
+The search's steps are spans of ``utils/profiling.py`` (``search`` around
+the call; hop1_encode, hop1_mips, hop2_assemble, hop2_encode with
+``hop2_tile_widths`` and each ``hop2_tile``, hop2_mips, chain_topk,
+``search_fetch``).  With a recorder on they are kept in memory, and the
+tiled hop-2 encode counts its tokens (``hop2.tokens_real``, the active
+rows' lengths; ``hop2.tokens_run``, rows × width of the tiles that ran)
+and its tiles (``hop2.tiles_run``, ``hop2.tiles_skipped``); while a
+``torch.profiler`` profile is on each span is also a ``record_function``
+range of its name; with neither, a span is one shared no-op context and
+nothing is counted.
 ``add_docs`` and ``delete_doc`` update the live engine (index and token
 store) between searches, as the JAX engine's do.
 With a ``mesh`` (or an index sharded over one) both hops run the
@@ -36,7 +43,6 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..core.config import SearchConfig, default_hop2_tiling
 from ..core.device import resolve_device
@@ -46,6 +52,7 @@ from ..index.store import DenseIndex
 from ..ops.mips import (NEG_INF, merge_multivector, mips_topk, mips_topk_pca,
                         sharded_mips_topk, sharded_mips_topk_pca,
                         topk_lower_index)
+from ..utils.profiling import count, recording, span
 
 
 def truncate_longest_first(len_a, len_b, budget: int):
@@ -313,13 +320,18 @@ class BeamSearcher:
         tile_of = torch.repeat_interleave(
             torch.arange(n_tiles, device=keys.device),
             torch.tensor(sizes, device=keys.device))
-        per_tile = torch.zeros(2, n_tiles, dtype=torch.int32,
-                               device=keys.device)
-        per_tile[0].scatter_reduce_(0, tile_of, torch.where(valid, keys_s, 0),
-                                    "amax")
+        # with a recorder on, a third row: the tile's active tokens
+        counting = recording()
+        per_tile = torch.zeros(3 if counting else 2, n_tiles,
+                               dtype=torch.int32, device=keys.device)
+        real_keys = torch.where(valid, keys_s, 0)
+        per_tile[0].scatter_reduce_(0, tile_of, real_keys, "amax")
         per_tile[1].scatter_reduce_(0, tile_of, valid.to(torch.int32), "amax")
-        tile_max, tile_active = per_tile.tolist()
-        tiles = []
+        if counting:
+            per_tile[2].scatter_add_(0, tile_of, real_keys)
+        with span("hop2_tile_widths"):
+            tile_max, tile_active, *tile_real = per_tile.tolist()
+        tiles, tokens_run = [], 0
         for t in range(n_tiles):
             if not tile_active[t]:
                 tiles.append(None)
@@ -328,8 +340,16 @@ class BeamSearcher:
             w = min(int(buckets[t]), L)
             if w >= L or tile_max[t] > w:
                 w = L
-            tiles.append(fn(ids_s[sl, :w], mask_s[sl, :w],
-                            None if tt_s is None else tt_s[sl, :w]))
+            with span("hop2_tile"):
+                tiles.append(fn(ids_s[sl, :w], mask_s[sl, :w],
+                                None if tt_s is None else tt_s[sl, :w]))
+            tokens_run += sizes[t] * w
+        if counting:
+            n_run = sum(x is not None for x in tiles)
+            count("hop2.tokens_real", sum(tile_real[0]))
+            count("hop2.tokens_run", tokens_run)
+            count("hop2.tiles_run", n_run)
+            count("hop2.tiles_skipped", n_tiles - n_run)
         shape_of = next((x for x in tiles if x is not None), None)
         if shape_of is None:
             # no active row at all: one row tells the output's structure
@@ -406,16 +426,16 @@ class BeamSearcher:
                      beam2: int, topk: int):
         cfg = self.config
         bsz = q_raw_ids.shape[0]
-        with record_function("hop1_encode"):
+        with span("hop1_encode"):
             q_vec = self.encode_fn(q_inputs["input_ids"],
                                    q_inputs["attention_mask"],
                                    q_inputs.get("token_type_ids"))
-        with record_function("hop1_mips"):
+        with span("hop1_mips"):
             d1, i1, cert1 = self._mips(q_vec.float(), beam1,
                                        pca=self._pca_on_hop(1))
             d1 = torch.where(self.empty[i1], NEG_INF, d1)
 
-        with record_function("hop2_assemble"):
+        with span("hop2_assemble"):
             flat1 = i1.reshape(-1)
             doc_ids = self.text_ids[flat1].to(torch.int32)
             if self.text_ids.dtype == torch.int16:
@@ -427,7 +447,7 @@ class BeamSearcher:
                                        cfg.max_q_sp_len, self.spec)
             active = self._prune_active(d1, beam1)
         stop_logits = None
-        with record_function("hop2_encode"):
+        with span("hop2_encode"):
             if (self.encode_qsp_fn is not None
                     and cfg.stop_skip_threshold > 0 and beam1 > 1):
                 qsp_vec, stop_logits, cont = self._stop_skip(
@@ -438,13 +458,13 @@ class BeamSearcher:
                     qsp, encode=self.encode_qsp_fn, active=active)
             else:
                 qsp_vec = self._encode_hop2(qsp, active=active)
-        with record_function("hop2_mips"):
+        with span("hop2_mips"):
             d2, i2, cert2 = self._mips(qsp_vec.float(), beam2,
                                        pca=self._pca_on_hop(2))
         d2 = d2.reshape(bsz, beam1, beam2)
         i2 = i2.reshape(bsz, beam1, beam2)
 
-        with record_function("chain_topk"):
+        with span("chain_topk"):
             if active is not None:
                 # pruned or stopped candidates contribute no chains
                 d2 = torch.where(active.reshape(bsz, beam1)[:, :, None], d2,
@@ -472,17 +492,20 @@ class BeamSearcher:
     def search(self, q_inputs: Dict[str, np.ndarray], q_raw_ids: np.ndarray,
                q_raw_lens: np.ndarray) -> Dict[str, np.ndarray]:
         """Host entry: fixed-shape tokenized questions → ranked chains."""
-        mult = self.config.q_width_multiple
-        if mult > 0:
-            max_len = int(np.asarray(q_inputs["attention_mask"]).sum(1).max())
-            w = max(mult, -(-max_len // mult) * mult)
-            if w < q_inputs["input_ids"].shape[1]:
-                q_inputs = {k: v[:, :w] for k, v in q_inputs.items()}
-        dev = self.device
-        out = self._search_impl(
-            {k: _to_tensor(v, dev) for k, v in q_inputs.items()},
-            _to_tensor(q_raw_ids, dev, torch.int32),
-            _to_tensor(q_raw_lens, dev, torch.int32),
-            beam1=self.config.beam_size_1, beam2=self.config.beam_size_2,
-            topk=self.config.topk)
-        return {k: v.cpu().numpy() for k, v in out.items()}
+        with span("search"):
+            mult = self.config.q_width_multiple
+            if mult > 0:
+                max_len = int(np.asarray(q_inputs["attention_mask"])
+                              .sum(1).max())
+                w = max(mult, -(-max_len // mult) * mult)
+                if w < q_inputs["input_ids"].shape[1]:
+                    q_inputs = {k: v[:, :w] for k, v in q_inputs.items()}
+            dev = self.device
+            out = self._search_impl(
+                {k: _to_tensor(v, dev) for k, v in q_inputs.items()},
+                _to_tensor(q_raw_ids, dev, torch.int32),
+                _to_tensor(q_raw_lens, dev, torch.int32),
+                beam1=self.config.beam_size_1,
+                beam2=self.config.beam_size_2, topk=self.config.topk)
+            with span("search_fetch"):
+                return {k: v.cpu().numpy() for k, v in out.items()}
