@@ -9,7 +9,7 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (each prints a line and flushes; any failure exits non-zero):
   1. build   — nvcc compiles every kernel from ops/csrc (one process each).
-  2. kernels — each of the eight kernels against its plain PyTorch version
+  2. kernels — each of the eleven kernels against its plain PyTorch version
                at its path's shapes (every kernel on its tensor-core
                template, int8 for 1, 4 and 7, which each record names and
                must have taken): kernels 1-4 at B=192, D=768,
@@ -27,9 +27,11 @@ Phases (each prints a line and flushes; any failure exits non-zero):
                masks and a fully masked row.  int8 results bit-equal,
                bf16/fp32 MIPS within 1e-3 (kernel 2 also rtol 1e-5), kernel
                8 as attention_error
-               says; times by CUDA events beside the plain version, a
-               library yardstick where one exists, the card's bound and the
-               share of it reached (bound / time).
+               says; kernels 9-11 (the encoder layer's elementwise
+               chains) at mhop.beam5.b100's shapes, 9 bit-equal, 10 and
+               11 within 1 bf16 ulp; times by CUDA events beside the
+               plain version, a library yardstick where one exists, the
+               card's bound and the share of it reached (bound / time).
   3. main paths — roberta-base shape (12 layers, 768 wide) with seeded
                random weights; the questions' or claims' own vectors are
                planted as index rows, and hop 1 must return them.  Each
@@ -400,6 +402,37 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+# a sleep on the card long enough to hold every call device_ms queues
+# behind it (2e8 cycles: about 0.1 s at the H100's clocks)
+SLEEP_CYCLES = 200_000_000
+
+
+def device_ms(fn, iters):
+    """(device ms, host us) a call of ``fn``: the calls are queued behind
+    a sleep on the card, so the events time the card alone where
+    ``cuda_ms`` times the host's launches too (a kernel shorter than its
+    launch); the host's microseconds a call come from the same loop.
+    Asserts the sleep outlasted the queueing."""
+    fn()
+    torch.cuda.synchronize()
+    slept = torch.cuda.Event(enable_timing=True)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    slept.record()
+    t0 = time.perf_counter()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    assert host_ms < slept.elapsed_time(start), \
+        f"the sleep ({slept.elapsed_time(start):.1f} ms) did not outlast " \
+        f"the queueing ({host_ms:.1f} ms)"
+    return start.elapsed_time(end) / iters, host_ms * 1e3 / (iters + 1)
+
+
 def bound_ms(n_bytes, n_ops, kind):
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = n_ops / PEAK_OPS[kind]
@@ -411,10 +444,26 @@ def bound_ms(n_bytes, n_ops, kind):
 # reset: while such a wrapper runs, its plan function is wrapped to note
 # the route it returns (track_routes)
 ROUTES = {}
+# the launches of each variant of kernels 10 and 11 since the same reset
+# (track_routes): the softmax by its score dtype, which picks its template,
+# and the LayerNorm by its width and eps
+VARIANTS = {}
+VARIANT_OF = {
+    "masked_softmax": lambda a: ("bf16" if a[3] == "bfloat16" else "fp32")
+    + "_scores",
+    "add_layer_norm": lambda a: f"{a[0].shape[-1]}_eps{a[3].eps:g}"}
+ENCODER_KERNELS = ("bias_gelu", "masked_softmax", "add_layer_norm")
 PLANNED = (("mips_scan_int8", "scan_plan"), ("mips_scan", "scan_plan"),
            ("chunk_max", "chunk_max_plan"), ("pca_chunk_max", "chunk_max_plan"),
            ("chunk_max_int8", "chunk_max_plan"),
            ("pca_rescan_int8", "rescan_plan"), ("rescan", "rescan_plan"))
+
+
+def search_kernels(mips):
+    """The kernels a search or training leg guards, kernels 1-8: kernels
+    9-11 run wherever an encoder runs with gradients off (every encode;
+    the trainers' momentum encoder, queue re-encode and eval passes)."""
+    return tuple(k for k in mips.LAUNCHES if k not in ENCODER_KERNELS)
 
 
 def track_routes(mips, fa):
@@ -438,13 +487,38 @@ def track_routes(mips, fa):
     for name, plan_name in PLANNED:
         planned(mips, name, plan_name)
     planned(fa, "fused_attention", "attention_plan")
+    ef = importlib.import_module(
+        "multihop_dense_retrieval_tpu_torch.ops.encoder_fused")
+    enc = importlib.import_module(
+        "multihop_dense_retrieval_tpu_torch.models.encoder")
+    for name, variant in VARIANT_OF.items():
+        varied(ef, enc, name, variant)
     reset = mips.reset_launch_counts
 
     def reset_all():
         reset()
         ROUTES.clear()
+        VARIANTS.clear()
 
     mips.reset_launch_counts = reset_all
+
+
+def varied(ef, enc, name, variant):
+    """Wrap kernel ``name`` of ``ops/encoder_fused.py`` (and the encoder's
+    reference to it) to note, for each launch, its variant: ``name`` and
+    ``variant(args)`` joined by a dot, in ``ROUTES`` and ``VARIANTS``."""
+    fn = getattr(ef, name)
+
+    def noted(*a, **kw):
+        out = fn(*a, **kw)
+        if out.is_cuda:
+            key = f"{name}.{variant(a)}"
+            ROUTES.setdefault(name, set()).add(key)
+            VARIANTS[key] = VARIANTS.get(key, 0) + 1
+        return out
+
+    setattr(ef, name, noted)
+    setattr(enc, name, noted)
 
 
 def template(name):
@@ -456,9 +530,11 @@ def template(name):
 
 
 def leg_counts(mips):
-    """Launches of each kernel since the last reset, and the templates the
-    planned wrappers took."""
-    return dict(mips.LAUNCHES, routes={k: sorted(v) for k, v in ROUTES.items()})
+    """Launches of each kernel since the last reset, the templates the
+    planned wrappers took, and the launches of each variant of kernels 10
+    and 11."""
+    return dict(mips.LAUNCHES, routes={k: sorted(v) for k, v in ROUTES.items()},
+                variants=dict(VARIANTS))
 
 
 def nvidia_smi():
@@ -544,6 +620,7 @@ def check_kernels(mips, dev, gen):
     del idx8, q8
     check_float_two_phase(mips, dev, gen, recs)
     check_attention(dev, gen, recs)
+    check_encoder_chains(dev, gen, recs)
     return recs
 
 
@@ -812,6 +889,165 @@ def check_attention(dev, gen, recs):
                                            template=tmpl)
             time_attention_step(dev, gen, mask)
         del q, k, v, qt, kt, vt
+
+
+# kernels 9-11 at mhop.beam5.b100's shapes: its FFN over every token a
+# batch runs (hop 1, 100 x 70, and the five hop-2 tiles: 97,922 tokens),
+# and its hop-2 tile 5 (63 rows at 350) for the softmax and the LayerNorm
+ENC_FFN_TOKENS, ENC_TILE = 97922, (63, 350)
+# the bf16-score softmax (the main path's retriever and the reader): the
+# reader's 32 x 512 rows of 16 heads (the record), the main path's hop 1
+# (B x Q_LEN) and a hop-2 tile at QSP_LEN; (B, nh, L)
+ROUND_CASES = ((32, 16, 512), (B, NH, Q_LEN), (63, NH, QSP_LEN))
+# the reader's LayerNorm: 32 x 512 rows of 1024, eps 1e-12
+READER_LN = (32, 512, 1024, 1e-12)
+
+
+def check_encoder_chains(dev, gen, recs):
+    """Kernels 9-11 against their plain twins, each variant that a leg
+    launches under its own name (``VARIANT_OF``): kernel 9 at
+    mhop.beam5.b100's FFN, bit for bit; kernel 10 with fp32 scores (the
+    benchmark's retriever, its tile 5) within 1 bf16 ulp, and with bf16
+    scores (the main path's retriever, the reader) each row exactly the
+    twin's e / s for s the twin's bf16 row sum or its bf16 neighbour (the
+    fp32 sums in another order may round the other way); kernel 11 at 768
+    wide, eps 1e-5 (tile 5) and at 1024, eps 1e-12 (the reader) within 1
+    bf16 ulp.  Each with the share of outputs (or rows) off, the card's
+    time (``device_ms``: the host's launches left out) and the host's
+    microseconds a call, beside the twin's time, the bound (bytes: each
+    input read once, the output written once) and a library yardstick the
+    port never calls:
+    ``F.gelu`` of the biased input (without the bias add),
+    ``torch.softmax`` of the scores (without scale and mask),
+    ``F.layer_norm`` of the summed input (without the two adds)."""
+    import math
+
+    import torch.nn.functional as F
+
+    ef = importlib.import_module(
+        "multihop_dense_retrieval_tpu_torch.ops.encoder_fused")
+    bf = torch.bfloat16
+
+    def ulps(got, exp):
+        e = exp.float().abs().clamp(min=2.0 ** -8)
+        _, ex = torch.frexp(e)
+        off = (got.float() - exp.float()).abs().detach() / torch.ldexp(
+            torch.ones_like(e), ex - 8)
+        return float(off.max()), float((off > 0).float().mean())
+
+    def rows_off(got, exp, raw, attn_bias, scale):
+        """bf16 scores: (largest ulps, share of rows off) where every row
+        is the twin's e / s for s its bf16 row sum or a neighbour."""
+        s = raw / scale + attn_bias.to(raw.dtype)
+        e = torch.exp(s - s.amax(-1, keepdim=True))
+        bits = e.sum(-1, keepdim=True).view(torch.int16)     # sums >= 1
+        same = (got == exp).all(-1)
+        near = [(e / (bits + k).view(raw.dtype) == got).all(-1)
+                for k in (1, -1)]
+        assert bool((same | near[0] | near[1]).all()), \
+            "masked_softmax (bf16 scores): a row is not e / s"
+        return ulps(got, exp)[0], float((~same).float().mean())
+
+    def record(name, what, got, exp, fn, plain, lib, n_bytes, lib_what,
+               err=None, of="outputs"):
+        torch.cuda.synchronize()
+        kernel = name.split(".")[0]
+        taken = template(kernel) if kernel in VARIANT_OF else "one pass"
+        assert taken in (name, "one pass"), f"{name} took {taken}"
+        if kernel == "bias_gelu":
+            assert torch.equal(got, exp), "kernel 9 is not bit-equal"
+            err = (0.0, 0.0)
+        elif err is None:
+            err = ulps(got, exp)
+        # rows of bf16 scores move by 1-2 ulps where their sum rounds the
+        # other way: rows_off has held them to e / s
+        assert err[1] <= 1e-3 and (of == "rows" or err[0] <= 1.0), \
+            f"{name} {what}: max {err[0]} ulps, {err[1]} of {of} off"
+        ms, host_us = device_ms(fn, 20)
+        plain_ms = device_ms(plain, 3)[0]
+        lib_ms = device_ms(lib, 5)[0] if lib else None
+        ROUTES.pop(kernel, None)             # the timed calls' variants
+        bnd = bound_ms(n_bytes, 0, "bf16")
+        lib_note = f", {lib_what} {lib_ms:.4f} ms" if lib else ""
+        say(f"  {name} {what}: {ms:.4f} ms on the card, {host_us:.1f} us "
+            f"of host a call (plain {plain_ms:.4f} ms{lib_note}, bound "
+            f"{bnd[0]:.4f} ms by {bnd[1]}, {bnd[0] / ms:.3f} of it); max "
+            f"{err[0]:.3g} bf16 ulps, {err[1]:.3g} of {of} off")
+        if name not in recs:
+            recs[name] = dict(err=err[0], ms=ms, plain_ms=plain_ms,
+                              bound=bnd, library_ms=lib_ms, template=taken,
+                              kernel=kernel)
+
+    inter = 4 * D
+    y = (3 * torch.randn(ENC_FFN_TOKENS, inter, device=dev, generator=gen)
+         ).to(bf)
+    bias = torch.randn(inter, device=dev, generator=gen).to(bf)
+    record("bias_gelu", f"(FFN, {ENC_FFN_TOKENS} x {inter})",
+           ef.bias_gelu(y, bias), ef.bias_gelu_plain(y, bias),
+           lambda: ef.bias_gelu(y, bias), lambda: ef.bias_gelu_plain(y, bias),
+           lambda: F.gelu(y), 4 * y.numel() + 2 * inter, "F.gelu")
+    del y
+
+    def scores(b, nh, w, d):
+        raw = (3 * math.sqrt(d) * torch.randn(b, nh, w, w, device=dev,
+                                              generator=gen)).to(bf)
+        lens = torch.randint(8, w + 1, (b,), device=dev, generator=gen)
+        mask = torch.arange(w, device=dev)[None] < lens[:, None]
+        attn_bias = torch.where(mask[:, None, None, :], 0.0, -1e9).to(
+            torch.float32)
+        scale = torch.tensor(math.sqrt(d), dtype=torch.float32).to(bf)
+        return raw, attn_bias, scale
+
+    dh = D // NH
+    b, w = ENC_TILE
+    raw, attn_bias, scale = scores(b, NH, w, dh)
+    args = (raw, attn_bias, scale, "float32")
+    record("masked_softmax.fp32_scores", f"(tile, {b} x {NH} x {w} x {w})",
+           ef.masked_softmax(*args), ef.masked_softmax_plain(*args),
+           lambda: ef.masked_softmax(*args),
+           lambda: ef.masked_softmax_plain(*args),
+           lambda: torch.softmax(raw, -1), 4 * raw.numel() + 4 * b * w,
+           "torch.softmax")
+    del raw
+    for i, (b, nh, w) in enumerate(ROUND_CASES):
+        raw, attn_bias, scale = scores(b, nh, w, 64)
+        args = (raw, attn_bias, scale, "bfloat16")
+        got, exp = ef.masked_softmax(*args), ef.masked_softmax_plain(*args)
+        torch.cuda.synchronize()
+        record("masked_softmax.bf16_scores",
+               f"({'reader' if i == 0 else 'main path'}, {b} x {nh} x {w} "
+               f"x {w})", got, exp,
+               lambda: ef.masked_softmax(*args),
+               lambda: ef.masked_softmax_plain(*args),
+               (lambda: torch.softmax(raw, -1)) if i == 0 else None,
+               4 * raw.numel() + 4 * b * w, "torch.softmax",
+               err=rows_off(got, exp, raw, attn_bias, scale), of="rows")
+        del raw, got, exp
+
+    def layer_norm_case(name, what, rows, n, eps):
+        x = torch.randn(rows, n, device=dev, generator=gen).to(bf)
+        y = torch.randn(rows, n, device=dev, generator=gen).to(bf)
+        bias = (0.1 * torch.randn(n, device=dev, generator=gen)).to(bf)
+        ln = torch.nn.LayerNorm(n, eps=eps).to(dev)
+        with torch.no_grad():
+            ln.weight.copy_(1 + 0.1 * torch.randn(n, device=dev,
+                                                   generator=gen))
+            ln.bias.copy_(0.1 * torch.randn(n, device=dev, generator=gen))
+        args = (y, bias, x, ln)
+        record(name, what, ef.add_layer_norm(*args),
+               ef.add_layer_norm_plain(*args),
+               lambda: ef.add_layer_norm(*args),
+               lambda: ef.add_layer_norm_plain(*args),
+               lambda: F.layer_norm(x, (n,), ln.weight.to(bf),
+                                    ln.bias.to(bf)),
+               6 * x.numel() + 2 * n + 8 * n, "F.layer_norm")
+
+    b, w = ENC_TILE
+    layer_norm_case("add_layer_norm.768_eps1e-05", f"(tile, {b * w} x {D})",
+                    b * w, D, 1e-5)
+    b, w, n, eps = READER_LN
+    layer_norm_case(f"add_layer_norm.{n}_eps{eps:g}",
+                    f"(reader, {b * w} x {n})", b * w, n, eps)
 
 
 def time_attention_step(dev, gen, mask):
@@ -1240,7 +1476,7 @@ def run_main_path(port, mips, dev, gen, smi, table_path=None, iters=50):
         f"at both hops: max relative score difference {rel:.3g} [{smi}]")
     say(f"  bf16 path launches over 5 batches: {json.dumps(launches['bf16'])}")
     assert launches["bf16"]["mips_scan"] > 0, "bf16 scan not launched"
-    assert sum(launches["bf16"][k] for k in mips.LAUNCHES) == \
+    assert sum(launches["bf16"][k] for k in search_kernels(mips)) == \
         launches["bf16"]["mips_scan"], "int8 kernels ran on the bf16 path"
     del bf16_engine, bf16_index, text_ids, text_lens, empty
     lap("b")
@@ -1541,8 +1777,8 @@ def run_beam4_serving(engine, model, port, q_inputs, q_raw, q_lens, mips,
             f"step {json.dumps(steps)}; launches {json.dumps(out[leg])}")
         for kname in ("mips_scan_int8", "pca_chunk_max", "pca_rescan_int8"):
             assert out[leg][kname] > 0, f"{kname} not launched on leg {name}"
-        others = set(mips.LAUNCHES) - {"mips_scan_int8", "pca_chunk_max",
-                                       "pca_rescan_int8"}
+        others = set(search_kernels(mips)) - {
+            "mips_scan_int8", "pca_chunk_max", "pca_rescan_int8"}
         assert not any(out[leg][k] for k in others), \
             f"other kernels ran on leg {name}: {out[leg]}"
         if rate is not None:
@@ -1846,7 +2082,10 @@ TRACE_NAMES = {"mips_scan_int8": "mips_scan_i8_kernel",
                "pca_chunk_max": "chunk_max_", "chunk_max": "chunk_max_",
                "chunk_max_int8": "chunk_max_i8_kernel",
                "pca_rescan_int8": "rescan_mma_kernel",
-               "rescan": "rescan_mma_kernel"}
+               "rescan": "rescan_mma_kernel",
+               "bias_gelu": "bias_gelu_kernel",
+               "masked_softmax": "masked_softmax_kernel",
+               "add_layer_norm": "add_layer_norm_kernel"}
 
 
 def run_prep_and_reranked(tmp, smi):
@@ -1962,7 +2201,8 @@ def run_bulk_retrieval(mips, dev, gen, smi, ftmp, tmp):
         held, cert, n_pca = hold_bulk_calls(calls, mips)
         missing = [n for n in want if counts[n] == 0]
         assert not missing, f"kernels not launched on {name}: {missing}"
-        others = [n for n in mips.LAUNCHES if n not in want and counts[n]]
+        others = [n for n in search_kernels(mips)
+                  if n not in want and counts[n]]
         assert not others, f"other kernels ran on {name}: {others}"
         note = ""
         if n_pca:
@@ -2339,16 +2579,18 @@ def run_training_clis(cfgmod, dev, smi, tmp):
 
 
 def assert_no_launches(mips, leg):
+    """None of kernels 1-8 (``search_kernels``) ran on the leg; kernels
+    9-11 run there wherever an encoder runs with gradients off."""
     counts = leg_counts(mips)
-    launched = {k: n for k, n in counts.items() if k != "routes" and n}
+    launched = {k: counts[k] for k in search_kernels(mips) if counts[k]}
     assert not launched, f"kernels launched on leg {leg}: {launched}"
     say(f"  leg {leg} launches: {json.dumps(counts)}")
     return counts
 
 
 def run_training(port, mips, dev, smi, tmp):
-    """Leg (j): retriever training, which launches none of the eight
-    kernels (the encoder trains on attention_impl="xla"; the loss is plain
+    """Leg (j): retriever training, which launches none of kernels 1-8
+    (the encoder trains on attention_impl="xla"; the loss is plain
     matrix products).  The CLIs write into ``tmp``, where leg k finds the
     stage-1 checkpoint and the rows."""
     from multihop_dense_retrieval_tpu_torch.train import trainer as T
@@ -3242,7 +3484,7 @@ def run_pod_steps(T, cfgmod, dev, smi, tmp, spread, refs, tp_ms):
 
 def run_parallel_training(port, mips, dev, smi, tmp, then=lambda: None):
     """Leg (o): data- and tensor-parallel training, which launches none of
-    the eight kernels (the counts must stay 0): o1 the data-parallel step
+    kernels 1-8 (the counts must stay 0): o1 the data-parallel step
     (fp32 by j0's criteria, bf16 at roberta-base against the bf16 noise,
     the negative control, throughput beside j1's), o3 the tensor-parallel
     step (as o1; each card's peak memory), o5 and o6 the data- and
@@ -3397,7 +3639,7 @@ def run_prune_sweep(ps, mips, dev, smi, work):
     counts = leg_counts(mips)
     n_held, rel = hold_scan_launches(launched, mips)
     assert counts["mips_scan"] == n_held > 0, (counts, n_held)
-    others = {k: counts[k] for k in mips.LAUNCHES if k != "mips_scan"}
+    others = {k: counts[k] for k in search_kernels(mips) if k != "mips_scan"}
     assert not any(others.values()), f"other kernels ran on leg p1: {others}"
     say(f"  p1 prune_sweep_torch (mini, {P_DOCS} docs, {P_Q} questions): "
         f"train {trained['train_s']:.1f} s (best MRR "
@@ -3585,7 +3827,7 @@ def run_trained_full_width(mips, dev, smi, work, data):
     base, cert, n_pca, _, first = trained_batches(engine, tok, questions,
                                                   index, mips)
     counts["trained_p2"] = leg_counts(mips)
-    launched = {k: counts["trained_p2"][k] for k in mips.LAUNCHES}
+    launched = {k: counts["trained_p2"][k] for k in search_kernels(mips)}
     assert all(launched[k] > 0 for k in ("mips_scan_int8", "pca_chunk_max",
                                          "pca_rescan_int8")) and not any(
         n for k, n in launched.items() if k not in (
@@ -3747,7 +3989,7 @@ def run_trained_weights(mips, dev, smi, tmp, subs):
         out.update(join_sub_leg(proc, name, tmp))
     times = time_trained_kernels(launched, mips, smi)
     say("  leg p kernels: " + json.dumps({
-        leg: {k: n for k, n in c.items() if k != "routes" and n}
+        leg: {k: c[k] for k in mips.LAUNCHES if c[k]}
         for leg, c in out.items()} | {"p2_times_ms": {
             k: {"ms": ms, "bound_ms": b, "bound_by": by}
             for k, (ms, b, by) in times.items()}}))
@@ -5092,6 +5334,12 @@ REPLACES = {
                         "multihop_dense_retrieval_tpu/ops/fused_attention.py:61",
                         "corpus_e1"),
 }
+# kernels 10 and 11 report, for each variant, the first leg that launched
+# it (its path None here)
+for _name in ENCODER_KERNELS:
+    REPLACES[_name] = (CU + "encoder_fused.cu",
+                       "none (XLA fused the chain in the JAX package)",
+                       None if _name in VARIANT_OF else "int8")
 
 
 # sources of the tensor-core templates (every kernel), whose ptxas lines are
@@ -5165,11 +5413,18 @@ def main():
 
     kernels = []
     for name, r in recs.items():
-        src, rep, path = REPLACES[name]
+        kernel = r.get("kernel", name)
+        src, rep, path = REPLACES[kernel]
+        if path is None:
+            path = next((leg for leg, c in launches.items()
+                         if c.get("variants", {}).get(name)), None)
+            n = launches[path]["variants"][name] if path else 0
+        else:
+            n = launches[path][kernel]
         kernels.append({
-            "name": name, "route": "cuda", "template": r["template"],
-            "source": src, "replaces": rep,
-            "path": path, "launches": launches[path][name],
+            "name": name, "kernel": kernel, "route": "cuda",
+            "template": r["template"], "source": src, "replaces": rep,
+            "path": path, "launches": n,
             "max_abs_err": r["err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"]})

@@ -50,6 +50,13 @@ step, so a checkpoint gives the same vectors in both:
     first and then add them in the same order, so a step across
     processes computes what the one-process step does, and every process
     of the group gets the same sums, bit for bit;
+  * with gradients off (every encode, read and corpus build), a layer's
+    three elementwise chains between two matmuls (bias + erf-GELU, the xla
+    path's masked softmax, bias + residual + LayerNorm) each run as one
+    pass on the card (kernels 9-11, ``ops/encoder_fused.py``): the same
+    operations and roundings, up to the order of a row's sums; the CPU
+    runs their plain twins, which are also the path with gradients on and
+    the tensor-parallel layer's;
   * ``remat`` recomputes each layer in the backward pass
     (``torch.utils.checkpoint``, as ``nn.remat`` in JAX): less activation
     memory for more FLOPs, the same numbers.
@@ -65,6 +72,7 @@ hops, each hop-2 tile, the reader).
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -73,16 +81,14 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.config import EncoderConfig
 from ..core.mesh import all_gather
+from ..ops.encoder_fused import (add_layer_norm, add_layer_norm_plain,
+                                 bias_gelu, gelu_exact, layer_norm,
+                                 masked_softmax, masked_softmax_plain)
 from ..ops.fused_attention import fused_attention
 from ..parallel.sharding import ShardedLinear
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 
 NEG_INF = -1e9  # attention mask bias, as in the JAX encoder
-
-
-def gelu_exact(x: torch.Tensor) -> torch.Tensor:
-    xf = x.float()
-    return (xf * 0.5 * (1.0 + torch.erf(xf * 0.7071067811865476))).to(x.dtype)
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -109,6 +115,17 @@ def dense(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
 def _dense(x, weight, bias=None):
     y = torch.matmul(x, weight.to(x.dtype).t())
     return y if bias is None else y + bias.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _score_scale(d: int, dt: torch.dtype) -> torch.Tensor:
+    """sqrt(d) as a CPU 0-dim tensor in the compute dtype, the scores'
+    divisor: made once for each head size and dtype, not in every layer
+    call (the host launching the encoder is what the card waits for).
+    Made outside inference mode, so that autograd may save it later; one
+    tensor serves every caller, and none writes to it."""
+    with torch.inference_mode(False):
+        return torch.tensor(math.sqrt(d), dtype=torch.float32).to(dt)
 
 
 def _in_order(terms):
@@ -167,15 +184,6 @@ def row_parallel(parts, lin: ShardedLinear, home: torch.device, dt):
     acc = _in_order(parts) if lin.group is None else \
         _RowParallelSum.apply(lin.group, *parts)
     return (acc + lin.bias.to(dt).float().to(home)).to(dt)
-
-
-def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
-    """Flax ``LayerNorm(dtype=float32)``: fp32 fast-variance statistics."""
-    xf = x.float()
-    mean = xf.mean(-1, keepdim=True)
-    var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean, min=0.0)
-    mul = torch.rsqrt(var + ln.eps) * ln.weight.float()
-    return (xf - mean) * mul + ln.bias.float()
 
 
 # Flax's truncated normal draws from [-2, 2] and divides the scale by this
@@ -258,10 +266,11 @@ class Attention(nn.Module):
         self.c = c
 
     def context(self, x, attn_bias, attention_mask, q_positions=None,
-                shard=None):
+                shard=None, one_pass_softmax=False):
         """Multi-head attention before the output projection: (B, Lq, H);
         with ``shard`` s, that of index shard s's heads (the q/k/v
-        linears split by ``parallel/sharding.py``), on its device."""
+        linears split by ``parallel/sharding.py``), on its device;
+        ``one_pass_softmax``: the xla path's softmax as kernel 10."""
         c = self.c
         dt = c.torch_dtype
         B, L, _ = x.shape
@@ -282,15 +291,11 @@ class Attention(nn.Module):
         q = proj(x_q, sa.query).view(B, Lq, nh, d).transpose(1, 2)
         k = proj(x, sa.key).view(B, L, nh, d).transpose(1, 2)
         v = proj(x, sa.value).view(B, L, nh, d).transpose(1, 2)
-        scale = torch.tensor(math.sqrt(d), dtype=torch.float32).to(dt)
-        scores = torch.matmul(q, k.transpose(-1, -2)) / scale   # (B,nh,Lq,L)
-        if c.attention_scores_dtype == "bfloat16":
-            scores = scores + attn_bias.to(dt)
-        else:
-            scores = scores.float() + attn_bias
-        m = scores.amax(-1, keepdim=True)
-        e = torch.exp(scores - m)
-        probs = (e / e.sum(-1, keepdim=True)).to(dt)
+        scale = _score_scale(d, dt)
+        scores = torch.matmul(q, k.transpose(-1, -2))            # (B,nh,Lq,L)
+        softmax = (masked_softmax if one_pass_softmax
+                   else masked_softmax_plain)
+        probs = softmax(scores, attn_bias, scale, c.attention_scores_dtype)
         out = torch.matmul(probs, v)                            # (B,nh,Lq,d)
         return out.transpose(1, 2).reshape(B, Lq, nh * d)
 
@@ -318,18 +323,33 @@ class EncoderLayer(nn.Module):
         self.act = _act(c.hidden_act)
 
     def forward(self, x, attn_bias, attention_mask, q_positions=None):
-        dt = self.c.torch_dtype
+        """With gradients off (inference), each elementwise chain between
+        two matmuls runs through its one-pass wrapper (kernels 9-11 on the
+        card, their plain twins on the CPU); with gradients on, the plain
+        twins, which autograd differentiates.  The activation's kernel is
+        erf-GELU's alone, the softmax's the xla attention's alone."""
         if isinstance(self.attention.self.query, ShardedLinear):
+            count("encoder.layers_plain", 1)
             return self._tensor_parallel(x, attn_bias, attention_mask,
                                          q_positions)
-        ctx = self.attention.context(x, attn_bias, attention_mask, q_positions)
-        attn_out = dense(ctx, self.attention.output.dense)
+        fused = not torch.is_grad_enabled()
+        count("encoder.layers_fused" if fused and x.is_cuda
+              else "encoder.layers_plain", 1)
+        add_ln = add_layer_norm if fused else add_layer_norm_plain
+        ctx = self.attention.context(x, attn_bias, attention_mask, q_positions,
+                                     one_pass_softmax=fused)
+        att = self.attention.output
         res = x if q_positions is None else x[:, :q_positions]
-        x = layer_norm(res + attn_out,
-                       self.attention.output.LayerNorm).to(dt)
-        inter = self.act(dense(x, self.intermediate.dense))
-        out = dense(inter, self.output.dense)
-        return layer_norm(x + out, self.output.LayerNorm).to(dt)
+        x = add_ln(_dense(ctx, att.dense.weight), att.dense.bias, res,
+                   att.LayerNorm)
+        lin = self.intermediate.dense
+        if fused and self.c.hidden_act == "gelu":
+            inter = bias_gelu(_dense(x, lin.weight), lin.bias)
+        else:
+            inter = self.act(dense(x, lin))
+        out = self.output
+        return add_ln(_dense(inter, out.dense.weight), out.dense.bias, x,
+                      out.LayerNorm)
 
     def _tensor_parallel(self, x, attn_bias, attention_mask, q_positions):
         """The layer over index shards (``parallel/sharding.py``): each

@@ -27,7 +27,8 @@ from typing import Dict, List
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("mips_scan", "mips_scan_mma", "mips_scan_i8", "two_phase",
-           "chunk_max_mma", "chunk_max_i8", "rescan_mma", "fused_attention")
+           "chunk_max_mma", "chunk_max_i8", "rescan_mma", "fused_attention",
+           "encoder_fused")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -65,6 +66,11 @@ SIGNATURES = {
         "fused_attention": ([I, I, I, P, P, P, P, I, I, I, I, I, F, LL, P,
                              P], I),
         "attention_divide": ([P, P, P, I, P], I),
+    },
+    "encoder_fused": {
+        "bias_gelu": ([I, I, P, P, P, LL, I, P], I),
+        "masked_softmax": ([I, I, P, P, P, LL, I, I, F, P], I),
+        "add_layer_norm": ([I, I, P, P, P, LL, P, P, P, LL, I, F, F, P], I),
     },
 }
 

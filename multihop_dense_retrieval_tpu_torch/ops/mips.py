@@ -36,9 +36,11 @@ shard of an index split by rows over a mesh (``core/mesh.py``) and merge
 the shards' candidates.
 
 ``LAUNCHES`` counts kernel launches per wrapper (kernel 8, the fused
-attention of ``fused_attention.py``, counts here too).  Every JAX ``top_k`` or
-``argsort`` mirrored here goes through ``topk_lower_index`` (a stable
-descending sort), so ties go to the lower index as in ``lax.top_k``.
+attention of ``fused_attention.py``, and kernels 9-11, the encoder's
+elementwise chains of ``encoder_fused.py``, count here too).  Every JAX
+``top_k`` or ``argsort`` mirrored here goes through ``topk_lower_index``
+(a stable descending sort), so ties go to the lower index as in
+``lax.top_k``.
 
 int8 scores are exact in the plain versions too: an int8 x int8 dot over
 D <= 1040 terms is an integer below 2^24, so fp32 products and sums of it
@@ -58,7 +60,8 @@ NEG_INF = -3.0e38
 
 LAUNCHES = {"mips_scan_int8": 0, "mips_scan": 0, "pca_chunk_max": 0,
             "pca_rescan_int8": 0, "rescan": 0, "chunk_max": 0,
-            "chunk_max_int8": 0, "fused_attention": 0}
+            "chunk_max_int8": 0, "fused_attention": 0, "bias_gelu": 0,
+            "masked_softmax": 0, "add_layer_norm": 0}
 
 # The JAX dispatcher's chunk rule, kept as the port's default so that the
 # chunk choice, the covering chunks and the tie order match the JAX

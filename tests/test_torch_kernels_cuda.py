@@ -963,6 +963,267 @@ def test_fused_encoder_on_card_matches_cpu(dev):
     torch.testing.assert_close(gpu.cpu(), cpu, atol=1e-4, rtol=1e-4)
 
 
+# ---- kernels 9-11: the encoder's elementwise chains ------------------------
+
+
+def _bf16_ulps(got, exp, floor=0.0):
+    """|got - exp| in bf16 ulps of max(|exp|, floor) (whatever the dtype:
+    fp32 outputs that differ by a few fp32 ulps read as a small fraction of
+    one)."""
+    e = exp.float().abs().clamp(min=floor)
+    _, ex = torch.frexp(e)
+    ulp = torch.where(e > 0, torch.ldexp(torch.ones_like(e), ex - 8),
+                      torch.full_like(e, 2.0 ** -133))
+    return (got.float() - exp.float()).abs().detach() / ulp
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,cols", [(37584, 3072), (16384, 4096),
+                                       (5, 40), (3, 37)])
+def test_bias_gelu_is_bit_equal_to_plain(dev, dtype, rows, cols):
+    """Kernel 9 at hop 2's FFN (37,584 tokens), the reader's (32 x 512 rows
+    of 4096) and widths off 16 bytes: bit for bit, saturated tails, zeros
+    and a bias that cancels the input included."""
+    from multihop_dense_retrieval_tpu_torch.ops.encoder_fused import (
+        bias_gelu, bias_gelu_plain)
+
+    g = _gen(dev, rows + cols)
+    y = (3 * torch.randn(rows, cols, device=dev, generator=g)).to(dtype)
+    bias = torch.randn(cols, device=dev, generator=g).to(dtype)
+    y[0, :4] = torch.tensor([0.0, -0.0, 12.0, -12.0]).to(dtype)
+    y[-1] = -bias
+    mips.reset_launch_counts()
+    got = bias_gelu(y, bias)
+    exp = bias_gelu_plain(y, bias)
+    torch.cuda.synchronize()
+    assert mips.LAUNCHES["bias_gelu"] == 1
+    assert got.dtype == dtype and torch.equal(got, exp)
+
+
+def _softmax_steps(raw, attn_bias, scale):
+    """The plain path's bf16-score steps up to the row sum: (e, sum)."""
+    dt = raw.dtype
+    s = raw / scale + attn_bias.to(dt)
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    return e, e.sum(-1, keepdim=True)
+
+
+# (B, nh, Lq, L, d): mhop.beam5.b100's tile 5 (63 rows at 350) and its
+# cls_only layer, hop 1 (100 x 70), the reader (32 x 512), a ragged square
+# of head dim 32 (a scale of 5.65625, whose reciprocal is inexact), the
+# widest row the kernel takes
+SOFTMAX_CASES = [(63, 12, 350, 350, 64), (63, 12, 1, 350, 64),
+                 (100, 12, 70, 70, 64), (32, 16, 512, 512, 64),
+                 (5, 4, 17, 17, 32), (3, 2, 1, 544, 32)]
+
+
+@pytest.mark.parametrize("dtype,scores_dtype", [
+    (torch.bfloat16, "float32"), (torch.bfloat16, "bfloat16"),
+    (torch.float32, "float32")])
+@pytest.mark.parametrize("case", SOFTMAX_CASES)
+def test_masked_softmax_within_an_ulp_of_plain(dev, case, dtype,
+                                               scores_dtype):
+    """Kernel 10 against its twin, ragged masks and a fully masked row.
+    The division by the CPU scalar is the product with its fp32
+    reciprocal (PyTorch's, checked here), which the kernel takes.
+    fp32 scores: the row sums differ in order only, so every probability
+    lies within 1 bf16 ulp of the twin's (fp32 outputs: within a few fp32
+    ulps), and at most 1e-3 of bf16 outputs differ at all.  bf16 scores:
+    every step before the sum is the twin's bit for bit, and the row sum
+    is rounded to bf16, so a row equals the twin's e / s exactly for s the
+    twin's bf16 sum or, where the fp32 sums in another order round the
+    other way, its bf16 neighbour (a share of rows at most 1e-3; those
+    rows' probabilities move by 1-2 ulps)."""
+    import math
+
+    from multihop_dense_retrieval_tpu_torch.ops.encoder_fused import (
+        masked_softmax, masked_softmax_plain)
+
+    b, nh, lq, w, d = case
+    g = _gen(dev, b * w + d)
+    raw = (3 * math.sqrt(d) * torch.randn(b, nh, lq, w, device=dev,
+                                          generator=g)).to(dtype)
+    lens = torch.randint(1, w + 1, (b,), device=dev, generator=g)
+    mask = torch.arange(w, device=dev)[None] < lens[:, None]
+    mask[-1] = False
+    attn_bias = torch.where(mask[:, None, None, :], 0.0, -1e9).to(
+        torch.float32)
+    scale = torch.tensor(math.sqrt(d), dtype=torch.float32).to(dtype)
+    inv = (torch.ones((), dtype=torch.float32) / scale.float()).to(dev)
+    assert torch.equal(raw / scale, (raw.float() * inv).to(dtype))
+    mips.reset_launch_counts()
+    got = masked_softmax(raw, attn_bias, scale, scores_dtype)
+    exp = masked_softmax_plain(raw, attn_bias, scale, scores_dtype)
+    torch.cuda.synchronize()
+    assert mips.LAUNCHES["masked_softmax"] == 1
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    if scores_dtype == "float32" or dtype == torch.float32:
+        off = _bf16_ulps(got, exp)
+        assert float(off.max()) <= 1.0, float(off.max())
+        if dtype == torch.bfloat16:
+            assert float((off > 0).float().mean()) <= 1e-3
+        return
+    e, s = _softmax_steps(raw, attn_bias, scale)
+    bits = s.view(torch.int16)                 # s >= 1: the next bf16 values
+    same = (got == exp).all(-1)
+    near = [(e / (bits + k).view(dtype) == got).all(-1) for k in (1, -1)]
+    assert bool((same | near[0] | near[1]).all())
+    assert float((~same).float().mean()) <= 1e-3
+
+
+# (rows, N, L, eps): mhop.beam5.b100's tile 5 (63 x 350 tokens), its
+# cls_only layer (63 rows, each 350 x 768 apart), hop 1, the reader (32 x
+# 512 at 1024, eps 1e-12), and widths off 16 bytes
+LN_CASES = [(63, 350, 768, 1e-5, False), (63, 350, 768, 1e-5, True),
+            (100, 70, 768, 1e-5, False), (32, 512, 1024, 1e-12, False),
+            (7, 9, 36, 1e-5, True), (3, 5, 37, 1e-5, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,w,n,eps,cls_only", LN_CASES)
+def test_add_layer_norm_within_an_ulp_of_plain(dev, dtype, b, w, n, eps,
+                                               cls_only):
+    """Kernel 11 against its twin.  The bias and residual adds are the
+    twin's bit for bit; the mean and E[h^2] differ by the order of their
+    row sums, a few fp32 ulps, so every output lies within 1 bf16 ulp of
+    the twin's, an output below 2^-8 in magnitude counted in ulps of 2^-8
+    (there the difference is one of fp32 terms of order 1, not of the
+    output), and at most 1e-3 of bf16 outputs differ at all."""
+    from multihop_dense_retrieval_tpu_torch.ops.encoder_fused import (
+        add_layer_norm, add_layer_norm_plain)
+
+    g = _gen(dev, b * n + w)
+    x = (2 * torch.randn(b, w, n, device=dev, generator=g) + 0.5).to(dtype)
+    res = x[:, :1] if cls_only else x
+    y = torch.randn(res.shape, device=dev, generator=g).to(dtype)
+    bias = (0.1 * torch.randn(n, device=dev, generator=g)).to(dtype)
+    ln = torch.nn.LayerNorm(n, eps=eps).to(dev)
+    with torch.no_grad():
+        ln.weight.copy_(1 + 0.1 * torch.randn(n, device=dev, generator=g))
+        ln.bias.copy_(0.1 * torch.randn(n, device=dev, generator=g))
+    mips.reset_launch_counts()
+    got = add_layer_norm(y, bias, res, ln)
+    exp = add_layer_norm_plain(y, bias, res, ln)
+    torch.cuda.synchronize()
+    assert mips.LAUNCHES["add_layer_norm"] == 1
+    assert got.dtype == dtype and got.shape == exp.shape
+    off = _bf16_ulps(got, exp, floor=2.0 ** -8)
+    assert float(off.max()) <= 1.0, float(off.max())
+    if dtype == torch.bfloat16:
+        assert float((off > 0).float().mean()) <= 1e-3
+
+
+def _plain_forward(fn, *args):
+    """``fn`` with gradients on (the layers' plain twins), nothing
+    recorded for a backward."""
+    with torch.enable_grad():
+        return fn(*args)
+
+
+def _fp32_twin(model, make):
+    """``make(config)`` in float32 with ``model``'s weights (bf16 values,
+    exact in fp32), on its device, for the plain path's reference."""
+    import dataclasses
+
+    twin = make(dataclasses.replace(model.config, dtype="float32"))
+    twin.load_state_dict({k: v.float() for k, v in
+                          model.state_dict().items()})
+    twin = twin.to(next(model.parameters()).device).eval()
+    for p in twin.parameters():
+        p.requires_grad_(False)
+    return twin
+
+
+KERNELS_9_11 = ("bias_gelu", "masked_softmax", "add_layer_norm")
+
+
+def test_retriever_forward_with_kernels_9_11_agrees_with_plain(dev):
+    """A roberta-base MhopRetriever (bf16, fp32 scores, cls_only) on the
+    card at mhop.beam5.b100's hop-1 batch (100 x 70) and hop-2 tile 5 (63
+    x 350): kernels 9 and 10 once a layer and kernel 11 twice (12 layers,
+    the last at one position), every layer counted fused.  Both bf16 paths
+    are held to the plain fp32 encoder as the benchmark's vec_err holds
+    the program (the largest |v - v32| / |v32| of a row): the kernels'
+    roundings differ from the plain path's only in rare 1-ulp flips, which
+    twelve layers spread like bf16's own rounding, so the kernels' error
+    is held below the limit 0.045 and within 1.5x of the plain path's."""
+    from multihop_dense_retrieval_tpu_torch.core.config import EncoderConfig
+    from multihop_dense_retrieval_tpu_torch.models import MhopRetriever
+    from multihop_dense_retrieval_tpu_torch.utils.profiling import recorder
+
+    cfg = EncoderConfig.roberta_base()
+    torch.manual_seed(0)
+    model = MhopRetriever(cfg, cls_only=True).to(dev).eval()
+    for p in model.parameters():
+        p.requires_grad_(False)
+    ref = _fp32_twin(model, lambda c: MhopRetriever(c, cls_only=True))
+    g = _gen(dev, 21)
+
+    def rel(v, v32):
+        return float(((v.float() - v32).norm(dim=-1)
+                      / v32.norm(dim=-1)).max())
+
+    for b, w in ((100, 70), (63, 350)):
+        ids = torch.randint(3, cfg.vocab_size, (b, w), device=dev, generator=g)
+        lens = torch.randint(8, w + 1, (b,), device=dev, generator=g)
+        mask = (torch.arange(w, device=dev)[None] < lens[:, None]).int()
+        ids = torch.where(mask.bool(), ids, cfg.pad_token_id)
+        mips.reset_launch_counts()
+        with torch.inference_mode(), recorder() as timers:
+            got = model.encode_seq(ids, mask)
+        assert {k: mips.LAUNCHES[k] for k in KERNELS_9_11} == {
+            "bias_gelu": 12, "masked_softmax": 12, "add_layer_norm": 24}
+        assert dict(timers.counters) == {"encoder.layers_fused": 12}
+        exp = _plain_forward(model.encode_seq, ids, mask)
+        v32 = _plain_forward(ref.encode_seq, ids, mask)
+        assert mips.LAUNCHES["bias_gelu"] == 12
+        err, err_plain = rel(got, v32), rel(exp, v32)
+        assert err <= min(0.045, 1.5 * err_plain), (err, err_plain)
+
+
+def test_reader_forward_with_kernels_9_11_agrees_with_plain(dev):
+    """An ELECTRA-large QAReader (bf16 scores, eps 1e-12) on the card at
+    read.top5.q64's batch of 32 x 512: kernels 9 and 10 once and kernel 11
+    twice in each of 24 layers.  As in the retriever's test, both bf16
+    paths are held to the plain fp32 reader: the largest |logit - fp32| of
+    the span, rank and supporting-sentence logits (the benchmark's
+    logit_err and sp_err read the same) below logit_err's limit 0.3 and
+    within 1.5x of the plain path's."""
+    from multihop_dense_retrieval_tpu_torch.core.config import EncoderConfig
+    from multihop_dense_retrieval_tpu_torch.models import QAReader
+
+    cfg = EncoderConfig.electra_large(attention_scores_dtype="bfloat16")
+    torch.manual_seed(0)
+    model = QAReader(cfg, sp_pred=True).to(dev).eval()
+    for p in model.parameters():
+        p.requires_grad_(False)
+    ref = _fp32_twin(model, lambda c: QAReader(c, sp_pred=True))
+    g = _gen(dev, 22)
+    b, w = 32, 512
+    lens = torch.randint(64, w + 1, (b,), device=dev, generator=g)
+    mask = (torch.arange(w, device=dev)[None] < lens[:, None]).int()
+    batch = {"input_ids": torch.randint(3, cfg.vocab_size, (b, w), device=dev,
+                                        generator=g) * mask,
+             "attention_mask": mask,
+             "token_type_ids": (torch.arange(w, device=dev)[None] >= 40
+                                ).int() * mask,
+             "paragraph_mask": mask.clone(),
+             "sent_offsets": torch.randint(1, 64, (b, 8), device=dev,
+                                           generator=g)}
+    mips.reset_launch_counts()
+    with torch.inference_mode():
+        got = model(batch)
+    assert {k: mips.LAUNCHES[k] for k in KERNELS_9_11} == {
+        "bias_gelu": 24, "masked_softmax": 24, "add_layer_norm": 48}
+    exp = _plain_forward(model, batch)
+    out32 = _plain_forward(ref, batch)
+    for k in ("start_logits", "end_logits", "rank_score", "sp_score"):
+        keep = out32[k] > -1e20
+        err = float((got[k] - out32[k])[keep].abs().max())
+        err_plain = float((exp[k] - out32[k])[keep].abs().max())
+        assert err <= min(0.3, 1.5 * err_plain), (k, err, err_plain)
+
+
 # ---- beam-4 serving on the card (pruning, the stop-skip cascade) ----------
 
 
